@@ -1,0 +1,176 @@
+"""Host-side CSR matrix with global node ids and multi-link (rating) values.
+
+The port's copy of ``stargcn_tpu/graph/csr.py``, cut to what building a
+graph, splitting it into train/valid/test variants and exporting it for
+serving need.  Every array it returns is identical to the JAX package's
+for the same input.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from stargcn_tpu_torch.graph import kernels as K
+
+
+class NodeIDRMap:
+    """Dense id -> index reverse map over ``[ids.min(), ids.max()]``."""
+
+    def __init__(self, node_ids: np.ndarray):
+        node_ids = np.asarray(node_ids, dtype=np.int32)
+        if node_ids.size == 0:
+            self._base = 0
+            self._rmap = np.full((1,), -1, dtype=np.int32)
+            return
+        self._base = int(node_ids.min())
+        size = int(node_ids.max()) - self._base + 1
+        self._rmap = np.full((size,), -1, dtype=np.int32)
+        self._rmap[node_ids - self._base] = np.arange(
+            node_ids.size, dtype=np.int32)
+
+    def __getitem__(self, node_ids):
+        return self._rmap[np.asarray(node_ids, dtype=np.int32) - self._base]
+
+
+class CSRMat:
+    """CSR matrix keyed by global row/col node ids with float edge values.
+
+    ``multi_link`` is the sorted array of possible edge (rating) values.
+    Edge removal returns a new ``CSRMat`` in the same global id space.
+    """
+
+    def __init__(self, ind_ptr, end_points, values, row_ids, col_ids,
+                 multi_link=None):
+        self.ind_ptr = np.ascontiguousarray(ind_ptr, dtype=np.int32)
+        self.end_points = np.ascontiguousarray(end_points, dtype=np.int32)
+        self.values = np.ascontiguousarray(values, dtype=np.float32)
+        self.row_ids = np.ascontiguousarray(row_ids, dtype=np.int32)
+        self.col_ids = np.ascontiguousarray(col_ids, dtype=np.int32)
+        self.multi_link = (
+            None if multi_link is None
+            else np.sort(np.asarray(multi_link).astype(np.float32)))
+        assert self.ind_ptr.shape[0] == self.row_ids.shape[0] + 1
+        assert self.ind_ptr[0] == 0 and self.ind_ptr[-1] == self.nnz
+        self._row_id_rmap = NodeIDRMap(self.row_ids)
+        self._col_id_rmap = NodeIDRMap(self.col_ids)
+        self._cached_node_pair_ids = None
+
+    @staticmethod
+    def from_coo(rows, cols, values, num_rows, num_cols, multi_link=None):
+        """Build from COO triples in index space (identity ids): columns
+        sorted within each row, duplicate pairs summed (as
+        ``scipy.sparse.coo_matrix(...).tocsr()`` does)."""
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        values = np.asarray(values, dtype=np.float32)
+        keys = rows * num_cols + cols
+        order = np.argsort(keys, kind="stable")
+        keys = keys[order]
+        first = np.ones(keys.size, dtype=bool)
+        first[1:] = keys[1:] != keys[:-1]
+        starts = np.flatnonzero(first)
+        vals = (np.add.reduceat(values[order], starts) if keys.size
+                else values)
+        keys = keys[starts]
+        counts = np.bincount(keys // num_cols, minlength=num_rows)
+        return CSRMat(
+            ind_ptr=np.concatenate([[0], np.cumsum(counts)]),
+            end_points=keys % num_cols, values=vals,
+            row_ids=np.arange(num_rows, dtype=np.int32),
+            col_ids=np.arange(num_cols, dtype=np.int32),
+            multi_link=multi_link)
+
+    @property
+    def shape(self):
+        return (self.row_ids.shape[0], self.col_ids.shape[0])
+
+    @property
+    def nnz(self):
+        return self.end_points.shape[0]
+
+    @property
+    def row_indices(self):
+        """COO row index per edge."""
+        return K.row_indices_from_indptr(self.ind_ptr, self.nnz)
+
+    @property
+    def node_pair_ids(self):
+        """(2, nnz) [row_id; col_id] per edge."""
+        if self._cached_node_pair_ids is None:
+            self._cached_node_pair_ids = np.stack(
+                [self.row_ids[self.row_indices],
+                 self.col_ids[self.end_points]], axis=0)
+        return self._cached_node_pair_ids
+
+    def row_id_to_ind(self, node_ids):
+        return self._row_id_rmap[node_ids]
+
+    def col_id_to_ind(self, node_ids):
+        return self._col_id_rmap[node_ids]
+
+    def _ids_to_inds(self, node_pair_ids):
+        node_pair_ids = np.asarray(node_pair_ids)
+        return np.stack([self.row_id_to_ind(node_pair_ids[0]),
+                         self.col_id_to_ind(node_pair_ids[1])])
+
+    def edge_indices_by_pair_indices(self, node_pair_indices):
+        """Positions (into the edge arrays) of (2, N) [row_index;
+        col_index] pairs; -1 when the pair is not an edge."""
+        node_pair_indices = np.asarray(node_pair_indices, dtype=np.int64)
+        key_edges = (self.row_indices.astype(np.int64) * self.shape[1]
+                     + self.end_points)
+        order = np.argsort(key_edges, kind="stable")
+        sorted_keys = key_edges[order]
+        q = node_pair_indices[0] * self.shape[1] + node_pair_indices[1]
+        pos = np.searchsorted(sorted_keys, q)
+        pos = np.clip(pos, 0, max(sorted_keys.size - 1, 0))
+        out = np.full(q.shape, -1, dtype=np.int64)
+        if sorted_keys.size:
+            found = sorted_keys[pos] == q
+            out[found] = order[pos[found]]
+        return out
+
+    def edge_indices_by_id(self, node_pair_ids):
+        """Positions of the given [row_id; col_id] pairs; -1 when
+        absent."""
+        return self.edge_indices_by_pair_indices(
+            self._ids_to_inds(node_pair_ids))
+
+    def fetch_edges_by_id(self, node_pair_ids):
+        """Edge values for (2, N) [row_id; col_id] pairs; 0 when the pair
+        is not an edge."""
+        idx = self.edge_indices_by_id(node_pair_ids)
+        out = np.zeros(idx.shape, dtype=np.float32)
+        out[idx >= 0] = self.values[idx[idx >= 0]]
+        return out
+
+    def remove_edges_by_id(self, node_pair_ids):
+        """New CSRMat without the given [row_id; col_id] edges."""
+        edge_idx = self.edge_indices_by_id(node_pair_ids)
+        keep = np.ones(self.nnz, dtype=bool)
+        keep[edge_idx[edge_idx >= 0]] = False
+        row_idx = self.row_indices[keep]
+        new_ind_ptr = np.zeros(self.shape[0] + 1, dtype=np.int32)
+        np.add.at(new_ind_ptr[1:], row_idx, 1)
+        new_ind_ptr = np.cumsum(new_ind_ptr).astype(np.int32)
+        return CSRMat(
+            ind_ptr=new_ind_ptr, end_points=self.end_points[keep],
+            values=self.values[keep], row_ids=self.row_ids,
+            col_ids=self.col_ids, multi_link=self.multi_link)
+
+    @property
+    def T(self):
+        """Transposed CSRMat.  A stable sort of the edges by column keeps
+        each new row's entries in ascending original-row order."""
+        perm = np.argsort(self.end_points, kind="stable")
+        counts = np.bincount(self.end_points, minlength=self.shape[1])
+        return CSRMat(
+            ind_ptr=np.concatenate([[0], np.cumsum(counts)]),
+            end_points=self.row_indices[perm],
+            values=self.values[perm],
+            row_ids=self.col_ids, col_ids=self.row_ids,
+            multi_link=self.multi_link)
+
+    def __repr__(self):
+        ml = None if self.multi_link is None else list(self.multi_link)
+        return f"CSRMat(shape={self.shape}, nnz={self.nnz}, multi_link={ml})"
