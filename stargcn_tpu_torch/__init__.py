@@ -10,11 +10,12 @@ The port imports ``torch``, numpy and PyYAML only — never ``jax``,
 under ``ops/csrc/``, built with ``nvcc`` at first use; each has a plain
 PyTorch version beside it that runs whenever its input lies on the CPU.
 
-Covered so far: the serving export on the ``bitdense`` backend (config ->
-synthetic graph -> ``DataIterator`` -> bit packs -> eval-mode ``STARGCN``
--> ``ServingArtifact`` -> ``Predictor``), with ``bit_expand_matmul`` as a
-CUDA kernel.  Entry points run on ``device="cuda"`` unless the caller asks
-for ``device="cpu"``.
+Covered so far: full-graph transductive training and serving on the
+``bitdense`` backend (config -> synthetic graph -> ``DataIterator`` -> bit
+packs -> ``train.Trainer`` -> ``serve.export_serving`` ->
+``ServingArtifact`` -> ``Predictor``), with ``bit_expand_matmul`` and its
+backward ``bit_reduce_matmul`` as CUDA kernels.  Entry points run on
+``device="cuda"`` unless the caller asks for ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,5 @@
-"""Parameter conversion between the JAX package's flax tree and the port.
+"""Parameter and optimiser-state conversion between the JAX package's flax
+tree and the port.
 
 The flax tree of ``stargcn_tpu.models.stargcn.STARGCN`` (``Trainer.params``)
 holds, per leaf path:
@@ -14,6 +15,11 @@ The port's modules carry the same names, so a path maps to a
 ``state_dict`` key by joining with '.'; a flax ``embedding`` becomes
 ``nn.Embedding.weight`` and a flax ``kernel (in, out)`` becomes
 ``nn.Linear.weight (out, in)``.
+
+The Adam moments of the JAX trainer's optax state (``ScaleByAdamState``:
+``count``, ``mu``, ``nu``, the two trees shaped like the parameters) map
+the same way onto the port's ``train.loop.ClipAdam`` state.  The caller
+pulls the three out of the optax state and hands them over as numpy.
 """
 
 from __future__ import annotations
@@ -65,3 +71,17 @@ def flax_from_params(state_dict) -> dict:
             node = node.setdefault(m, {})
         node[name] = np.ascontiguousarray(a)
     return tree
+
+
+def optimizer_state_from_optax(count, mu_tree, nu_tree) -> dict:
+    """Adam's step count and moment trees (nested dicts of arrays in the
+    flax layout) -> a ``ClipAdam.load_state_dict`` state."""
+    return {"count": int(count), "mu": dict(params_from_flax(mu_tree)),
+            "nu": dict(params_from_flax(nu_tree))}
+
+
+def optimizer_state_to_optax(state):
+    """The inverse of :func:`optimizer_state_from_optax`:
+    ``(count, mu_tree, nu_tree)`` with numpy leaves in the flax layout."""
+    return (int(state["count"]), flax_from_params(state["mu"]),
+            flax_from_params(state["nu"]))

@@ -2,8 +2,9 @@
 
 The port's copy of ``stargcn_tpu/graph/device.py``.  The whole bipartite
 rating graph lives on the device as padded flat edge arrays; every graph
-variant (train/valid/test) is a float mask over them.  The pair-lookup
-fields that per-batch edge removal reads come with the training slice.
+variant (train/valid/test) is a float mask over them.  Per-batch edge
+removal looks its pairs up on the host (``train.loop.Trainer``); the
+device-side pair-lookup keys of the JAX class are not ported.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 The port of ``stargcn_tpu/models/common.py``: 'leaky' is LeakyReLU with
 slope 0.1; kernels are Xavier with factor 'in' (``U(+-sqrt(3 / fan_in))``,
 flax's ``variance_scaling(1.0, 'fan_in', 'uniform')``), embeddings
-``U(-0.1, 0.1)``.  Initialisers draw from an explicit ``torch.Generator``.
+``U(-0.1, 0.1)``.  Initialisers and ``dropout`` draw from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -47,3 +48,17 @@ def dense(in_units: int, out_units: int, generator) -> torch.nn.Linear:
     with torch.no_grad():
         lin.bias.zero_()
     return lin
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator=None) -> torch.Tensor:
+    """Inverted dropout as flax's ``nn.Dropout``: the identity unless
+    ``train`` and ``rate > 0``; else every element is kept with probability
+    ``1 - rate`` and scaled by ``1 / (1 - rate)``.  The mask is drawn from
+    ``generator``, which lies on x's device."""
+    if not train or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return x * keep / (1.0 - rate)

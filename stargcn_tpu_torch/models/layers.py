@@ -10,29 +10,33 @@ Module names match the flax tree (``agg_{t}_{s}``, ``out_fc_{t}``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from stargcn_tpu_torch.models.aggregators import MultiLinkGCNAggregator
-from stargcn_tpu_torch.models.common import dense, get_activation
+from stargcn_tpu_torch.models.common import dense, dropout, get_activation
 
 
 @dataclasses.dataclass(frozen=True)
 class BitStatic:
     """Bit-packed dense aggregation operands for one direction (see
     ``ops.bitdense``): this direction's 1-bit multi-link adjacency
-    (``p_fwd``), the transpose layout its backward will read (``p_bwd``),
-    and the separable degree-scale vectors.  The removed-batch-edge
-    correction arrays come with the training slice."""
+    (``p_fwd``), the transpose layout its backward reads (``p_bwd``), the
+    separable degree-scale vectors, and the optional arrays of the batch
+    edges removed from this step's graph."""
 
     p_fwd: torch.Tensor                 # (R * d8_dst, S_pad) uint8
     p_bwd: torch.Tensor                 # (R * d8_src, D_pad) uint8
     dst_scale: torch.Tensor             # (num_dst,)
     src_scale: torch.Tensor             # (num_src,)
-    d8_dst: int
-    d8_src: int
+    rem_src: Optional[torch.Tensor] = None     # (B,) int64 removed edges
+    rem_dst: Optional[torch.Tensor] = None
+    rem_rating: Optional[torch.Tensor] = None
+    rem_weight: Optional[torch.Tensor] = None  # (B,) 1 for a real edge
+    d8_dst: int = 0
+    d8_src: int = 0
     impl: str = "kernel"                # 'kernel' | 'plain'
 
 
@@ -43,33 +47,40 @@ class HeterGCNLayer(nn.Module):
       meta: target type -> neighbor types.
       in_units: feature width of every node type's input.
       agg_units / out_units: aggregator and output widths (every target).
+      dropout_rate: in training, on each aggregator's source features and
+        on its output.
     """
 
     def __init__(self, meta: Dict[str, Sequence[str]], in_units: int,
                  agg_units: int, out_units: int, num_links: int,
+                 dropout_rate: float = 0.0,
                  agg_ordinal_sharing: bool = False, agg_accum: str = "stack",
                  agg_act="relu", out_act=None, generator=None):
         super().__init__()
         self.meta = {t: list(s) for t, s in meta.items()}
         self.out_act = out_act
+        self.dropout_rate = dropout_rate
         for t, sources in self.meta.items():
             for s in sources:
                 self.add_module(f"agg_{t}_{s}", MultiLinkGCNAggregator(
                     in_units, agg_units, num_links, act=agg_act,
+                    dropout_rate=dropout_rate,
                     ordinal_sharing=agg_ordinal_sharing, accum=agg_accum,
                     generator=generator))
             self.add_module(f"out_fc_{t}", dense(
                 agg_units * len(sources), out_units, generator))
 
-    def forward(self, features, relations):
+    def forward(self, features, relations, *, train: bool = False,
+                generator=None):
         """``relations[(t, s)]`` is the ``BitStatic`` of aggregation into
         ``t`` from ``s``."""
         act = get_activation(self.out_act)
         out = {}
         for t, sources in self.meta.items():
-            pooled = [getattr(self, f"agg_{t}_{s}")(features[s],
-                                                    relations[(t, s)])
-                      for s in sources]
+            pooled = [dropout(getattr(self, f"agg_{t}_{s}")(
+                features[s], relations[(t, s)], train=train,
+                generator=generator), self.dropout_rate, train, generator)
+                for s in sources]
             acc = pooled[0] if len(pooled) == 1 else torch.cat(pooled, -1)
             out[t] = act(getattr(self, f"out_fc_{t}")(acc))
         return out
@@ -86,9 +97,12 @@ class StackedHeterGCNLayers(nn.Module):
             self.add_module(f"l{i}", HeterGCNLayer(**cfg,
                                                    generator=generator))
 
-    def forward(self, features, relations):
+    def forward(self, features, relations, *, train: bool = False,
+                generator=None):
         for i in range(self.num_layers):
-            features = getattr(self, f"l{i}")(features, relations)
+            features = getattr(self, f"l{i}")(features, relations,
+                                              train=train,
+                                              generator=generator)
         return features
 
 

@@ -1,9 +1,11 @@
 """STAR-GCN: stacked & reconstructed GCN for rating prediction (PyTorch).
 
-The port of ``stargcn_tpu/models/stargcn.py`` on the ``bitdense`` backend,
-evaluation mode: embeddings with noise masking -> per block [encoder ->
-rating head -> decoder], with the static per-variant bit packs and degree
-vectors built outside the forward.  Module names match the flax tree
+The port of ``stargcn_tpu/models/stargcn.py`` on the ``bitdense`` backend:
+embeddings with noise masking -> per block [encoder -> rating head ->
+decoder], with the static per-variant bit packs and degree vectors built
+outside the forward.  In training the batch's own edges leave the graph as
+a batch-sized correction of the degrees and of each aggregation, and
+dropout draws from the caller's generator.  Module names match the flax tree
 (``embed_user``, ``enc_b{p}``, ``rating_user_proj_b{p}``,
 ``embed_map_b{p}_{key}_l{0,1}``), so ``convert.params_from_flax`` maps
 parameters one to one.
@@ -27,12 +29,13 @@ from stargcn_tpu_torch.models.layers import (
     StackedHeterGCNLayers,
 )
 from stargcn_tpu_torch.ops.bitdense import resolve_impl
+from stargcn_tpu_torch.ops.gather import onehot_segment_sum, take_rows
 
 
 @dataclasses.dataclass(frozen=True)
 class STARGCNConfig:
     """Model hyperparameters (the fields of
-    ``stargcn_tpu.models.stargcn.STARGCNConfig`` that this slice reads or
+    ``stargcn_tpu.models.stargcn.STARGCNConfig`` that the port reads or
     rejects)."""
 
     num_users: int
@@ -80,9 +83,12 @@ def _check_supported(cfg: STARGCNConfig):
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"not ported yet ({', '.join(bad)}): this slice serves the "
-            "bitdense backend in float32 with learned embeddings; the "
-            "training slice adds the other backends and options")
+            f"not ported yet ({', '.join(bad)}): the port trains and "
+            "serves the bitdense backend in float32 with learned "
+            "embeddings; the other backends come with the slice that "
+            "ports ops/agg.py and ops/chunked_ell.py, bfloat16 compute, "
+            "per-edge dropout and feature projection with the slices "
+            "that port them")
 
 
 class STARGCN(nn.Module):
@@ -115,6 +121,7 @@ class STARGCN(nn.Module):
                 layer_cfgs.append(dict(
                     meta=meta, in_units=in_units, agg_units=au,
                     out_units=ou, num_links=cfg.num_links,
+                    dropout_rate=cfg.gcn_dropout,
                     agg_ordinal_sharing=cfg.agg_ordinal_sharing,
                     agg_accum=cfg.agg_accum, agg_act=cfg.activation,
                     out_act=cfg.activation))
@@ -133,9 +140,10 @@ class STARGCN(nn.Module):
         self.gen_ratings = InnerProductLayer()
 
     def forward(self, noise_user, noise_item, pairs_user, pairs_item,
-                variant_degrees, bit_pack, *, train: bool = False,
+                variant_degrees, bit_pack, removed_pairs=None, *,
+                train: bool = False, generator=None,
                 return_rating_feats: bool = False):
-        """Eval-mode forward over one graph variant.
+        """Forward over one graph variant.
 
         Args:
           noise_user / noise_item: ``(N,)`` int noise arrays (-1 = mask
@@ -144,6 +152,12 @@ class STARGCN(nn.Module):
           variant_degrees: ``(deg_user, deg_item)`` float degree vectors
             of the variant.
           bit_pack: the variant's ``ops.bitdense.build_bit_pack`` dict.
+          removed_pairs: ``(pu, pi, hit, rating)`` of the batch edges to
+            take out of the graph for this step: int64 node ids and
+            rating levels, ``hit`` float, 1 where the pair is an edge of
+            the variant (the lookup is done on the host).
+          train: apply dropout (``GCN.DROPOUT``), drawn from
+            ``generator``, a ``torch.Generator`` on the model's device.
 
         Returns a dict with ``pred_ratings`` ``(nblocks, B)``,
         ``pred_embed`` (per block ``{'user', 'item'}`` reconstructed
@@ -151,15 +165,21 @@ class STARGCN(nn.Module):
         ``return_rating_feats``, ``rating_feats``: the last block's
         projected node states, from which any rating is one inner product.
         """
-        if train:
-            raise NotImplementedError(
-                "the training forward (dropout, removed edges, gradients "
-                "through the bit kernels) comes with the training slice")
         cfg = self.cfg
         act = get_activation(cfg.activation)
+        if removed_pairs is not None and len(removed_pairs) != 4:
+            raise NotImplementedError(
+                "removed_pairs takes the host-computed (pu, pi, hit, "
+                "rating) tuple; the 3-tuple form with the lookup on the "
+                "device comes with the pair-lookup keys of graph/device.py")
         deg_u, deg_i = variant_degrees
+        if removed_pairs is not None:
+            # Static variant degrees corrected for the removed batch edges.
+            pu, pi, hit, _ = removed_pairs
+            deg_u = deg_u - onehot_segment_sum(hit, pu, cfg.num_users)
+            deg_i = deg_i - onehot_segment_sum(hit, pi, cfg.num_items)
         bit_u, bit_i = _build_bit_static_operands(cfg, bit_pack, deg_u,
-                                                  deg_i)
+                                                  deg_i, removed_pairs)
         relations = {("user", "item"): bit_u, ("item", "user"): bit_i}
 
         gt_embed = {"user": self.embed_user.weight,
@@ -174,11 +194,13 @@ class STARGCN(nn.Module):
         rating_feats = None
         for block_id in range(cfg.nblocks):
             p = 0 if cfg.use_recurrent else block_id
-            output = getattr(self, f"enc_b{p}")(feats, relations)
+            output = getattr(self, f"enc_b{p}")(
+                feats, relations, train=train, generator=generator)
             user_proj = getattr(self, f"rating_user_proj_b{p}")
             item_proj = getattr(self, f"rating_item_proj_b{p}")
-            score = self.gen_ratings(user_proj(output["user"][pairs_user]),
-                                     item_proj(output["item"][pairs_item]))
+            score = self.gen_ratings(
+                user_proj(take_rows(output["user"], pairs_user)),
+                item_proj(take_rows(output["item"], pairs_item)))
             pred_ratings.append(score[:, 0])
             if return_rating_feats and block_id == cfg.nblocks - 1:
                 rating_feats = {"user": user_proj(output["user"]),
@@ -216,17 +238,25 @@ def _norm_scales(cfg, deg_u, deg_i):
             "item": (inv_i, torch.ones_like(deg_u))}
 
 
-def _build_bit_static_operands(cfg, bit_pack, deg_u, deg_i):
+def _build_bit_static_operands(cfg, bit_pack, deg_u, deg_i,
+                               removed_info=None):
     """``BitStatic`` operands for both aggregation directions; each
-    direction's ``pb`` is the other's forward layout."""
+    direction's ``pb`` is the other's forward layout.  ``removed_info``:
+    optional ``(pu, pi, hit, rating)`` removed-edge arrays."""
     impl = resolve_impl(cfg.bit_impl)
     scales = _norm_scales(cfg, deg_u, deg_i)
+    rem = {"user": (None,) * 4, "item": (None,) * 4}
+    if removed_info is not None:
+        pu, pi, hit, r = removed_info
+        rem = {"user": (pi, pu, r, hit), "item": (pu, pi, r, hit)}
 
     def make(t):
         p = bit_pack[t]
+        rs, rd, rr, rw = rem[t]
         return BitStatic(
             p_fwd=p["pf"], p_bwd=p["pb"],
             dst_scale=scales[t][0], src_scale=scales[t][1],
+            rem_src=rs, rem_dst=rd, rem_rating=rr, rem_weight=rw,
             d8_dst=p["pf"].shape[0] // cfg.num_links,
             d8_src=p["pb"].shape[0] // cfg.num_links, impl=impl)
 

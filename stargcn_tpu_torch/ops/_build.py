@@ -3,8 +3,9 @@
 Each ``ops/csrc/<name>.cu`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, and loaded with
 ``ctypes``.  Libraries go to ``stargcn_tpu_torch/_build/`` (git-ignored),
-named by a hash of the source and flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is.  Several sources build in
+named by a hash of the source, the headers beside it (``csrc/*.cuh``) and
+the flags, so an edited source is rebuilt and an unchanged one is loaded as
+it is.  Several sources build in
 parallel, one ``nvcc`` each.  Nothing is built when the package is
 imported.
 """
@@ -27,9 +28,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # name -> (C function, ctypes argtypes) for every kernel library.
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 SIGNATURES = {
     "bit_expand": ("bit_expand_matmul_launch",
                    [_P, _P, _I, _P, _I, _I, _I, _I, _P]),
+    "bit_reduce": ("bit_reduce_matmul_launch",
+                   [_P, _P, _I, _P, _I, _I, _I, _I, _L, _L, _P]),
 }
 
 _lock = threading.Lock()
@@ -47,6 +51,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(_CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -24,38 +24,26 @@
 //
 // Design: a block of 8 warps owns 8/splits packed rows and every column of
 // one feature tile; the `splits` warps of a row walk interleaved 512-byte
-// steps of S with coalesced 16-byte loads, and their partial sums are added
-// in a fixed order through shared memory.  No two blocks write the same
-// output and no atomics are used, so the result does not depend on
-// scheduling.  `splits` (1, 2, 4 or 8) grows while the card would still
-// hold fewer than ~8 waves of warps and each warp keeps >= 4 steps: the
-// item direction (14080 rows of 70656 bytes) needs the extra warps to keep
-// enough loads in flight, the user direction (88320 short rows) does not.
-// In a step, a ballot finds the lanes holding a non-zero byte; each such
-// lane's 16 bytes are broadcast and, for every non-zero byte, the
-// bf16-rounded source row is read once and added into the eight per-bit
-// accumulators its set bits select.  Lane l keeps columns l, l+32, ... of
-// all eight accumulators in registers (unrolled, so no local memory).  P is
-// read with an evict-first hint so the streamed pack does not push x out
-// of L2.  A dense P is still exact, only slower.  Columns past F (F=65 is
-// odd) are masked.
+// steps of S, and their partial sums are added in a fixed order through
+// shared memory.  No two blocks write the same output and no atomics are
+// used, so the result does not depend on scheduling.  `splits` (1, 2, 4 or
+// 8, see bit_walk.cuh:pick_splits) grows for the item direction (14080 rows
+// of 70656 bytes), which needs the extra warps to keep enough loads in
+// flight; the user direction (88320 short rows) stays at one warp per row.
+// The walk itself (coalesced 16-byte loads, a ballot to skip zero bytes, one
+// bf16-rounded source row read per non-zero byte, per-bit f32 accumulators
+// in registers) is bit_walk.cuh:walk_step, shared with bit_reduce.cu.  A
+// dense P is still exact, only slower.  Columns past F (F=65 is odd) are
+// masked.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bit_walk.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;          // warps per block
-constexpr int kColTile = 256;      // feature columns per grid.y tile
-constexpr int kMaxK = kColTile / 32;
+using bitwalk::kColTile;
+using bitwalk::kMaxK;
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ float bf16_round(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+constexpr int kWarps = 8;          // warps per block
 
 // kSplit: whether splits > 1.  The reduction costs registers, so the
 // unsplit instances leave it out and keep more warps resident.
@@ -82,91 +70,22 @@ bit_expand_kernel(const uint8_t* __restrict__ P, const T* __restrict__ x,
   const uint4* prow = reinterpret_cast<const uint4*>(
       P + static_cast<size_t>(live ? row : 0) * s_pad);
   const int n16 = live ? (s_pad >> 4) : 0;
-  for (int base = part * 32; base < n16; base += splits * 32) {
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (base + lane < n16) v = __ldcs(prow + base + lane);
-    unsigned lanes = __ballot_sync(0xffffffffu, (v.x | v.y | v.z | v.w) != 0u);
-    while (lanes) {
-      const int src = __ffs(lanes) - 1;
-      lanes &= lanes - 1u;
-      uint32_t words[4];
-      words[0] = __shfl_sync(0xffffffffu, v.x, src);
-      words[1] = __shfl_sync(0xffffffffu, v.y, src);
-      words[2] = __shfl_sync(0xffffffffu, v.z, src);
-      words[3] = __shfl_sync(0xffffffffu, v.w, src);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t w = words[j];
-        while (w) {
-          const int p = (__ffs(w) - 1) >> 3;  // lowest non-zero byte
-          const uint32_t byte = (w >> (8 * p)) & 0xffu;
-          w &= ~(0xffu << (8 * p));
-          const int s = ((base + src) << 4) + (j << 2) + p;
-          const T* xr = x + static_cast<size_t>(s) * f;
-          float xv[K];
-#pragma unroll
-          for (int k = 0; k < K; ++k) {
-            const int c = col0 + 32 * k;
-            xv[k] = c < f ? bf16_round(__ldg(xr + c)) : 0.f;
-          }
-#pragma unroll
-          for (int b = 0; b < 8; ++b) {
-            if (byte & (1u << b)) {
-#pragma unroll
-              for (int k = 0; k < K; ++k) acc[b][k] += xv[k];
-            }
-          }
-        }
-      }
-    }
-  }
+  for (int base = part * 32; base < n16; base += splits * 32)
+    bitwalk::walk_step<T, K>(prow, n16, base, lane, x,
+                             static_cast<size_t>(f), col0, f, acc);
 
   const int r = row / d8;
   const int m = row - r * d8;
-#pragma unroll
-  for (int b = 0; b < 8; ++b) {
-    if constexpr (kSplit) {
-      // Part 0 adds parts 1..splits-1 in order: deterministic.
-#pragma unroll
-      for (int k = 0; k < K; ++k) red[warp][k][lane] = acc[b][k];
-      __syncthreads();
-      if (part == 0) {
-        for (int q = 1; q < splits; ++q)
-#pragma unroll
-          for (int k = 0; k < K; ++k) acc[b][k] += red[warp + q][k][lane];
-      }
-      __syncthreads();
-    }
-    if (live && part == 0) {
-      float* orow = out + ((static_cast<size_t>(r) * 8 + b) * d8 + m) * f;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int c = col0 + 32 * k;
-        if (c < f) orow[c] = acc[b][k];
-      }
-    }
-  }
-}
-
-// Warps per packed row: see the design note above.
-int pick_splits(int m8, int s_pad) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long resident_warps = static_cast<long long>(sms) * 64;
-  const int steps = (s_pad >> 4) / 32;
-  int splits = 1;
-  while (splits < kWarps &&
-         static_cast<long long>(m8) * splits * 2 <= 8 * resident_warps &&
-         steps >= splits * 2 * 4)
-    splits *= 2;
-  return splits;
+  bitwalk::reduce_store<K, kSplit, kWarps>(
+      acc, red, warp, part, splits, lane, live, col0, f,
+      out + (static_cast<size_t>(r) * 8 * d8 + m) * f,
+      static_cast<size_t>(d8) * f);
 }
 
 template <typename T>
 void launch(const uint8_t* P, const T* x, float* out, int m8, int s_pad,
             int f, int d8, cudaStream_t stream) {
-  const int splits = pick_splits(m8, s_pad);
+  const int splits = bitwalk::pick_splits(m8, (s_pad >> 4) / 32, kWarps);
   const int rows_per_block = kWarps / splits;
   const dim3 grid((m8 + rows_per_block - 1) / rows_per_block,
                   (f + kColTile - 1) / kColTile);

@@ -1,12 +1,13 @@
 """STAR-GCN serving CLI (PyTorch): rating prediction and top-K
 recommendation.  The port of ``experiments/predict.py``.
 
-Export-and-serve on a synthetic graph (untrained parameters made from the
-config's seed)::
+Export-and-serve on a synthetic graph, from a checkpoint that
+``python -m stargcn_tpu_torch.train`` wrote (without ``--resume``:
+untrained parameters made from the config's seed)::
 
     python -m stargcn_tpu_torch.predict --cfg configs/transductive_ml_10m.yml \\
-        --dataset synthetic --backend bitdense --save_artifact art.npz \\
-        --users 1,2,3 --topk 10
+        --dataset synthetic --resume runs/ckpt_best_0.pt \\
+        --save_artifact art.npz --users 1,2,3 --topk 10
 
 Artifact-only serving (an ``.npz`` written by either package)::
 
@@ -66,8 +67,8 @@ def main(argv=None):
     parser.add_argument("--dataset", type=str, default=None)
     parser.add_argument("--seed", default=None, type=int)
     parser.add_argument("--resume", default=None, type=str,
-                        help="checkpoint with trained params (not ported "
-                             "yet)")
+                        help="checkpoint (.pt) with trained parameters, as "
+                             "python -m stargcn_tpu_torch.train writes it")
     parser.add_argument("--segment", default="test",
                         choices=["valid", "test"],
                         help="graph variant to encode (as in evaluation)")
@@ -89,9 +90,6 @@ def main(argv=None):
     parser.add_argument("--rank_eval", action="store_true",
                         help="HR@K/NDCG@K (not ported yet)")
     args = parser.parse_args(argv)
-    if args.resume:
-        parser.error("--resume is not ported yet: restoring a checkpoint "
-                     "comes with the checkpoint slice")
     if args.rank_eval:
         parser.error("--rank_eval is not ported yet: it comes with the "
                      "port of ranking.py")
@@ -119,10 +117,18 @@ def main(argv=None):
         if args.backend is not None:
             cfg.KERNEL.BACKEND = args.backend
         _, data_iter, model_cfg = build_dataset(cfg)
-        logging.warning("no checkpoint: serving UNTRAINED parameters "
-                        "(smoke-test mode)")
+        state_dict = None
+        if args.resume:
+            import torch
+
+            state_dict = torch.load(args.resume, map_location="cpu",
+                                    weights_only=True)["params"]
+            logging.info("parameters restored from %s", args.resume)
+        else:
+            logging.warning("no checkpoint: serving UNTRAINED parameters "
+                            "(smoke-test mode)")
         state = ServingState(model_cfg, data_iter, device=args.device,
-                             seed=cfg.SEED)
+                             seed=cfg.SEED, state_dict=state_dict)
         art = export_serving(state, segment=args.segment)
         if args.save_artifact:
             art.save(args.save_artifact)

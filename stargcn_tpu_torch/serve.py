@@ -11,10 +11,11 @@ is a complete scoring artifact: the encoder runs once at export, and a
 query is one dot product (``predict``) or one ``(B, mid) x (mid, Ni)``
 matmul plus top-k (``recommend``).
 
-* :class:`ServingState` — what the export reads from a trained model: the
-  parameters, the graph variants' edge masks and degrees, their bit packs
-  (built on first use), the rating scalars and the evaluation noise.
-* :func:`export_serving` — one eval-mode forward -> :class:`ServingArtifact`.
+* :class:`ServingState` — what the export reads from a ``Trainer``, for
+  parameters that come from elsewhere: the model, the graph variants'
+  operands (``train.loop.GraphVariants``), the rating scalars.
+* :func:`export_serving` — one eval-mode forward of a ``Trainer`` or a
+  :class:`ServingState` -> :class:`ServingArtifact`.
 * :class:`ServingArtifact` — ``U``, ``I``, the rating scalars and the
   rated edges in CSR form; ``save``/``load`` use the JAX package's
   ``.npz`` format, so artifacts move between the two packages.
@@ -29,9 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from stargcn_tpu_torch.graph.device import BipartiteGraphData
 from stargcn_tpu_torch.models.stargcn import STARGCN
-from stargcn_tpu_torch.ops.bitdense import build_bit_pack
+from stargcn_tpu_torch.train.loop import GraphVariants
 from stargcn_tpu_torch.utils.device import resolve_device
 
 NEG_INF = np.float32(-3.4e38)
@@ -99,7 +99,8 @@ def _pairs_to_csr(pairs: np.ndarray, num_users: int):
 
 class ServingState:
     """The model and the static per-variant operands the export reads —
-    what ``stargcn_tpu.serve.export_serving`` takes from a ``Trainer``.
+    what ``export_serving`` takes from a ``Trainer``, without the
+    optimiser and the training tables.
 
     Args:
       model_cfg: a ``STARGCNConfig`` on the ``bitdense`` backend.
@@ -108,79 +109,39 @@ class ServingState:
       seed: seeds the ``torch.Generator`` that initialises the parameters
         when ``state_dict`` is not given.
       state_dict: parameters to load (e.g. ``convert.params_from_flax``
-        of a JAX ``Trainer.params``).
+        of a JAX ``Trainer.params``, or a checkpoint's).
+      variants: the ``GraphVariants`` of a ``Trainer`` over the same
+        graph on the same device, to share its packs instead of building
+        them again.
     """
 
     def __init__(self, model_cfg, data_iter, device="cuda", seed: int = 123,
-                 state_dict=None):
+                 state_dict=None, variants=None):
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.data_iter = data_iter
-        it = data_iter
-        all_csr = it.all_graph[it.name_user, it.name_item]
-        self.graph_data = BipartiteGraphData.from_csr(all_csr, self.device)
-        g = self.graph_data
-        self._edges = tuple(t.cpu().numpy() for t in (
-            g.edge_user, g.edge_item, g.edge_rating, g.edge_pad_mask))
-        self._all_csr = all_csr
+        self.variants = variants if variants is not None else GraphVariants(
+            model_cfg, data_iter, self.device)
         self.model = STARGCN(model_cfg,
                              generator=torch.Generator().manual_seed(seed))
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
-        self.model.to(self.device).eval()
+        self.model.to(self.device)
 
-        train_ratings = it.train_ratings
+        train_ratings = data_iter.train_ratings
         self.rating_mean = float(train_ratings.mean())
         self.rating_std = float(train_ratings.std())
-        vals = it.possible_rating_values
+        vals = data_iter.possible_rating_values
         self.rating_min = float(vals.min())
         self.rating_max = float(vals.max())
-        self._masks, self._degrees, self._packs = {}, {}, {}
-
-    def edge_mask(self, variant: str) -> np.ndarray:
-        """Float mask over the padded edge arrays selecting the edges of
-        graph variant ``'test'``, ``'valid'`` or ``'train'``."""
-        if variant not in self._masks:
-            it = self.data_iter
-            graph = {"test": it.test_graph, "valid": it.val_graph,
-                     "train": it.train_graph}[variant]
-            pairs = graph[it.name_user, it.name_item].node_pair_ids
-            idx = self._all_csr.edge_indices_by_id(pairs)
-            assert np.all(idx >= 0)
-            m = np.zeros(self.graph_data.num_edges_padded, np.float32)
-            m[idx] = 1.0
-            self._masks[variant] = m
-        return self._masks[variant]
-
-    def variant_degrees(self, variant: str):
-        """``(deg_user, deg_item)`` float32 tensors of the variant."""
-        if variant not in self._degrees:
-            eu, ei, _, pad = self._edges
-            mm = self.edge_mask(variant) * pad
-            # Degrees are counts, exact in float32 however they are summed.
-            du, di = (np.bincount(e, weights=mm, minlength=n).astype(
-                np.float32) for e, n in ((eu, self.model_cfg.num_users),
-                                         (ei, self.model_cfg.num_items)))
-            self._degrees[variant] = (torch.from_numpy(du).to(self.device),
-                                      torch.from_numpy(di).to(self.device))
-        return self._degrees[variant]
-
-    def bit_pack(self, variant: str):
-        """The variant's bit packs on the device, built on first use."""
-        if variant not in self._packs:
-            eu, ei, er, pad = self._edges
-            cfg = self.model_cfg
-            self._packs[variant] = build_bit_pack(
-                eu, ei, er, self.edge_mask(variant) * pad, cfg.num_users,
-                cfg.num_items, cfg.num_links, self.device)
-        return self._packs[variant]
 
 
-def export_serving(state: ServingState, segment: str = "test",
+def export_serving(state, segment: str = "test",
                    include_rated: bool = True) -> ServingArtifact:
     """Run the eval-mode encoder once and extract the scoring artifact:
     the segment's graph variant and the evaluation noise masking
-    (nodes unseen in training -> zero embedding)."""
+    (nodes unseen in training -> zero embedding).  ``state`` is a
+    ``train.Trainer`` or a :class:`ServingState`."""
     it = state.data_iter
     dev = state.device
     seg = "valid" if segment == "valid" else "test"
@@ -188,9 +149,10 @@ def export_serving(state: ServingState, segment: str = "test",
     noise_u = torch.from_numpy(noise[it.name_user]).to(dev)
     noise_i = torch.from_numpy(noise[it.name_item]).to(dev)
     dummy = torch.zeros(1, dtype=torch.long, device=dev)
-    with torch.inference_mode():
+    with torch.no_grad():
         out = state.model(noise_u, noise_i, dummy, dummy,
-                          state.variant_degrees(seg), state.bit_pack(seg),
+                          state.variants.degrees(seg),
+                          state.variants.bit_pack(seg),
                           return_rating_feats=True)
         feats = out["rating_feats"]
         cfg = state.model_cfg
@@ -200,7 +162,7 @@ def export_serving(state: ServingState, segment: str = "test",
     rated_indptr = rated_items = None
     if include_rated:
         rated_indptr, rated_items = _pairs_to_csr(
-            state._all_csr.node_pair_ids, state.model_cfg.num_users)
+            state.variants.all_csr.node_pair_ids, state.model_cfg.num_users)
 
     return ServingArtifact(
         user_feats=U, item_feats=I,

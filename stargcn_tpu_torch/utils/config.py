@@ -4,12 +4,14 @@ The port's copy of ``stargcn_tpu/utils/config.py``: an attribute-style
 nested dict of defaults, overlaid by a YAML file with unknown-key and
 type-mismatch errors.  The default tree is the JAX package's, key for
 key, so the repository's ``configs/*.yml`` merge unchanged; keys the port
-does not read yet (training schedule, mesh, sampled-mode kernels) are kept
-so those files stay valid.
+does not read yet (mesh, sampled-mode kernels) are kept so those files stay
+valid.  ``save_cfg_dir`` writes the numbered ``cfg%d.yml`` snapshot of a
+run.
 """
 
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
 
 import numpy as np
@@ -169,3 +171,29 @@ def cfg_from_file(filename: str, target: EasyDict | None = None) -> EasyDict:
         overlay = yaml.safe_load(f) or {}
     merge_cfg(overlay, target)
     return target
+
+
+def _plain(obj):
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_plain(v) for v in obj]
+    if isinstance(obj, np.generic):
+        return obj.item()
+    return obj
+
+
+def save_cfg_file(path: str, source: EasyDict) -> None:
+    with open(path, "w") as f:
+        yaml.safe_dump(_plain(source), f, sort_keys=False)
+
+
+def save_cfg_dir(dirname: str, source: EasyDict) -> int:
+    """Save an auto-incrementing ``cfg%d.yml`` snapshot; returns the run
+    id."""
+    os.makedirs(dirname, exist_ok=True)
+    run_id = 0
+    while os.path.exists(os.path.join(dirname, f"cfg{run_id}.yml")):
+        run_id += 1
+    save_cfg_file(os.path.join(dirname, f"cfg{run_id}.yml"), source)
+    return run_id

@@ -1,8 +1,8 @@
-"""Shared set-up for the tests that hold the port's serving slice against
-the JAX package: one small ML-10M-shaped configuration (10 rating levels,
-2 blocks, ``leaky``, the ``bitdense`` backend, narrow widths), one synthetic
-graph split the same way in both packages, a JAX ``Trainer`` and the
-port's ``ServingState`` on the same parameters."""
+"""Shared set-up for the tests that hold the port's slices against the JAX
+package: one small ML-10M-shaped configuration (10 rating levels, 2 blocks,
+``leaky``, the ``bitdense`` backend, narrow widths), one synthetic graph
+split the same way in both packages, a JAX ``Trainer`` and the port's
+``ServingState`` or ``Trainer`` on the same parameters."""
 
 import os
 
@@ -20,6 +20,8 @@ from stargcn_tpu_torch.data import DataIterator
 from stargcn_tpu_torch.data import synthetic as tsyn
 from stargcn_tpu_torch.models import build_model_config
 from stargcn_tpu_torch.serve import ServingState
+from stargcn_tpu_torch.train import Trainer as TTrainer
+from stargcn_tpu_torch.train import TrainSettings as TTrainSettings
 from stargcn_tpu_torch.utils import cfg_from_file
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -29,9 +31,10 @@ GRAPH = dict(num_users=40, num_items=30, num_edges=420,
              rating_values=RATINGS_10, seed=3)
 
 
-def small_ml10m_cfg(load, accum="sum"):
+def small_ml10m_cfg(load, accum="sum", **overrides):
     """``transductive_ml_10m.yml`` on the synthetic graph at small width;
-    ``load`` is either package's ``cfg_from_file``."""
+    ``load`` is either package's ``cfg_from_file``.  ``overrides`` sets
+    dotted keys, e.g. ``{"GCN.DROPOUT": 0.0}``."""
     cfg = load(ML10M_CFG)
     cfg.DATASET.NAME = "synthetic"
     cfg.KERNEL.BACKEND = "bitdense"
@@ -42,6 +45,12 @@ def small_ml10m_cfg(load, accum="sum"):
     cfg.GEN_RATING.MID_MAP = 8
     cfg.TRAIN.RATING_BATCH_SIZE = 64
     cfg.TRAIN.RECON_BATCH_SIZE = 64
+    for dotted, value in overrides.items():
+        node = cfg
+        *path, leaf = dotted.split(".")
+        for key in path:
+            node = node[key]
+        node[leaf] = value
     return cfg
 
 
@@ -97,3 +106,46 @@ def build_pair(accum="sum"):
     state = ServingState(build_model_config(tcfg, *dims), tit, device="cpu",
                          state_dict=convert.params_from_flax(trainer.params))
     return trainer, state
+
+
+def build_trainers(accum="sum", save_dir=None, **overrides):
+    """``(jax_trainer, torch_trainer)`` over the same graph, split, sampler
+    seed and parameters (``random_params``), the port's on the CPU.
+    Dropout is off unless ``overrides`` turns it on: the two packages draw
+    different masks from the same seed."""
+    overrides = {"GCN.DROPOUT": 0.0, **overrides}
+    jcfg = small_ml10m_cfg(j_cfg_from_file, accum, **overrides)
+    jit_ = _iterator(JDataIterator, jsyn.synthetic_graph(**GRAPH))
+    csr = jit_.all_graph["user", "movie"]
+    dims = (csr.shape[0], csr.shape[1], len(csr.multi_link))
+    settings = TrainSettings.from_cfg(jcfg)
+    settings.hang_timeout_s = 0.0
+    jtrainer = Trainer(j_build_model_config(jcfg, *dims), jit_, settings,
+                       save_dir=None if save_dir is None
+                       else os.path.join(save_dir, "jax"))
+    jtrainer.params = random_params(jtrainer.params)
+    jtrainer.opt_state = jtrainer.opt.init(jtrainer.params)
+
+    tcfg = small_ml10m_cfg(cfg_from_file, accum, **overrides)
+    tit = _iterator(DataIterator, tsyn.synthetic_graph(**GRAPH))
+    ttrainer = TTrainer(build_model_config(tcfg, *dims), tit,
+                        TTrainSettings.from_cfg(tcfg), device="cpu",
+                        save_dir=None if save_dir is None
+                        else os.path.join(save_dir, "torch"))
+    ttrainer.model.load_state_dict(convert.params_from_flax(jtrainer.params))
+    return jtrainer, ttrainer
+
+
+def host_batches(trainer, n):
+    """The first ``n`` ``(rating_batch, recon_batch)`` pairs of a trainer's
+    samplers, as ``fit`` draws them (either package's trainer)."""
+    it = trainer.data_iter
+    ratings = it.rating_sampler(batch_size=trainer.s.rating_batch_size,
+                                segment="train")
+    recon = it.recon_nodes_sampler(batch_size=trainer.s.recon_batch_size)
+    out = []
+    for _ in range(n):
+        rb = next(ratings)
+        noise, _, ids = next(recon)
+        out.append((rb, trainer.prepare_recon_batch(noise, ids)))
+    return out

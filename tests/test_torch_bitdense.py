@@ -104,12 +104,13 @@ def test_expand_matches_pallas_interpret(rng, R, F, dense):
 def test_pool_matches_numpy_golden(rng, R):
     P, d8 = _packed(rng, R, dense=False)
     x = _feats(rng, P.shape[1], 5)
-    got = tbd.bit_pool_rated(torch.from_numpy(x), torch.from_numpy(P), R,
-                             d8)
+    P_t = torch.from_numpy(P)
+    # p_bwd is read by the backward only; the forward never looks at it.
+    got = tbd.bit_pool_rated(torch.from_numpy(x), P_t, P_t, R, d8, d8)
     golden = jbd.ref_bit_pool(x, P, R, d8)
     np.testing.assert_allclose(got.numpy(), golden, rtol=1e-5, atol=1e-5)
-    plain = tbd.bit_pool_rated(torch.from_numpy(x), torch.from_numpy(P), R,
-                               d8, impl="plain")
+    plain = tbd.bit_pool_rated(torch.from_numpy(x), P_t, P_t, R, d8, d8,
+                               impl="plain")
     np.testing.assert_array_equal(plain.numpy(), got.numpy())
 
 

@@ -71,7 +71,7 @@ def _port_forward(state, segment, pu, pi, model=None):
         return (model or state.model)(
             torch.from_numpy(noise["user"]), torch.from_numpy(noise["movie"]),
             torch.from_numpy(pu), torch.from_numpy(pi),
-            state.variant_degrees(segment), state.bit_pack(segment),
+            state.variants.degrees(segment), state.variants.bit_pack(segment),
             return_rating_feats=True)
 
 
@@ -136,10 +136,15 @@ def test_unported_paths_raise(pair_sum):
     _, state = pair_sum
     with pytest.raises(NotImplementedError):
         STARGCN(dataclasses.replace(state.model_cfg, backend="dense"))
-    pu = np.zeros(1, np.int32)
-    noise = state.data_iter.evaluate_embed_noise_dict
-    with pytest.raises(NotImplementedError, match="training slice"):
-        state.model(torch.from_numpy(noise["user"]),
-                    torch.from_numpy(noise["movie"]), torch.from_numpy(pu),
-                    torch.from_numpy(pu), state.variant_degrees("test"),
-                    state.bit_pack("test"), train=True)
+    for field, value in (("backend", "xla"), ("backend", "ell"),
+                         ("bit_impl", "pallas16"),
+                         ("compute_dtype", "bfloat16"),
+                         ("dropout_per_edge", True),
+                         ("use_fea_proj", True)):
+        cfg = dataclasses.replace(state.model_cfg, **{field: value})
+        with pytest.raises(NotImplementedError):
+            # pallas16 is refused where the pack layout is resolved
+            model = STARGCN(cfg)
+            pu = torch.zeros(1, dtype=torch.long)
+            model(None, None, pu, pu, state.variants.degrees("test"),
+                  state.variants.bit_pack("test"))

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_slice import build_pair
+from _torch_slice import build_pair, build_trainers
 from stargcn_tpu import serve as jserve
 from stargcn_tpu_torch import serve as tserve
 
@@ -149,7 +149,44 @@ def test_predict_cli_round_trip(slice_pair, tmp_path, capsys):
     assert lines[0]["mode"] == "predict" and len(lines[0]["ratings"]) == 2
     want = jserve.Predictor(jart).recommend(np.array([5]), k=3)[0][0]
     assert lines[1]["items"] == want.tolist()
-    for flag in ("--resume=x.msgpack", "--rank_eval"):
-        with pytest.raises(SystemExit):
-            predict.main(["--artifact", path, "--device", "cpu", flag])
-        assert "not ported yet" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        predict.main(["--artifact", path, "--device", "cpu", "--rank_eval"])
+    assert "not ported yet" in capsys.readouterr().err
+
+
+def test_export_takes_a_trainer(slice_pair):
+    """``export_serving`` of the port's ``Trainer`` equals that of a
+    ``ServingState`` on the same parameters, and the JAX package's export
+    of its trainer."""
+    _, state, jart, tart = slice_pair
+    jtrainer, ttrainer = build_trainers("sum")
+    ttrainer.model.load_state_dict(state.model.state_dict())
+    art = tserve.export_serving(ttrainer, segment="test")
+    np.testing.assert_array_equal(art.user_feats, tart.user_feats)
+    np.testing.assert_array_equal(art.item_feats, tart.item_feats)
+    np.testing.assert_array_equal(art.rated_items, tart.rated_items)
+    assert (art.rating_mean, art.rating_std, art.rating_min,
+            art.rating_max) == (tart.rating_mean, tart.rating_std,
+                                tart.rating_min, tart.rating_max)
+    np.testing.assert_allclose(art.user_feats, jart.user_feats, **TOL)
+    # an export under inference mode leaves packs a later step can use
+    with torch.inference_mode():
+        tserve.export_serving(ttrainer, segment="valid")
+    from _torch_slice import host_batches
+    stats = ttrainer.train_iteration(*host_batches(ttrainer, 1)[0])
+    assert torch.isfinite(stats["loss"])
+
+
+def test_identical_variants_share_one_pack(slice_pair):
+    """Transductively the valid graph is the train graph: one pack serves
+    both; the test graph has its own."""
+    _, state, _, _ = slice_pair
+    v = state.variants
+    np.testing.assert_array_equal(v.edge_mask("valid"), v.edge_mask("train"))
+    assert v.bit_pack("valid") is v.bit_pack("train")
+    assert v.bit_pack("test") is not v.bit_pack("train")
+    assert v.bit_pack("test")["user"]["pf"].shape == \
+        v.bit_pack("train")["user"]["pf"].shape
+    assert not torch.equal(v.bit_pack("test")["user"]["pf"],
+                           v.bit_pack("train")["user"]["pf"])
+    assert len(v._packs._cache) == 2
