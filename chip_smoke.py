@@ -26,9 +26,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    then ``export_serving(trainer)`` and queries on the trained parameters;
 7. serving slice: the export of random parameters from seed 123 through
    the kernel (launch counts), checked against the same export through
-   the plain version, then ``predict`` and ``recommend`` on the card.
+   the plain version, then ``predict`` and ``recommend`` on the card;
+8. sampled slice: ``SampledTrainer`` (batch 4096, recon 1024, fanout 8,
+   ``backend="pallas"``) on the same graph at full width: the probed caps,
+   one plan by each planner route, one ``train_iteration`` (launch counts:
+   4 ``ell_spmm_fwd_only``, 4 ``ell_spmm_transpose``, no ``ell_sddmm``, no
+   bit kernel), then, each with launch counts of its own, ``ell_spmm``
+   with a weight gradient on one of the step's blocks and
+   ``seg_take_k_corr_pallas`` (the two callers of ``ell_sddmm``); the same
+   step through a twin on the plain versions (loss and every gradient
+   compared); the step's time split into plan, pack, copy and device and
+   the memory one step takes above what is held before it, beside the
+   ``xla`` backend's; ``fit`` for 10 steps with
+   one validation and one test evaluation, checkpoints,
+   ``restore_checkpoint``, and the ``.pt`` loaded into the full-graph
+   ``Trainer``;
+9. ELL kernel check, full size: each of the three kernels on one real plan
+   block per direction against its plain version, two launches giving the
+   same bits, the adjoint identity ``<spmm(v), g> = <v, spmm_t(g)>``, the
+   three results of ``ell_spmm`` forward + backward with a weight gradient
+   against plain autograd, and times per launch beside the bound and the
+   library call (``F.embedding_bag`` and its backward).
 
-The line before the last is ``{"kernels": [...]}``; the last is
+Phase 3 also checks the three ELL kernels on small cases (K = 1, 8, 32;
+F = 1, 65, 250, 256; padded slots with in-range and out-of-range indices;
+rows that repeat a source; a single source row; matrices that start off a
+16-byte boundary).  Every time printed
+carries the card's name and power limit.
+
+The line before the last is the card's name and power limit, the one
+before it ``{"kernels": [...]}`` (all five kernels); the last is
 ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing of
 JAX and nothing of the JAX package.
 """
@@ -99,10 +126,11 @@ def host_s(fn):
     return out, time.perf_counter() - t0
 
 
-def device_busy_ms(fn):
+def device_busy_ms(fn, top=0):
     """Device time of one call of ``fn`` (the kernels and copies of
     ``torch.profiler``'s trace, summed), or None where the trace shows
-    none."""
+    none.  With ``top``, also the ``top`` largest entries by name:
+    ``(total, [(name, ms, calls), ...])``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -114,9 +142,15 @@ def device_busy_ms(fn):
         torch.cuda.synchronize()
     # Device-side entries only: the host-side operator entries carry their
     # kernels' time a second time.
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    return total_us / 1e3 if total_us > 0 else None
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in events)
+    total = total_us / 1e3 if total_us > 0 else None
+    if not top:
+        return total
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return total, [(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                   for e in events[:top]]
 
 
 # ------------------------------ kernel check ------------------------------
@@ -415,9 +449,10 @@ def rel_err(a, b):
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
 
-def zero_launches(bd):
-    for k in bd.LAUNCHES:
-        bd.LAUNCHES[k] = 0
+def zero_launches(*modules):
+    for mod in modules:
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
 
 
 def check_queries(art, card, what):
@@ -667,6 +702,618 @@ def run_training_slice(bd, trainer, card):
                           peak_gib=peak_gb, fit_s=t_fit)
 
 
+# ------------------------------ ELL kernels ------------------------------
+
+ELL_NAMES = ("ell_spmm_fwd_only", "ell_spmm_transpose", "ell_sddmm")
+
+
+def ell_errs(ek, values, idx, w, g):
+    """Max abs error of each ELL kernel against its plain version on the
+    same inputs, and the tolerance: 1e-5 of the largest output (all f32,
+    the same products summed in another order)."""
+    import torch
+
+    num_src = values.shape[0]
+    pairs = {
+        "ell_spmm_fwd_only": (ek.ell_spmm_fwd_only(values, idx, w),
+                              ek.plain_ell_spmm(values, idx, w)),
+        "ell_spmm_transpose": (
+            ek.ell_spmm_transpose(g, idx, w, num_src),
+            ek.plain_ell_spmm_transpose(g, idx, w, num_src)),
+        "ell_sddmm": (ek.ell_sddmm(g, values, idx),
+                      ek.plain_ell_sddmm(g, values, idx)),
+    }
+    torch.cuda.synchronize()
+    out = {}
+    for name, (got, want) in pairs.items():
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{name}: shape or non-finite output")
+        scale = max(float(want.abs().max()), 1.0)
+        out[name] = (float((got - want).abs().max()), 1e-5 * scale)
+    return out
+
+
+def small_ell_checks(ek):
+    """``{kernel name: worst max abs error}`` over the small cases."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(SEED + 3)
+    worst = dict.fromkeys(ELL_NAMES, 0.0)
+    cases = [(200, 150, K, F, "padded slots hold any index")
+             for K in (1, 8, 32) for F in (1, 65, 250, 256)]
+    cases += [(5, 1, 3, 7, "one source row"),
+              (3000, 10, 8, 250, "rows repeat a source"),
+              (300, 90, 8, 1030, "several column passes"),
+              (200, 150, 8, 65, "matrices start off a 16-byte boundary"),
+              (200, 150, 8, 250, "matrices start off a 16-byte boundary")]
+    for nd, ns, K, F, what in cases:
+        idx = rng.randint(0, ns, (nd, K))
+        w = rng.randn(nd, K).astype(np.float32)
+        pad = rng.rand(nd, K) < 0.3
+        w[pad] = 0.0
+        if ns > 1:
+            # padded slots: any index, in range or far outside it
+            idx[pad] = rng.randint(-5 * ns, 6 * ns, int(pad.sum()))
+            # and a few live slots out of range: they contribute nothing
+            idx[rng.rand(nd, K) < 0.05] = ns + 2
+        if "repeat" in what:
+            idx[:nd // 2] = 3
+        dev = dict(device=DEVICE)
+        values = torch.tensor(rng.randn(ns, F).astype(np.float32), **dev)
+        g = torch.tensor(rng.randn(nd, F).astype(np.float32), **dev)
+        if "boundary" in what:
+            # a slice of a batch, F * 4 bytes into its buffer: aligned to
+            # the kernels' vector load (4 or 8 bytes here), not to 16
+            values = torch.cat([values[:1], values])[1:]
+            g = torch.cat([g[:1], g])[1:]
+            check(values.data_ptr() % 16 != 0 and values.is_contiguous(),
+                  "the case should start off a 16-byte boundary")
+        errs = ell_errs(ek, values, torch.tensor(idx.astype(np.int32), **dev),
+                        torch.tensor(w, **dev), g)
+        log(f"  ELL nd={nd} ns={ns} K={K} F={F} ({what}): "
+            + ", ".join(f"{n} {e:.2e} (tol {t:.2e})"
+                        for n, (e, t) in errs.items()))
+        for name, (err, tol) in errs.items():
+            check(err <= tol, f"{name} disagrees (nd={nd} ns={ns} K={K} "
+                              f"F={F}, {what})")
+            worst[name] = max(worst[name], err)
+    return worst
+
+
+def ell_bound(nbytes, flops):
+    """Least time for one launch: the bytes it must move at the HBM rate,
+    or its f32 operations at the f32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def full_ell_checks(ek, blocks, R, F, card):
+    """The three ELL kernels on real plan blocks of the sampled step, one
+    per direction, at the main path's shapes: ``values`` is a projected
+    frontier ``(R * n_src, F)``.  Returns ``(worst errors, shapes)``."""
+    import torch
+    import torch.nn.functional as Fn
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    worst = dict.fromkeys(ELL_NAMES, 0.0)
+    shapes = {n: [] for n in ELL_NAMES}
+    for direction, (idx, w, n_src) in blocks.items():
+        num_dst, K = idx.shape
+        num_src = R * n_src
+        values = torch.randn(num_src, F, device=DEVICE, generator=gen)
+        g = torch.randn(num_dst, F, device=DEVICE, generator=gen)
+        what = (f"into {direction}: idx ({num_dst}, {K}), values "
+                f"({num_src}, {F})")
+        for name, (err, tol) in ell_errs(ek, values, idx, w, g).items():
+            log(f"  full-size check {name} {what}: max_abs_err={err:.3e} "
+                f"tol={tol:.3e}")
+            check(err <= tol, f"{name} disagrees at full size ({what})")
+            worst[name] = max(worst[name], err)
+        for name, call in (
+                ("ell_spmm_fwd_only",
+                 lambda: ek.ell_spmm_fwd_only(values, idx, w)),
+                ("ell_spmm_transpose",
+                 lambda: ek.ell_spmm_transpose(g, idx, w, num_src)),
+                ("ell_sddmm", lambda: ek.ell_sddmm(g, values, idx))):
+            check(torch.equal(call(), call()),
+                  f"{name} does not repeat bit for bit ({what})")
+
+        # <spmm(v), g> = <v, spmm_t(g)>, sums in float64.
+        lhs = float((ek.ell_spmm_fwd_only(values, idx, w).double()
+                     * g.double()).sum())
+        rhs = float((ek.ell_spmm_transpose(g, idx, w, num_src).double()
+                     * values.double()).sum())
+        rel = abs(lhs - rhs) / max(abs(lhs), 1e-30)
+        log(f"  adjoint {what}: <spmm(v), g> = {lhs:.6f}, <v, spmm_t(g)> = "
+            f"{rhs:.6f}, rel diff {rel:.3e} (tol 1e-5)")
+        check(rel <= 1e-5, f"ELL adjoint identity fails ({what})")
+
+        # ell_spmm forward + backward with both gradients against plain
+        # autograd: the weight gradient launches ell_sddmm at these shapes.
+        before = dict(ek.LAUNCHES)
+        got, want = [], []
+        for fn, dst in ((ek.ell_spmm, got), (ek.plain_ell_spmm, want)):
+            v = values.clone().requires_grad_()
+            ww = w.clone().requires_grad_()
+            out = fn(v, idx, ww)
+            dst.extend([out.detach(),
+                        *torch.autograd.grad(out, (v, ww), g)])
+        check([ek.LAUNCHES[n] - before[n] for n in ELL_NAMES] == [1, 1, 1],
+              "ell_spmm with a weight gradient should launch each kernel "
+              "once")
+        in_range = ((idx >= 0) & (idx < num_src)).float()
+        for label, a, b in zip(("out", "d_values", "d_weight"), got, want):
+            if label == "d_weight":
+                # the kernel scores every slot, plain autograd only those
+                # in range (the plan's padded slots all are)
+                a = a * in_range
+            err = float((a - b).abs().max())
+            tol = 1e-5 * max(float(b.abs().max()), 1.0)
+            log(f"  ell_spmm autograd {what}: {label} max_abs_err="
+                f"{err:.3e} tol={tol:.3e}")
+            check(err <= tol, f"ell_spmm {label} disagrees with plain "
+                              f"autograd ({what})")
+        del got, want
+
+        # Times per launch, bounds and the library call.
+        live = (w != 0) & (idx >= 0) & (idx < num_src)
+        n_live = int(live.sum())
+        src_rows = int(torch.unique(idx[live]).numel())
+        src_rows_all = int(torch.unique(
+            idx[(idx >= 0) & (idx < num_src)]).numel())
+        dst_rows = int(live.any(dim=1).sum())
+        slots = num_dst * K
+        bounds = {
+            # distinct source rows once, indices and weights, the output
+            "ell_spmm_fwd_only": ell_bound(
+                4 * F * src_rows + 8 * slots + 4 * F * num_dst,
+                2 * n_live * F),
+            # cotangent rows of destinations with a live slot, indices and
+            # weights, every output row (zeros included)
+            "ell_spmm_transpose": ell_bound(
+                4 * F * dst_rows + 8 * slots + 4 * F * num_src,
+                2 * n_live * F),
+            # every slot is scored: q once, distinct rows once, indices,
+            # the output
+            "ell_sddmm": ell_bound(
+                4 * F * num_dst + 4 * F * src_rows_all + 4 * slots
+                + 4 * slots, 2 * slots * F),
+        }
+        sort_ms = cuda_ms(lambda: ek.sort_slots(idx, w, num_src), reps=20)
+        kernel_ms = {
+            "ell_spmm_fwd_only": cuda_ms(
+                lambda: ek.ell_spmm_fwd_only(values, idx, w), reps=20),
+            "ell_spmm_transpose": cuda_ms(
+                lambda: ek.ell_spmm_transpose(g, idx, w, num_src), reps=20),
+            "ell_sddmm": cuda_ms(
+                lambda: ek.ell_sddmm(g, values, idx), reps=20),
+        }
+        plain_ms = {
+            "ell_spmm_fwd_only": cuda_ms(
+                lambda: ek.plain_ell_spmm(values, idx, w), reps=3),
+            "ell_spmm_transpose": cuda_ms(
+                lambda: ek.plain_ell_spmm_transpose(g, idx, w, num_src),
+                reps=3),
+            "ell_sddmm": cuda_ms(
+                lambda: ek.plain_ell_sddmm(g, values, idx), reps=3),
+        }
+        # The library's call for the same function, timed only: the
+        # plan's indices are all in range, as embedding_bag needs them.
+        check(bool(((idx >= 0) & (idx < num_src)).all()),
+              "a plan block holds an out-of-range index")
+        idx64 = idx.long()
+        v = values.clone().requires_grad_()
+        ww = w.clone().requires_grad_()
+        bag = Fn.embedding_bag(idx64, v, per_sample_weights=ww, mode="sum")
+        library_ms = {
+            "ell_spmm_fwd_only": cuda_ms(lambda: Fn.embedding_bag(
+                idx64, values, per_sample_weights=w, mode="sum"), reps=10),
+            "ell_spmm_transpose": cuda_ms(lambda: torch.autograd.grad(
+                bag, v, g, retain_graph=True), reps=5),
+            "ell_sddmm": cuda_ms(lambda: torch.autograd.grad(
+                bag, ww, g, retain_graph=True), reps=5),
+        }
+        lib_err = float((bag.detach()
+                         - ek.ell_spmm_fwd_only(values, idx, w)).abs().max())
+        check(lib_err <= 1e-4, "embedding_bag computes another function")
+        del bag, v, ww
+        for name in ELL_NAMES:
+            bms, by = bounds[name]
+            row = dict(direction=direction, idx=[num_dst, K],
+                       values=[num_src, F], live_slots=n_live,
+                       distinct_source_rows=src_rows, ms=kernel_ms[name],
+                       plain_ms=plain_ms[name], bound_ms=bms, bound_by=by,
+                       library_ms=library_ms[name])
+            extra = ""
+            if name == "ell_spmm_transpose":
+                row["sort_ms"] = sort_ms
+                extra = (f" (of which ordering the slots, plain PyTorch, "
+                         f"{sort_ms:.4f} ms)")
+            shapes[name].append(row)
+            log(f"  {name} {what}, {n_live} live slots over {src_rows} "
+                f"distinct source rows: kernel {kernel_ms[name]:.4f} "
+                f"ms/launch{extra}, plain {plain_ms[name]:.3f} ms, library "
+                f"{library_ms[name]:.3f} ms, bound {bms:.4f} ms ({by}) "
+                f"[{card}]")
+    return worst, shapes
+
+
+def seg_take_k_corr_case(device):
+    """Inputs of ``seg_take_k_corr_pallas`` at a moderate size: 2 x 6000
+    segments of 0 to 15 neighbors over 4000 nodes, 64 features."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(SEED + 5)
+    deg = rng.randint(0, 16, 6000)
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    nids = rng.randint(0, 4000, int(indptr[-1])).astype(np.int32)
+    e1 = torch.tensor(rng.randn(2, 6000, 64).astype(np.float32),
+                      device=device)
+    e2 = torch.tensor(rng.randn(2, 4000, 64).astype(np.float32),
+                      device=device)
+    return e1, e2, nids, indptr
+
+
+# ----------------------------- sampled slice -----------------------------
+
+
+@contextlib.contextmanager
+def plain_ell_versions(ek):
+    """While open, the sampled forward pools through ``plain_ell_spmm``
+    (ordinary autograd) instead of the kernels."""
+    real = ek.ell_spmm
+    ek.ell_spmm = ek.plain_ell_spmm
+    try:
+        yield
+    finally:
+        ek.ell_spmm = real
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def time_sampled_steps(strainer, rs, recon, n):
+    """Median milliseconds of ``n`` steps, split into the host's plan
+    build, pack, the two copies, and the device step."""
+    import torch
+
+    from stargcn_tpu_torch.train import sampled_loop
+
+    rows = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = strainer._build_batch_safe(rs, recon)
+        t1 = time.perf_counter()
+        packed = strainer._pack_batch(batch)
+        t2 = time.perf_counter()
+        feed = strainer._feed(packed)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        sampled_loop._loss_update(strainer, feed)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        rows.append([(b - a) * 1e3 for a, b in
+                     ((t0, t1), (t1, t2), (t2, t3), (t3, t4), (t0, t4))])
+    names = ("plan_ms", "pack_ms", "copy_ms", "device_step_ms", "step_ms")
+    return {k: median([r[i] for r in rows]) for i, k in enumerate(names)}, \
+        packed
+
+
+def run_sampled_slice(bd, ek, cfg, it, model_cfg, full_trainer, save_dir,
+                      card):
+    """Phases 8 and 9.  Returns ``(launch counts of each driven path,
+    worst kernel errors, per-kernel shapes, numbers)``."""
+    import numpy as np
+    import torch
+
+    from stargcn_tpu_torch.graph import kernels as gk
+    from stargcn_tpu_torch.graph.sampling import BlockSampler
+    from stargcn_tpu_torch.models.sampled import StackedPlan
+    from stargcn_tpu_torch.ops.ell import (ell_from_csr,
+                                           seg_take_k_corr_pallas)
+    from stargcn_tpu_torch.train import (SampledTrainer, TrainSettings,
+                                         sampled_loop)
+
+    settings = TrainSettings.from_cfg(cfg)
+    settings.rating_batch_size = 4096
+    settings.recon_batch_size = 1024
+    gk.set_seed(SEED)
+    strainer, t_make = host_s(lambda: SampledTrainer(
+        model_cfg, it, settings, fanout=8, backend="pallas", device=DEVICE,
+        save_dir=save_dir, save_id=1))
+    caps = dict(strainer.caps)
+    log(f"  SampledTrainer (three samplers, caps probed from 4 plans, "
+        f"parameters): {t_make:.2f} s; probed caps {caps}, batch "
+        f"{strainer.train_batch}, recon caps {strainer.recon_cap}, "
+        f"remove batch edges: {strainer.do_remove} [{card}]")
+    check(strainer.do_remove and strainer.train_batch == 4096,
+          "the sampled step should remove a batch of 4096 train edges")
+    check(strainer.backend == strainer.eval_backend == "pallas",
+          "backend")
+    rs = it.rating_sampler(batch_size=strainer.train_batch, segment="train")
+    recon = it.recon_nodes_sampler(batch_size=settings.recon_batch_size)
+
+    # One plan by each planner route, same pairs.
+    pairs, _ = next(rs)
+    plan_s = {}
+    for planner in ("vectorised", "loop"):
+        sampler = BlockSampler(
+            it.train_graph, num_layers=len(model_cfg.agg_units), fanout=8,
+            symm=model_cfg.agg_norm_symm, frontier_caps=caps,
+            planner=planner)
+        t0 = time.perf_counter()
+        plan = StackedPlan.build(it.train_graph, model_cfg, pairs[0],
+                                 pairs[1], fanout=8, sampler=sampler,
+                                 exclude_pairs=(pairs[0], pairs[1]))
+        plan_s[planner] = time.perf_counter() - t0
+        sizes = [int((f[t] >= 0).sum()) for c in plan.chains
+                 for f in c.frontiers for t in ("user", "item")]
+        log(f"  one plan, {planner} planner: {plan_s[planner]:.3f} s on "
+            f"the host; real frontier sizes (block, level, type) {sizes}")
+    del plan, sampler
+
+    batch = strainer._build_batch_safe(rs, recon)
+    params0 = copy.deepcopy(strainer.model.state_dict())
+    opt0 = copy.deepcopy(strainer.opt.state_dict())
+
+    # ---- the main path: counts from 0, one step, counts read ----
+    feed = strainer._feed(strainer._pack_batch(batch))
+    R, F = model_cfg.num_links, model_cfg.agg_units[0]
+    blocks = {}
+    for t, src in (("user", "item"), ("item", "user")):
+        blk = feed["plan"]["blocks"][0][0][t]
+        blocks[t] = (blk["idx"].contiguous(), blk["weight"].contiguous(),
+                     caps[src])
+    strainer.seed_dropout(SEED)
+    zero_launches(bd, ek)
+    stats, t_first = host_s(lambda: strainer.train_iteration(batch))
+    step_launches = {**bd.LAUNCHES, **ek.LAUNCHES}
+    log(f"  first sampled train_iteration: {t_first * 1e3:.1f} ms, loss "
+        f"{float(stats['loss']):.4f}, gnorm {float(stats['gnorm']):.4f}, "
+        f"launches {step_launches} [{card}]")
+    check(step_launches == {"ell_spmm_fwd_only": 4, "ell_spmm_transpose": 4,
+                            "ell_sddmm": 0, "bit_expand_matmul": 0,
+                            "bit_reduce_matmul": 0},
+          f"expected 4 + 4 + 0 ELL launches and no bit kernel in a step, "
+          f"got {step_launches}")
+
+    # ---- ell_sddmm's two callers, each through its entry point with
+    # counts from 0 of its own: no training step launches that kernel ----
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    idx_u, w_u, n_src_u = blocks["user"]
+    values_u = torch.randn(R * n_src_u, F, device=DEVICE, generator=gen)
+    g_u = torch.randn(idx_u.shape[0], F, device=DEVICE, generator=gen)
+    w_req = w_u.clone().requires_grad_()
+    zero_launches(bd, ek)
+    (d_w,) = torch.autograd.grad(ek.ell_spmm(values_u, idx_u, w_req), w_req,
+                                 g_u)
+    torch.cuda.synchronize()
+    wgrad_launches = dict(ek.LAUNCHES)
+    e1, e2, nids, indptr = seg_take_k_corr_case(DEVICE)
+    ell = ell_from_csr(indptr)
+    zero_launches(bd, ek)
+    corr = seg_take_k_corr_pallas(e1, e2, nids, ell)
+    torch.cuda.synchronize()
+    corr_launches = dict(ek.LAUNCHES)
+    log(f"  ell_spmm forward and backward for its weights alone: launches "
+        f"{wgrad_launches}; seg_take_k_corr_pallas: {corr_launches}")
+    check(wgrad_launches == {"ell_spmm_fwd_only": 1, "ell_spmm_transpose": 0,
+                             "ell_sddmm": 1},
+          "ell_spmm's weight gradient should launch the forward and "
+          "ell_sddmm once each")
+    check(corr_launches == {"ell_spmm_fwd_only": 0, "ell_spmm_transpose": 0,
+                            "ell_sddmm": e1.shape[0]},
+          "seg_take_k_corr_pallas should launch ell_sddmm once per batch "
+          "entry")
+    launches_by_path = {"sampled train_iteration": step_launches,
+                        "ell_spmm weight gradient": wgrad_launches,
+                        "seg_take_k_corr_pallas": corr_launches}
+    check(bool(torch.isfinite(stats["loss"])), "non-finite first loss")
+    # what those two callers returned, against their plain versions
+    want_dw = ek.plain_ell_sddmm(g_u, values_u, idx_u)
+    err = float((d_w - want_dw).abs().max())
+    check(err <= 1e-5 * max(float(want_dw.abs().max()), 1.0),
+          "ell_spmm's weight gradient disagrees with plain_ell_sddmm")
+    seg = torch.from_numpy(np.repeat(np.arange(indptr.size - 1),
+                                     np.diff(indptr))).to(DEVICE)
+    want_corr = (e1[:, seg] * e2[:, torch.from_numpy(nids).long().to(DEVICE)]
+                 ).sum(-1)
+    err = float((corr - want_corr).abs().max())
+    log(f"  seg_take_k_corr_pallas (2 x {indptr.size - 1} segments, "
+        f"{nids.size} edges, 64 features) against plain indexing: "
+        f"max_abs_err={err:.3e} (tol 1e-4)")
+    check(corr.shape == want_corr.shape and err <= 1e-4,
+          "seg_take_k_corr_pallas disagrees")
+    del values_u, g_u, d_w, want_dw, corr, want_corr, e1, e2, w_req
+
+    # ---- the same step through the kernels and through a plain twin ----
+    def fixed_batch():
+        # forward and backward of the first batch, one dropout seed
+        strainer.seed_dropout(SEED)
+        return sampled_loop._loss_and_grads(
+            strainer, strainer._feed(strainer._pack_batch(batch)))
+
+    def one():
+        strainer.model.load_state_dict(params0)
+        return fixed_batch()
+
+    (k_stats, k_grads), t_k = host_s(one)
+    repeats = [one() for _ in range(3)]
+    with plain_ell_versions(ek):
+        before = dict(ek.LAUNCHES)
+        (p_stats, p_grads), t_p = host_s(one)
+        check(ek.LAUNCHES == before, "the plain twin launched a kernel")
+
+    def compare(stats, grads):
+        loss_rel = abs(float(k_stats["loss"]) - float(stats["loss"])) \
+            / abs(float(stats["loss"]))
+        worst, worst_name, diff2, norm2 = 0.0, "", 0.0, 0.0
+        for name, pg in grads.items():
+            scale = float(pg.abs().max())
+            check(scale > 0, f"zero gradient for {name}")
+            rel = float((k_grads[name] - pg).abs().max()) / scale
+            if rel > worst:
+                worst, worst_name = rel, name
+            diff2 += float((k_grads[name] - pg).double().pow(2).sum())
+            norm2 += float(pg.double().pow(2).sum())
+        return loss_rel, worst, worst_name, (diff2 / norm2) ** 0.5
+
+    floor = [compare(*rep) for rep in repeats]
+    log(f"  forward+backward through the kernels {t_k * 1e3:.1f} ms, "
+        f"through the plain versions {t_p * 1e3:.1f} ms; the same step 3 "
+        f"more times through the kernels, each against the first: all "
+        f"gradients together {', '.join(f'{x[3]:.3e}' for x in floor)} "
+        f"relative, worst single parameter "
+        f"{', '.join(f'{x[1]:.3e}' for x in floor)} of its largest entry "
+        f"(the ELL kernels repeat bit for bit; the row gathers' backward "
+        f"and the library's products do not)")
+    loss_rel, worst, worst_name, glob = compare(p_stats, p_grads)
+    log(f"  kernels against the plain twin (f32 on both sides): loss rel "
+        f"diff {loss_rel:.3e} (tol 1e-5), all gradients together "
+        f"{glob:.3e} relative (tol 1e-4), worst single parameter "
+        f"{worst:.3e} of its largest entry ({worst_name}; "
+        f"{len(p_grads)} parameters; tol 1e-3)")
+    check(loss_rel <= 1e-5 and glob <= 1e-4 and worst <= 1e-3,
+          "the sampled step through the kernels disagrees with the plain "
+          "twin")
+    del k_grads, p_grads, repeats
+
+    # ---- the step on the host clock, split; the xla backend beside it ----
+    numbers = {"caps": caps, "first_step_ms": t_first * 1e3,
+               "plan_vectorised_s": plan_s["vectorised"],
+               "plan_loop_s": plan_s["loop"]}
+    for backend in ("pallas", "xla"):
+        twin = copy.copy(strainer)
+        twin.backend = backend
+        twin.train_iteration(twin._build_batch_safe(rs, recon))   # warm-up
+        split, packed = time_sampled_steps(twin, rs, recon, 5)
+        feed_bytes = packed[0].nbytes + packed[1].nbytes
+        b = twin._build_batch_safe(rs, recon)
+        # the step's own peak: what one steady step allocates above what
+        # the process already holds
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        twin.train_iteration(b)
+        torch.cuda.synchronize()
+        step_peak = torch.cuda.max_memory_allocated() - held
+        busy, by_name = device_busy_ms(lambda: twin.train_iteration(b),
+                                       top=10)
+        numbers[backend] = {**split, "device_busy_ms": busy,
+                            "feed_bytes": feed_bytes,
+                            "step_peak_gib": step_peak / 2**30,
+                            "held_before_step_gib": held / 2**30,
+                            "device_ms_by_name": by_name}
+        idle = ("not measured" if busy is None else
+                f"{max(0.0, 1 - busy / split['step_ms']):.0%}")
+        log(f"  sampled step, backend {backend!r}, median of 5: "
+            f"{split['step_ms']:.1f} ms = plan {split['plan_ms']:.1f} + "
+            f"pack {split['pack_ms']:.1f} + copy {split['copy_ms']:.1f} "
+            f"({feed_bytes / 1e6:.1f} MB in two buffers) + device step "
+            f"{split['device_step_ms']:.1f}; device busy "
+            f"{'not measured' if busy is None else f'{busy:.1f} ms'} "
+            f"(torch.profiler), card idle {idle} of the step [{card}]")
+        log(f"    peak device memory of one steady step: "
+            f"{step_peak / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB "
+            f"held before it (both trainers' parameters and optimizer "
+            f"state, the full-graph trainer's bit packs and pair map, this "
+            f"step's blocks) [{card}]")
+        for name, ms, calls in by_name:
+            log(f"    {ms:8.3f} ms in {calls:3d} x {name}")
+
+    # ---- phase 9: the kernels on the step's own blocks ----
+    log("== 9. ELL kernel check (real plan blocks) and times")
+    worst_full, shapes = full_ell_checks(ek, blocks, R, F, card)
+    del feed, blocks
+
+    # ---- fit: 10 steps, one validation, one test evaluation ----
+    log("== 8 (continued). sampled fit")
+    strainer.model.load_state_dict(params0)
+    strainer.opt.load_state_dict(opt0)
+    strainer.seed_dropout(SEED)
+    losses = []
+    real_step, real_chunk = strainer.train_iteration, strainer.train_chunk
+
+    def recording(fn):
+        # fit takes single steps or chunks of TRAIN.SCAN_STEPS steps
+        def call(arg):
+            st = fn(arg)
+            losses.extend(st["loss"].reshape(-1))
+            return st
+        return call
+
+    strainer.train_iteration = recording(real_step)
+    strainer.train_chunk = recording(real_chunk)
+    lines = []
+    zero_launches(bd, ek)
+    summary, t_fit = host_s(lambda: strainer.fit(max_iter=10,
+                                                 log=lines.append))
+    strainer.train_iteration, strainer.train_chunk = real_step, real_chunk
+    fit_launches = {**bd.LAUNCHES, **ek.LAUNCHES}
+    for line in lines:
+        log(f"  fit: {line}")
+    losses = [float(x) for x in losses]
+    log(f"  sampled fit(max_iter=10): {t_fit:.2f} s with one validation "
+        f"and one test evaluation ({it.valid_node_pairs.shape[1]} and "
+        f"{it.test_node_pairs.shape[1]} pairs in batches of 4096) and "
+        f"checkpoints; losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"launches {fit_launches}; caps now {strainer.caps} [{card}]")
+    check(len(losses) == 10 and np.isfinite(losses).all(),
+          "fit should take 10 steps with finite losses")
+    # Ten steps at batch 4096 move the loss by less than it varies from
+    # batch to batch (about 0.03), so the fall is read on one batch with
+    # one dropout seed, before and after.
+    after = float(fixed_batch()[0]["loss"])
+    log(f"  loss of the first batch (dropout seed {SEED}): "
+        f"{float(k_stats['loss']):.6f} at the seed's parameters, "
+        f"{after:.6f} after the 10 steps")
+    check(after < float(k_stats["loss"]),
+          "10 sampled steps did not lower the loss of a fixed batch")
+    eval_batches = sum(-(-p.shape[1] // 4096) for p in
+                       (it.valid_node_pairs, it.test_node_pairs))
+    check(fit_launches["ell_spmm_transpose"] == 40
+          and fit_launches["ell_spmm_fwd_only"] == 40 + 4 * eval_batches
+          and fit_launches["ell_sddmm"] == 0
+          and fit_launches["bit_expand_matmul"] == 0,
+          f"sampled fit launch counts {fit_launches}")
+    span = strainer.rating_max - strainer.rating_min
+    rmses = [summary["best_valid_rmse"], *summary["best_test_rmse"]]
+    check(summary["best_iter"] == 10 and np.isfinite(rmses).all()
+          and 0 <= min(rmses) and max(rmses) <= span,
+          f"sampled fit summary {summary}")
+    numbers.update(fit_s=t_fit, losses=losses, summary=summary,
+                   fixed_batch_loss=[float(k_stats["loss"]), after])
+
+    # ---- checkpoints: back into the sampled trainer, and into Trainer ----
+    best = os.path.join(save_dir, "ckpt_best_1.pt")
+    last = os.path.join(save_dir, "ckpt_last_1.pt")
+    check(os.path.exists(best) and os.path.exists(last),
+          "sampled checkpoints")
+    saved = torch.load(best, map_location="cpu", weights_only=True)
+    strainer.model.load_state_dict(params0)
+    strainer.restore_checkpoint(best)
+    full_trainer.restore_checkpoint(best)
+    for name, t in saved["params"].items():
+        for owner, what in ((strainer, "SampledTrainer"),
+                            (full_trainer, "Trainer")):
+            check(torch.equal(owner.model.state_dict()[name].cpu(), t),
+                  f"{what}: restored parameter {name} differs")
+    check(strainer.opt.count == full_trainer.opt.count == 10,
+          "restored optimizer step count")
+    moved = max(float((t - params0[k].cpu()).abs().max())
+                for k, t in saved["params"].items())
+    check(moved > 0, "sampled training did not move the parameters")
+    log(f"  restore_checkpoint({os.path.basename(best)}): the sampled "
+        f"trainer and the full-graph Trainer both hold the saved "
+        f"parameters, optimizer at step {strainer.opt.count}")
+    return launches_by_path, worst_full, shapes, numbers
+
+
 # ----------------------------- serving slice -----------------------------
 
 
@@ -703,13 +1350,17 @@ def run_serving_slice(bd, trainer, card):
 
 
 def kernel_row(name, source, replaces, launches, worst, shapes):
+    """One entry of the ``kernels`` line: the times are means over the
+    directions measured (``shapes`` holds each)."""
     mean = lambda key: sum(s[key] for s in shapes) / len(shapes)  # noqa
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=worst, ms=mean("ms"),
         plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
         bound_by=max(shapes, key=lambda s: s["bound_ms"])["bound_by"],
-        library_ms=None, shapes=shapes)
+        library_ms=(mean("library_ms") if "library_ms" in shapes[0]
+                    else None),
+        shapes=shapes)
 
 
 def main():
@@ -733,6 +1384,7 @@ def main():
     log("== 2. build")
     from stargcn_tpu_torch.ops import _build
     from stargcn_tpu_torch.ops import bitdense as bd
+    from stargcn_tpu_torch.ops import ell_kernels as ek
 
     _, t_build = host_s(_build.build)
     log(f"  nvcc build of {sorted(_build.SIGNATURES)}: {t_build:.2f} s")
@@ -744,6 +1396,7 @@ def main():
 
     log("== 3. kernel check (small cases)")
     worst = small_kernel_checks(bd)
+    worst.update(small_ell_checks(ek))
 
     log("== 4. set-up: ML-10M graph, iterator, trainer, bit packs")
     from stargcn_tpu_torch.train import Trainer, TrainSettings
@@ -786,12 +1439,26 @@ def main():
         log("== 7. slice: ML-10M bitdense serving export + queries")
         export_launches = run_serving_slice(bd, trainer, card)
 
+        log("== 8. slice: ML-10M sampled mini-batch training (batch 4096, "
+            "fanout 8) through the ELL kernels")
+        del packs
+        ell_launches, ell_worst, ell_shapes, sampled_numbers = \
+            run_sampled_slice(bd, ek, cfg, it, model_cfg, trainer, save_dir,
+                              card)
+
     kernel_ms = sum(sum(s["ms"] for s in shapes) * 2
                     for shapes in (e_shapes, r_shapes))
     log(f"  one training step: {train_numbers['step_ms']:.1f} ms on the "
         f"host clock, of which the 8 bit-kernel launches take about "
         f"{kernel_ms:.1f} ms on the card (per-launch times of phase 5) "
         f"[{card}]")
+    ell_ms = 2 * sum(s["ms"] for n in ("ell_spmm_fwd_only",
+                                        "ell_spmm_transpose")
+                     for s in ell_shapes[n])
+    log(f"  one sampled training step: "
+        f"{sampled_numbers['pallas']['step_ms']:.1f} ms on the host clock, "
+        f"of which the 8 ELL-kernel launches take about {ell_ms:.1f} ms on "
+        f"the card (per-launch times of phase 9) [{card}]")
     rows = [
         kernel_row("bit_expand_matmul",
                    "stargcn_tpu_torch/ops/csrc/bit_expand.cu",
@@ -807,7 +1474,26 @@ def main():
     ]
     rows[0]["launches_by_path"] = {"train_iteration": train_launches[
         "bit_expand_matmul"], "export": export_launches["bit_expand_matmul"]}
+    # Every path was driven with the counts set to 0 just before it.  A
+    # sampled training step launches no ell_sddmm (the plan's weights need
+    # no gradient), so that kernel's count is the sum over its own two
+    # callers; the other two report the training step's alone.
+    for name, source, replaces in (
+            ("ell_spmm_fwd_only", "ell_spmm.cu", 93),
+            ("ell_spmm_transpose", "ell_spmm_t.cu", 225),
+            ("ell_sddmm", "ell_sddmm.cu", 170)):
+        by_path = {path: counts[name]
+                   for path, counts in ell_launches.items()}
+        launches = by_path["sampled train_iteration"] or sum(
+            by_path.values())
+        check(launches > 0, f"{name} was launched on no driven path")
+        rows.append(kernel_row(
+            name, f"stargcn_tpu_torch/ops/csrc/{source}",
+            f"stargcn_tpu/ops/pallas_kernels.py:{replaces}",
+            launches, max(ell_worst[name], worst[name]), ell_shapes[name]))
+        rows[-1]["launches_by_path"] = by_path
     log(json.dumps({"training": train_numbers}))
+    log(json.dumps({"sampled_training": sampled_numbers}))
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

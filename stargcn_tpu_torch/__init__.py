@@ -14,7 +14,11 @@ Covered so far: full-graph transductive training and serving on the
 ``bitdense`` backend (config -> synthetic graph -> ``DataIterator`` -> bit
 packs -> ``train.Trainer`` -> ``serve.export_serving`` ->
 ``ServingArtifact`` -> ``Predictor``), with ``bit_expand_matmul`` and its
-backward ``bit_reduce_matmul`` as CUDA kernels.  Entry points run on
+backward ``bit_reduce_matmul`` as CUDA kernels; and sampled mini-batch
+training (``graph.sampling.BlockSampler`` -> ``models.sampled.StackedPlan``
+-> ``train.SampledTrainer``), whose ``pallas`` backend pools every frontier
+through the three ELL kernels of ``ops.ell_kernels`` (``ell_spmm_fwd_only``,
+``ell_spmm_transpose``, ``ell_sddmm``).  Entry points run on
 ``device="cuda"`` unless the caller asks for ``device="cpu"``.
 """
 

@@ -1,9 +1,9 @@
 """Host-side CSR matrix with global node ids and multi-link (rating) values.
 
 The port's copy of ``stargcn_tpu/graph/csr.py``, cut to what building a
-graph, splitting it into train/valid/test variants and exporting it for
-serving need.  Every array it returns is identical to the JAX package's
-for the same input.
+graph, splitting it into train/valid/test variants, exporting it for
+serving and planning sampled neighborhoods need.  Every array it returns
+is identical to the JAX package's for the same input.
 """
 
 from __future__ import annotations
@@ -54,6 +54,8 @@ class CSRMat:
         self._row_id_rmap = NodeIDRMap(self.row_ids)
         self._col_id_rmap = NodeIDRMap(self.col_ids)
         self._cached_node_pair_ids = None
+        self._cached_col_degrees = None
+        self._cached_support = {}
 
     @staticmethod
     def from_coo(rows, cols, values, num_rows, num_cols, multi_link=None):
@@ -101,6 +103,28 @@ class CSRMat:
                 [self.row_ids[self.row_indices],
                  self.col_ids[self.end_points]], axis=0)
         return self._cached_node_pair_ids
+
+    @property
+    def row_degrees(self):
+        return np.ascontiguousarray(self.ind_ptr[1:] - self.ind_ptr[:-1])
+
+    @property
+    def col_degrees(self):
+        if self._cached_col_degrees is None:
+            self._cached_col_degrees = np.bincount(
+                self.end_points, minlength=self.shape[1]).astype(np.int32)
+        return self._cached_col_degrees
+
+    def get_support(self, symm=True):
+        """Per-edge GCN normalisation, cached per ``symm`` flag:
+        ``1/sqrt(d_row*d_col)`` (symm) or ``1/d_row``, zeros at zero-degree
+        endpoints.  Degrees are totals across rating levels."""
+        if symm not in self._cached_support:
+            self._cached_support[symm] = K.get_support(
+                self.row_degrees.astype(np.int32),
+                self.col_degrees.astype(np.int32),
+                self.ind_ptr, self.end_points, bool(symm))
+        return self._cached_support[symm]
 
     def row_id_to_ind(self, node_ids):
         return self._row_id_rmap[node_ids]

@@ -1,0 +1,547 @@
+"""Sampled mini-batch forward/training: the two-phase plan/execute path.
+
+The port of ``stargcn_tpu/models/sampled.py``, for graphs too large for
+full-graph propagation.  The host phase (``StackedPlan.build``) samples
+fixed-shape ELL frontier chains per block and precomputes every cross-level
+index array, so the device phase (``sampled_forward``) is pure tensor code
+over shapes that (with ``frontier_caps``) do not change from batch to
+batch.  It runs over the SAME parameters as the full-graph ``STARGCN``
+module (its ``named_parameters``), so checkpoints are interchangeable.
+
+With ``fanout = -1`` (all neighbors) the sampled forward equals the
+full-graph forward on the target nodes (``tests/test_torch_sampled.py``).
+
+Backends of the device phase: ``'xla'`` pools raw source rows per rating
+level and then projects (plain indexing and matrix products, the JAX
+package's default formulation); ``'pallas'`` projects first and pools the
+projected rows through ``ops.ell_kernels.ell_spmm``, the hand-written
+CUDA kernels on a card.  The names are the JAX package's.
+
+Every differentiable row gather goes through ``ops.gather.take_rows``
+(``index_select``): its gradient is an ``index_add_``.  Advanced indexing
+(``x[idx]``) has a gradient that walks runs of equal indices serially, and
+under fixed caps every padded slot names row 0: tens of thousands of equal
+indices per gather, and most of a training step's time on a card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from stargcn_tpu_torch.graph import kernels as K
+from stargcn_tpu_torch.graph.sampling import BlockSampler, SampledBlocks
+from stargcn_tpu_torch.models.common import dropout as _dropout
+from stargcn_tpu_torch.models.common import get_activation
+from stargcn_tpu_torch.ops import ell_kernels
+from stargcn_tpu_torch.ops.agg import multi_link_project
+from stargcn_tpu_torch.ops.gather import take_rows
+
+
+@dataclasses.dataclass
+class StackedPlan:
+    """Per-block frontier chains (block 0 = deepest) + index arrays.
+
+    All members are numpy; ``as_host_tree()`` gives the tree the device
+    step reads.  ``cross_gather[b]`` maps block b's level-0 frontier into
+    block b-1's top frontier (positions + validity).  ``recon_pos`` locates
+    the reconstruction target ids in each block's top frontier.
+    """
+
+    chains: List[SampledBlocks]
+    pairs_pos: List[dict]
+    cross_gather: List[Optional[dict]]
+    recon_ids: dict
+    recon_pos: List[dict]
+
+    @staticmethod
+    def build(graph, cfg, pairs_user, pairs_item, fanout=-1,
+              node_pad=128, name_user="user", name_item="movie",
+              recon_user_ids=None, recon_item_ids=None, seed=None,
+              frontier_caps=None, sampler=None, exclude_pairs=None):
+        """Top-down planning across blocks: block b's targets =
+        rating-pair nodes (+ recon nodes) + the bottom frontier required
+        by block b+1.
+
+        Pass a prebuilt ``BlockSampler`` when planning repeatedly: its
+        constructor precomputes support/rating arrays over ALL edges
+        (seconds on a 10M-edge graph), which per-batch sampling reuses.
+
+        ``exclude_pairs=(batch_user_ids, batch_item_ids)`` implements
+        REMOVE_RATING: those edges are dropped from every sampled
+        neighborhood and supports are recomputed from the
+        removal-adjusted degrees — without them, each target pair's own
+        rating leaks into the features predicting it.
+        """
+        if seed is not None:
+            K.set_seed(seed)
+        L = len(cfg.agg_units)
+        if sampler is None:
+            sampler = BlockSampler(
+                graph, num_layers=L, fanout=fanout,
+                symm=cfg.agg_norm_symm, node_pad=node_pad,
+                name_user=name_user, name_item=name_item,
+                frontier_caps=frontier_caps)
+        exclude_keys = removal = None
+        if exclude_pairs is not None:
+            exclude_keys, removal = sampler.removal_args(*exclude_pairs)
+        base_u = np.unique(np.asarray(pairs_user, np.int32))
+        base_i = np.unique(np.asarray(pairs_item, np.int32))
+        recon_ids = {
+            "user": (np.asarray(recon_user_ids, np.int32)
+                     if recon_user_ids is not None
+                     else np.zeros(0, np.int32)),
+            "item": (np.asarray(recon_item_ids, np.int32)
+                     if recon_item_ids is not None
+                     else np.zeros(0, np.int32)),
+        }
+        # -1 recon slots are padding (fixed-shape recon batches)
+        base_u = np.union1d(base_u,
+                            recon_ids["user"][recon_ids["user"] >= 0])
+        base_i = np.union1d(base_i,
+                            recon_ids["item"][recon_ids["item"] >= 0])
+
+        chains = []
+        tgt_u, tgt_i = base_u, base_i
+        for _ in range(cfg.nblocks):
+            blocks = sampler.sample(tgt_u, tgt_i,
+                                    exclude_keys=exclude_keys,
+                                    removal_counts=removal)
+            chains.append(blocks)
+            f0 = blocks.frontiers[0]
+            tgt_u = np.union1d(base_u, f0["user"][f0["user"] >= 0])
+            tgt_i = np.union1d(base_i, f0["item"][f0["item"] >= 0])
+        chains = chains[::-1]  # block 0 = deepest chain
+
+        def positions(top_ids, query_ids):
+            """(pos, ok) of query_ids within top_ids (-1 slots -> ok=0)."""
+            size = int(max(top_ids.max(initial=0),
+                           query_ids.max(initial=0))) + 1
+            pos_map = np.full(size + 1, -1, np.int32)
+            valid_top = top_ids >= 0
+            pos_map[top_ids[valid_top]] = np.nonzero(valid_top)[0]
+            safe = np.where(query_ids >= 0, query_ids, size)
+            pos = pos_map[np.minimum(safe, size)]
+            ok = (pos >= 0) & (query_ids >= 0)
+            return (np.where(ok, pos, 0).astype(np.int32),
+                    ok.astype(np.float32))
+
+        pu = np.asarray(pairs_user, np.int32)
+        pi = np.asarray(pairs_item, np.int32)
+        pairs_pos, cross_gather, recon_pos = [], [], []
+        for b, blocks in enumerate(chains):
+            top = blocks.frontiers[-1]
+            pairs_pos.append({
+                "user": positions(top["user"], pu)[0],
+                "item": positions(top["item"], pi)[0],
+            })
+            recon_pos.append({
+                t: positions(top[t], recon_ids[t]) for t in ("user", "item")
+            })
+            if b == 0:
+                cross_gather.append(None)
+            else:
+                prev_top = chains[b - 1].frontiers[-1]
+                f0 = blocks.frontiers[0]
+                cross_gather.append({
+                    t: positions(prev_top[t], f0[t])
+                    for t in ("user", "item")})
+        return StackedPlan(chains=chains, pairs_pos=pairs_pos,
+                           cross_gather=cross_gather, recon_ids=recon_ids,
+                           recon_pos=recon_pos)
+
+    def as_host_tree(self):
+        """The plan as the tree of numpy arrays that ``sampled_forward``
+        reads (after ``to`` or ``pack_tree`` / ``unpack_tree``).
+
+        Feed it through :func:`pack_tree` to ship the whole plan to the
+        device as two flat buffers: the plan is ~30 small arrays, and a
+        copy per array pays the host-to-device latency each time."""
+        return {
+            "frontiers": [
+                {t: np.asarray(f[t]) for t in ("user", "item")}
+                for c in self.chains for f in [c.frontiers[0]]],
+            "blocks": [[{t: _blk_host(lvl[t],
+                                      len(c.frontiers[li][_SRC_OF[t]]))
+                         for t in ("user", "item")}
+                        for li, lvl in enumerate(c.blocks)]
+                       for c in self.chains],
+            "pairs_pos": [{t: np.asarray(p[t]) for t in ("user", "item")}
+                          for p in self.pairs_pos],
+            "cross_gather": [
+                None if cg is None else
+                {t: (np.asarray(cg[t][0]), np.asarray(cg[t][1]))
+                 for t in ("user", "item")}
+                for cg in self.cross_gather],
+            "recon_pos": [
+                {t: (np.asarray(rp[t][0]), np.asarray(rp[t][1]))
+                 for t in ("user", "item")}
+                for rp in self.recon_pos],
+            "recon_ids": {t: np.asarray(self.recon_ids[t])
+                          for t in ("user", "item")},
+        }
+
+    def to(self, device):
+        """``as_host_tree()`` with every array a tensor on ``device`` (one
+        copy per array; the trainer packs the tree into two buffers
+        instead)."""
+        return _map_leaves(
+            self.as_host_tree(),
+            lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device))
+
+
+_SRC_OF = {"user": "item", "item": "user"}
+
+
+def _blk_host(b, n_src):
+    """ELL block as shipped arrays: the per-slot rating level and source
+    position fold into ONE combined index ``rating * n_src + nbr_pos``
+    (what :func:`_ell_aggregate` indexes the (R*n_src, units) projection
+    with) — halving the plan's int payload; the 'stack' accumulator
+    recovers the rating as ``idx // n_src`` on device."""
+    return {"idx": (np.asarray(b.rating) * np.int32(n_src)
+                    + np.asarray(b.nbr_pos)).astype(np.int32),
+            "weight": np.asarray(b.weight)}
+
+
+# ------------------------------ packed trees ------------------------------
+
+
+def _map_leaves(tree, fn):
+    """``tree`` (dicts, lists, tuples, ``None``, array leaves) with ``fn``
+    applied to every leaf."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(v, fn) for v in tree)
+    return fn(tree)
+
+
+def _flatten(tree, leaves):
+    """Append the leaves of ``tree`` to ``leaves`` (dict keys in sorted
+    order, ``None`` a node without leaves) and return its hashable
+    structure."""
+    if tree is None:
+        return ("none",)
+    if isinstance(tree, dict):
+        keys = tuple(sorted(tree))
+        return ("dict", keys, tuple(_flatten(tree[k], leaves) for k in keys))
+    if isinstance(tree, (list, tuple)):
+        kind = "list" if isinstance(tree, list) else "tuple"
+        return (kind, tuple(_flatten(v, leaves) for v in tree))
+    leaves.append(tree)
+    return ("leaf",)
+
+
+def _unflatten(struct, leaves):
+    kind = struct[0]
+    if kind == "none":
+        return None
+    if kind == "leaf":
+        return next(leaves)
+    if kind == "dict":
+        return {k: _unflatten(s, leaves) for k, s in zip(struct[1],
+                                                         struct[2])}
+    seq = [_unflatten(s, leaves) for s in struct[1]]
+    return seq if kind == "list" else tuple(seq)
+
+
+def pack_tree(tree):
+    """Flatten a tree of numpy arrays into ``(int_buf, float_buf, spec)``.
+
+    One int32 and one float32 buffer carry every leaf, so a step that
+    takes the pair costs exactly TWO host-to-device copies no matter how
+    many arrays the plan holds.  ``spec`` is hashable (the tree structure +
+    per-leaf (is_float, offset, shape)); rebuild the tree on the device
+    with :func:`unpack_tree` (slices of the two buffers: views, no
+    copies).  Leaves are laid out in the JAX package's order (dict keys
+    sorted), so the buffers equal its ``pack_tree``'s."""
+    leaves = []
+    struct = _flatten(tree, leaves)
+    int_parts, flt_parts, metas = [], [], []
+    io = fo = 0
+    for leaf in leaves:
+        a = np.asarray(leaf)
+        if a.dtype == np.int64:
+            a = a.astype(np.int32)
+        if a.dtype == np.float32:
+            metas.append((True, fo, a.shape))
+            flt_parts.append(a.ravel())
+            fo += a.size
+        elif a.dtype == np.int32:
+            metas.append((False, io, a.shape))
+            int_parts.append(a.ravel())
+            io += a.size
+        else:
+            raise TypeError(f"pack_tree: unsupported dtype {a.dtype}")
+    ibuf = (np.concatenate(int_parts) if int_parts
+            else np.zeros(0, np.int32))
+    fbuf = (np.concatenate(flt_parts) if flt_parts
+            else np.zeros(0, np.float32))
+    return ibuf, fbuf, (struct, tuple(metas))
+
+
+def unpack_tree(int_buf, float_buf, spec):
+    """Inverse of :func:`pack_tree` over numpy arrays or tensors (on any
+    device): every leaf is a reshaped slice of its buffer."""
+    struct, metas = spec
+    leaves = []
+    for is_float, off, shape in metas:
+        buf = float_buf if is_float else int_buf
+        n = 1
+        for d in shape:
+            n *= d
+        leaves.append(buf[off:off + n].reshape(shape))
+    return _unflatten(struct, iter(leaves))
+
+
+# ------------------------------ device phase ------------------------------
+
+
+def _masked_embed_rows(table, ids, noise):
+    """Gather embedding rows for frontier ids through the noise array
+    (-1 / padded frontier slots -> zero rows)."""
+    safe_ids = torch.where(ids >= 0, ids, torch.zeros_like(ids))
+    redirected = noise[safe_ids.long()]
+    keep = (redirected != -1) & (ids >= 0)
+    rows = take_rows(table, torch.where(
+        keep, redirected, torch.zeros_like(redirected)).long())
+    return rows * keep[:, None].to(table.dtype)
+
+
+def _take_slots(x, idx):
+    """``x[idx]`` for a 2-D slot index: ``(N, K, F)``."""
+    n, k = idx.shape
+    return take_rows(x, idx.reshape(-1).long()).reshape(n, k, -1)
+
+
+def _onehot(levels, num_links, dtype):
+    return F.one_hot(levels.long(), num_links).to(dtype)
+
+
+def _ell_aggregate(proj, block, accum, use_pallas):
+    """Pool per-rating projections over an ELL block.
+
+    'sum' is one fused gather-pool (``ell_spmm`` when ``use_pallas``);
+    'stack' gathers once and splits the per-slot messages across rating
+    channels with a one-hot contraction (no per-rating re-gather).
+    """
+    R, n_src, units = proj.shape
+    flat = proj.reshape(R * n_src, units)
+    idx = block["idx"]  # rating * n_src + nbr_pos, combined on host
+    w = block["weight"]
+    if accum == "sum":
+        if use_pallas:
+            return ell_kernels.ell_spmm(flat, idx, w)
+        return (_take_slots(flat, idx) * w[:, :, None]).sum(dim=1)
+    # 'stack': msg[n,k,u] routed to channel block rating[n,k].
+    msg = _take_slots(flat, idx) * w[:, :, None]                   # N,K,U
+    onehot = _onehot(idx // n_src, R, msg.dtype)                   # N,K,R
+    pooled = torch.einsum("nku,nkr->nru", msg, onehot)
+    return pooled.reshape(pooled.shape[0], R * units)
+
+
+def _pool_then_project(x, weight, bias, block, accum, ordinal_sharing):
+    """Aggregate RAW source rows per rating level, then project the
+    pooled result — linear-equivalent to project-then-pool (projection
+    and pooling are both linear: ``pool_r(xW_r + b_r) = pool_r(x)W_r +
+    wsum_r b_r``), with the per-level intermediate shrunk from
+    ``(R, n_src, agg_units)`` to ``(n_dst, R, embed)``."""
+    if ordinal_sharing:
+        weight = torch.cumsum(weight, dim=0)
+        bias = torch.cumsum(bias, dim=0)
+    R = weight.shape[0]
+    n_src = x.shape[0]
+    idx = block["idx"]          # rating * n_src + nbr_pos (combined)
+    w = block["weight"]         # (n_dst, K); 0 on padded slots
+    msg = _take_slots(x, idx % n_src) * w[:, :, None]              # N,K,E
+    onehot = _onehot(idx // n_src, R, x.dtype)                     # N,K,R
+    raw = torch.einsum("nke,nkr->nre", msg, onehot)
+    wsum = torch.einsum("nk,nkr->nr", w, onehot)
+    if accum == "sum":
+        return torch.einsum("nre,rea->na", raw, weight) + wsum @ bias
+    ch = torch.einsum("nre,rea->nra", raw, weight)
+    ch = ch + wsum[:, :, None] * bias[None]
+    return ch.reshape(ch.shape[0], -1)
+
+
+def _named(params):
+    """``name -> tensor`` from a module or from a mapping."""
+    if isinstance(params, torch.nn.Module):
+        return dict(params.named_parameters())
+    return params
+
+
+def _check_supported(cfg, identity_frontiers, row_sharding, remat):
+    unsupported = {
+        "MODEL.USE_FEA_PROJ": cfg.use_fea_proj,
+        "MODEL.USE_EMBED false": not cfg.use_embed,
+        "MODEL.COMPUTE_DTYPE other than float32":
+            cfg.compute_dtype != "float32",
+        "identity_frontiers (the device planner's dense path)":
+            bool(identity_frontiers),
+        "row_sharding (the device mesh)": row_sharding is not None,
+        "remat": bool(remat),
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"not ported yet ({', '.join(bad)}): the sampled forward runs "
+            "host-built plans in float32 over learned embeddings on one "
+            "device; the rest comes with the slices that port feature "
+            "projection, bfloat16 compute, graph/device_sampling.py and "
+            "the mesh")
+
+
+def sampled_forward(params, cfg, plan, noise_user, noise_item,
+                    backend: str = "xla", *, train: bool = False,
+                    generator=None, row_sharding=None,
+                    identity_frontiers=None, remat: bool = False):
+    """Bottom-up execution of the stacked plan.
+
+    ``params`` is the full-graph ``STARGCN`` module or its parameters by
+    name (``named_parameters`` / ``state_dict`` keys).  ``plan`` may be a
+    ``StackedPlan`` (copied to the parameters' device on the fly) or a tree
+    of tensors on that device: ``StackedPlan.to(device)`` or an unpacked
+    ``as_host_tree()``.  ``noise_user`` / ``noise_item`` are the full-size
+    int noise arrays (-1 = mask the embedding to zero).  Dropout (``train``
+    with ``cfg.gcn_dropout`` > 0) falls on the source features inside each
+    aggregator and on the aggregated features before the out-FC, drawn from
+    ``generator``, a ``torch.Generator`` on the same device.
+
+    Returns {'pred_ratings': (nblocks, B), 'pred_embed': per block per
+    type (n_recon, emb) rows, 'recon_ok': per block per type validity,
+    'gt_embed': (n_recon, emb) unmasked embedding rows}.
+    """
+    _check_supported(cfg, identity_frontiers, row_sharding, remat)
+    if backend not in ("xla", "pallas"):
+        raise ValueError(f"unknown sampled backend: {backend!r}")
+    if train and cfg.gcn_dropout > 0.0 and generator is None:
+        raise ValueError("train=True with dropout requires a generator")
+    p = _named(params)
+    table = {"user": p["embed_user.weight"], "item": p["embed_item.weight"]}
+    device = table["user"].device
+    if isinstance(plan, StackedPlan):
+        plan = plan.to(device)
+    act = get_activation(cfg.activation)
+    use_pallas = backend == "pallas"
+    noise = {"user": torch.as_tensor(noise_user, device=device),
+             "item": torch.as_tensor(noise_item, device=device)}
+
+    def drop(x):
+        return _dropout(x, cfg.gcn_dropout, train, generator)
+
+    def linear(x, name):
+        return F.linear(x, p[f"{name}.weight"], p[f"{name}.bias"])
+
+    nblocks = len(plan["blocks"])
+    pred_ratings, pred_embed, recon_ok = [], [], []
+    gt_embed = {
+        t: take_rows(table[t], plan["recon_ids"][t].clamp_min(0).long())
+        for t in ("user", "item")}
+    prev_top_feats = None
+    for block_id in range(nblocks):
+        pidx = 0 if cfg.use_recurrent else block_id
+        f0 = plan["frontiers"][block_id]
+        if block_id == 0:
+            feats = {t: _masked_embed_rows(table[t], f0[t], noise[t])
+                     for t in ("user", "item")}
+        else:
+            cg = plan["cross_gather"][block_id]
+            feats = {}
+            for t in ("user", "item"):
+                pos, ok = cg[t]
+                feats[t] = take_rows(prev_top_feats[t], pos.long()) \
+                    * ok[:, None]
+
+        for li, lvl in enumerate(plan["blocks"][block_id]):
+            depth = 0 if cfg.gcn_use_recurrent else li
+            layer = f"enc_b{pidx}.l{depth}"
+            out = {}
+            for t, s in (("user", "item"), ("item", "user")):
+                agg_w = p[f"{layer}.agg_{t}_{s}.weight"]
+                agg_b = p[f"{layer}.agg_{t}_{s}.bias"]
+                if use_pallas:
+                    # The ELL kernel pools pre-projected rows (the
+                    # reference kernel's contract); the 'xla' default
+                    # pools raw rows first.
+                    proj = multi_link_project(
+                        drop(feats[s]), agg_w, agg_b,
+                        ordinal_sharing=cfg.agg_ordinal_sharing)
+                    pooled = _ell_aggregate(proj, lvl[t], cfg.agg_accum,
+                                            True)
+                else:
+                    pooled = _pool_then_project(
+                        drop(feats[s]), agg_w, agg_b, lvl[t],
+                        cfg.agg_accum, cfg.agg_ordinal_sharing)
+                pooled = drop(act(pooled))  # agg_act then dropout
+                out[t] = act(linear(pooled, f"{layer}.out_fc_{t}"))
+            feats = out
+
+        # rating head
+        pp = plan["pairs_pos"][block_id]
+        u_rows = linear(take_rows(feats["user"], pp["user"].long()),
+                        f"rating_user_proj_b{pidx}")
+        i_rows = linear(take_rows(feats["item"], pp["item"].long()),
+                        f"rating_item_proj_b{pidx}")
+        pred_ratings.append((u_rows * i_rows).sum(dim=-1))
+
+        if cfg.use_dae:
+            mapped = {
+                t: linear(act(linear(feats[t],
+                                     f"embed_map_b{pidx}_{t}_l0")),
+                          f"embed_map_b{pidx}_{t}_l1")
+                for t in ("user", "item")}
+            rp = plan["recon_pos"][block_id]
+            pred_embed.append({
+                t: take_rows(mapped[t], rp[t][0].long())
+                for t in ("user", "item")})
+            recon_ok.append({t: rp[t][1] for t in ("user", "item")})
+            prev_top_feats = mapped
+
+    return {"pred_ratings": torch.stack(pred_ratings, dim=0),
+            "pred_embed": pred_embed, "recon_ok": recon_ok,
+            "gt_embed": gt_embed}
+
+
+def recon_losses(out):
+    """Per block, the sum over node types of the mean squared
+    reconstruction error over the valid recon slots: ``(nblocks,)``, or
+    ``None`` without reconstructions."""
+    if not out["pred_embed"]:
+        return None
+    rls = []
+    for blk, ok in zip(out["pred_embed"], out["recon_ok"]):
+        block_loss = 0.0
+        for t in ("user", "item"):
+            diff = ((blk[t] - out["gt_embed"][t]) ** 2).sum(dim=-1)
+            block_loss = block_loss + (diff * ok[t]).sum() \
+                / ok[t].sum().clamp_min(1.0)
+        rls.append(block_loss)
+    return torch.stack(rls)
+
+
+def sampled_loss(params, cfg, plan, noise_user, noise_item, gt_ratings,
+                 pairs_valid, rating_mean, rating_std, recon_lambda,
+                 *, train=False, generator=None, backend="xla"):
+    """Rating + reconstruction loss on a sampled plan — the sampled-mode
+    twin of the full-graph loss.  Returns ``(loss, (rating_loss,
+    pred_ratings))``."""
+    out = sampled_forward(params, cfg, plan, noise_user, noise_item,
+                          backend=backend, train=train,
+                          generator=generator)
+    target = (gt_ratings - rating_mean) / rating_std
+    n_valid = pairs_valid.sum().clamp_min(1.0)
+    sq = (out["pred_ratings"] - target[None, :]) ** 2
+    rating_loss = 0.5 * (sq * pairs_valid[None, :]).sum(dim=1) / n_valid
+    loss = rating_loss.sum()
+    rls = recon_losses(out)
+    if rls is not None:
+        loss = loss + recon_lambda * rls.sum()
+    return loss, (rating_loss, out["pred_ratings"])

@@ -34,6 +34,9 @@ SIGNATURES = {
                    [_P, _P, _I, _P, _I, _I, _I, _I, _P]),
     "bit_reduce": ("bit_reduce_matmul_launch",
                    [_P, _P, _I, _P, _I, _I, _I, _I, _L, _L, _P]),
+    "ell_spmm": ("ell_spmm_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "ell_sddmm": ("ell_sddmm_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "ell_spmm_t": ("ell_spmm_t_launch", [_P, _P, _P, _P, _P, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

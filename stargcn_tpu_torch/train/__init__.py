@@ -5,6 +5,11 @@ from stargcn_tpu_torch.models.stargcn import (
     resolve_backend,
 )
 from stargcn_tpu_torch.train.loop import Trainer, TrainSettings
+from stargcn_tpu_torch.train.sampled_loop import (
+    SampledTrainer,
+    resolve_sampled_backend,
+)
 
-__all__ = ["Trainer", "TrainSettings", "build_model_config",
-           "resolve_backend"]
+__all__ = ["Trainer", "TrainSettings", "SampledTrainer",
+           "build_model_config", "resolve_backend",
+           "resolve_sampled_backend"]

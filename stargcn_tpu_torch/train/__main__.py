@@ -4,6 +4,15 @@ for full-graph transductive training on the ``bitdense`` backend::
     python -m stargcn_tpu_torch.train --cfg configs/transductive_ml_10m.yml \\
         --dataset synthetic --save_dir runs --max_iter 200
 
+and, with ``--num_neighbors K`` (``GRAPH_SAMPLER.NUM_NEIGHBORS`` > 0), for
+sampled mini-batch training (``train/sampled_loop.py:SampledTrainer``),
+where ``--backend pallas`` pools every frontier through the ELL kernels,
+``--backend auto`` resolves by ``resolve_sampled_backend`` and anything
+else takes the plain ``xla`` formulation::
+
+    python -m stargcn_tpu_torch.train --cfg configs/transductive_ml_10m.yml \\
+        --dataset synthetic --num_neighbors 8 --backend pallas --save_dir runs
+
 Writes ``cfg{id}.yml``, ``log{id}.log``, ``train_loss{id}.csv``,
 ``valid_loss{id}.csv``, ``test_loss{id}.csv`` and the checkpoints
 ``ckpt_best_{id}.pt`` / ``ckpt_last_{id}.pt`` into ``--save_dir``, and logs
@@ -28,7 +37,11 @@ def main(argv=None):
     parser.add_argument("--silent", action="store_true")
     parser.add_argument("--max_iter", default=None, type=int)
     parser.add_argument("--backend", default=None, type=str,
-                        help="aggregation kernel backend: auto | bitdense")
+                        help="aggregation kernel backend: auto | bitdense; "
+                             "in sampled mode pallas | xla | auto")
+    parser.add_argument("--num_neighbors", default=None, type=int,
+                        help="sampled mini-batch mode with this fanout "
+                             "(GRAPH_SAMPLER.NUM_NEIGHBORS)")
     parser.add_argument("--resume", default=None, type=str,
                         help="restore parameters + optimizer state from a "
                              "checkpoint (.pt) before training")
@@ -36,8 +49,10 @@ def main(argv=None):
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
+    from stargcn_tpu_torch.graph import kernels as graph_kernels
     from stargcn_tpu_torch.predict import build_dataset
     from stargcn_tpu_torch.train.loop import Trainer, TrainSettings
+    from stargcn_tpu_torch.train.sampled_loop import SampledTrainer
     from stargcn_tpu_torch.utils import (cfg_from_file, default_cfg,
                                          logging_config, save_cfg_dir)
 
@@ -52,10 +67,9 @@ def main(argv=None):
         cfg.TRAIN.MAX_ITER = args.max_iter
     if args.backend is not None:
         cfg.KERNEL.BACKEND = args.backend
-    if int(cfg.GRAPH_SAMPLER.NUM_NEIGHBORS) > 0:
-        raise NotImplementedError(
-            "sampled mini-batch training comes with the port of "
-            "train/sampled_loop.py")
+    if args.num_neighbors is not None:
+        cfg.GRAPH_SAMPLER.NUM_NEIGHBORS = args.num_neighbors
+    fanout = int(cfg.GRAPH_SAMPLER.NUM_NEIGHBORS)
 
     save_dir = args.save_dir
     if save_dir is None and args.cfg_file is not None:
@@ -69,10 +83,22 @@ def main(argv=None):
         logging.basicConfig(level=logging.INFO)
     logging.info(cfg)
 
+    graph_kernels.set_seed(cfg.SEED)
     _, data_iter, model_cfg = build_dataset(cfg)
-    trainer = Trainer(model_cfg, data_iter, TrainSettings.from_cfg(cfg),
-                      save_dir=save_dir, save_id=save_id,
-                      device=args.device)
+    if fanout > 0:
+        # Sampled mode reads KERNEL.BACKEND itself; the full-graph backend
+        # of the model config is not used there.
+        sampled_backend = (cfg.KERNEL.BACKEND
+                           if cfg.KERNEL.BACKEND in ("pallas", "auto")
+                           else "xla")
+        trainer = SampledTrainer(
+            model_cfg, data_iter, TrainSettings.from_cfg(cfg),
+            fanout=fanout, save_dir=save_dir, save_id=save_id,
+            backend=sampled_backend, device=args.device)
+    else:
+        trainer = Trainer(model_cfg, data_iter, TrainSettings.from_cfg(cfg),
+                          save_dir=save_dir, save_id=save_id,
+                          device=args.device)
     if args.resume:
         trainer.restore_checkpoint(args.resume)
         logging.info("resumed from %s", args.resume)

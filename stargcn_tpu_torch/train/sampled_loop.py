@@ -1,0 +1,659 @@
+"""Mini-batch training engine for the sampled two-phase mode.
+
+The port of ``stargcn_tpu/train/sampled_loop.py``: the counterpart of
+``Trainer`` for graphs too large for full-graph propagation, with the same
+schedule: rating + reconstruction batches from the same ``DataIterator``
+samplers, REMOVE_RATING batch-edge exclusion, interleaved valid/test
+evaluation, patience-driven LR decay with early stopping, best/last
+checkpoints, and ``MetricLogger`` CSVs.  Reached from the CLI when
+``GRAPH_SAMPLER.NUM_NEIGHBORS > 0``.
+
+Every step the host builds a plan (``StackedPlan.build``: fixed-shape
+frontiers and ELL blocks under the frontier caps), packs it with the
+batch's noise and targets into one int32 and one float32 buffer (two
+host-to-device copies), and the device runs ``sampled_forward``, its
+backward, the global-norm clip and Adam.  Evaluation samples
+neighborhoods with the SAME fanout as training, on the eval graph, with
+the cold-start eval noise.
+
+Not ported here: planning on the device (``plan_device``), the prefetch
+thread, the mesh, ``remat`` and the ``net%d.txt`` model summary.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from stargcn_tpu_torch.graph.sampling import BlockSampler, FrontierCapError
+from stargcn_tpu_torch.models.sampled import (StackedPlan, pack_tree,
+                                              recon_losses, sampled_forward,
+                                              unpack_tree)
+from stargcn_tpu_torch.models.stargcn import STARGCN
+from stargcn_tpu_torch.train.loop import (_STAT_NAMES, make_metric_loggers,
+                                          make_optimizer)
+from stargcn_tpu_torch.utils.device import resolve_device
+
+
+def _round_up(n, m):
+    return max(m, -(-n // m) * m)
+
+
+def resolve_sampled_backend(backend: str, caps: dict, fanout: int, *,
+                            for_training: bool = True,
+                            device="cuda") -> str:
+    """'auto' -> a backend for the plan shapes AND the step kind; 'pallas'
+    and 'xla' pass through.
+
+    The decision table is the JAX package's: training (forward + backward)
+    resolves to 'xla' at every shape; forward only (evaluation, serving over
+    sampled frontiers) picks the ELL kernels ('pallas') when the tensors lie
+    on the card, the largest frontier cap is at most 32768 and the fanout is
+    16 to 32, else 'xla'.  That window was measured for the reference's
+    kernels on its accelerator.  Where the CUDA kernels win on this card is
+    what ``chip_smoke.py`` measures (both backends' step and kernel times);
+    the table has not been re-derived from it yet.
+    """
+    if backend != "auto":
+        return backend
+    if for_training or torch.device(device).type != "cuda":
+        return "xla"
+    d_max = max(caps.values()) if caps else 1 << 30
+    return "pallas" if (d_max <= 32768 and 16 <= fanout <= 32) else "xla"
+
+
+class SampledTrainer:
+    """Sampled-mode trainer with the ``Trainer`` schedule.
+
+    Shares the full-graph model's parameters (``self.model`` is the
+    ``STARGCN`` module, used as their container; checkpoints interchange
+    with ``Trainer``); ``models/sampled.py`` executes the same math over
+    sampled frontiers.
+
+    Args:
+      model_cfg: a ``STARGCNConfig`` (its full-graph ``backend`` is not
+        read).
+      data_iter, settings: as for ``Trainer``.
+      fanout: neighbors sampled per node and level (> 0).
+      frontier_caps: ``{'user': n, 'item': n}``; probed from a few plans
+        (times ``cap_slack``) when not given.
+      backend: ``'xla'`` | ``'pallas'`` | ``'auto'``
+        (``resolve_sampled_backend``).
+      planner: ``BlockSampler``'s neighbor-drawing route.
+      device: where the parameters and the step live (default the card).
+    """
+
+    def __init__(self, model_cfg, data_iter, settings, *, fanout,
+                 save_dir: Optional[str] = None, save_id: int = 0,
+                 frontier_caps=None, name_user="user", name_item="movie",
+                 backend: str = "xla", cap_slack: float = 1.6,
+                 planner: str = "vectorised", device="cuda", mesh=None,
+                 plan_device: bool = False, remat: bool = False):
+        if fanout <= 0:
+            raise ValueError("SampledTrainer needs a positive fanout")
+        unsupported = {
+            "the device mesh": mesh is not None,
+            "plan_device (graph/device_sampling.py)": plan_device,
+            "remat": remat,
+            "MODEL.USE_FEA_PROJ": model_cfg.use_fea_proj,
+        }
+        bad = [k for k, v in unsupported.items() if v]
+        if bad:
+            raise NotImplementedError(
+                f"not ported yet: {', '.join(bad)}; the sampled trainer "
+                "runs host-built plans on one device")
+        self.model_cfg = model_cfg
+        self.data_iter = data_iter
+        self.s = settings
+        self.fanout = fanout
+        self.save_dir = save_dir
+        self.save_id = save_id
+        self.backend = backend
+        self.names = (name_user, name_item)
+        self.device = resolve_device(device)
+
+        it = data_iter
+        train_ratings = it.train_ratings
+        self.rating_mean = float(train_ratings.mean())
+        self.rating_std = float(train_ratings.std())
+        vals = it.possible_rating_values
+        self.rating_min = float(vals.min())
+        self.rating_max = float(vals.max())
+
+        n_train = it.train_node_pairs.shape[1]
+        self.train_batch = min(self.s.rating_batch_size, n_train)
+        # Batch edges are removed only when the batch is a strict subset
+        # of the training edges.
+        self.do_remove = self.s.remove_rating and self.train_batch < n_train
+        # Array sizes round up to a multiple of 16 (padded slots carry
+        # valid=0 / id=-1 and are masked everywhere), as in the JAX
+        # package, so packed buffers compare like for like.
+        self.train_batch_pad = _round_up(self.train_batch, 16)
+
+        # Fixed-size recon batches (pad with -1).
+        self.recon_cap = {"user": 0, "item": 0}
+        if self.s.use_dae:
+            for t, key in (("user", name_user), ("item", name_item)):
+                n_recon = int(np.ceil(
+                    it.embed_P_mask[key]
+                    * it.recon_train_candidates[key].size))
+                self.recon_cap[t] = _round_up(
+                    min(self.s.recon_batch_size, n_recon), 16)
+
+        L = len(model_cfg.agg_units)
+        self.samplers = {
+            seg: BlockSampler(g, num_layers=L, fanout=fanout,
+                              symm=model_cfg.agg_norm_symm,
+                              name_user=name_user, name_item=name_item,
+                              planner=planner)
+            for seg, g in (("train", it.train_graph),
+                           ("valid", it.val_graph),
+                           ("test", it.test_graph))}
+        self.caps = (dict(frontier_caps) if frontier_caps is not None
+                     else self._probe_caps(cap_slack))
+        for s in self.samplers.values():
+            s.frontier_caps = self.caps
+        logging.info("sampled frontier caps: %s", self.caps)
+        if self.backend == "auto":
+            # evaluation is forward-only and resolves on its own column
+            # of the table; resolve BOTH before the training default
+            # overwrites self.backend.
+            self.eval_backend = resolve_sampled_backend(
+                "auto", self.caps, fanout, for_training=False,
+                device=self.device)
+            self.backend = resolve_sampled_backend(
+                "auto", self.caps, fanout, device=self.device)
+            logging.info("sampled backend resolved to %r (train) / %r "
+                         "(eval) (caps %s, fanout %d)", self.backend,
+                         self.eval_backend, self.caps, fanout)
+        else:
+            self.eval_backend = self.backend
+
+        self.model = self._init_params()
+        # Dropout masks: one stream, on the model's device.
+        self._dropout_gen = torch.Generator(device=self.device)
+        self._dropout_gen.manual_seed(self.s.seed)
+        self.opt = make_optimizer(self.s, self.model.named_parameters())
+        self.lr = self.s.lr
+
+    # ------------------------------ setup -----------------------------------
+
+    def _probe_caps(self, slack: float):
+        """Derive frontier caps from a few probe plans (train batches +
+        the widest eval batch per segment), padded by ``slack``."""
+        it = self.data_iter
+        caps = {"user": 0, "item": 0}
+
+        def grow(plan):
+            for chain in plan.chains:
+                for f in chain.frontiers:
+                    for t in ("user", "item"):
+                        caps[t] = max(caps[t], int(f[t].size))
+
+        rs = it.rating_sampler(batch_size=self.train_batch,
+                               segment="train")
+        recon = (it.recon_nodes_sampler(batch_size=self.s.recon_batch_size)
+                 if self.s.use_dae else None)
+        for _ in range(2):
+            pairs, _ = next(rs)
+            kw = {}
+            if recon is not None:
+                _, batch_ids, _ = next(recon)
+                ru, ri = self._pad_recon(batch_ids)
+                kw = dict(recon_user_ids=ru, recon_item_ids=ri)
+            grow(StackedPlan.build(
+                it.train_graph, self.model_cfg, pairs[0], pairs[1],
+                fanout=self.fanout, sampler=self.samplers["train"], **kw))
+        for seg in ("valid", "test"):
+            pairs = (it.valid_node_pairs if seg == "valid"
+                     else it.test_node_pairs)
+            bs = min(self.train_batch, max(1, pairs.shape[1]))
+            grow(StackedPlan.build(
+                it.val_graph if seg == "valid" else it.test_graph,
+                self.model_cfg, pairs[0, :bs], pairs[1, :bs],
+                fanout=self.fanout, sampler=self.samplers[seg]))
+        return {t: _round_up(int(v * slack), 256) for t, v in caps.items()}
+
+    def _init_params(self):
+        """The full-graph module, initialised from the settings' seed as
+        ``Trainer`` initialises it (the parameters depend only on the node
+        and link counts, not on the full-graph backend), on the device."""
+        cfg = dataclasses.replace(self.model_cfg, backend="bitdense")
+        model = STARGCN(
+            cfg, generator=torch.Generator().manual_seed(self.s.seed))
+        return model.to(self.device)
+
+    @property
+    def params(self):
+        """The parameters by name (``named_parameters``)."""
+        return dict(self.model.named_parameters())
+
+    def set_lr(self, lr: float):
+        """Change the learning rate; the Adam moments stay."""
+        self.lr = lr
+        self.opt.lr = float(lr)
+
+    def seed_dropout(self, seed: int):
+        """Restart the dropout stream from ``seed``."""
+        self._dropout_gen.manual_seed(seed)
+
+    # --------------------------- batch building ------------------------------
+
+    def _pad_recon(self, batch_ids_dict):
+        """Fixed-shape recon id arrays (pad with -1)."""
+        nu, ni = self.names
+        out = []
+        for t, key in (("user", nu), ("item", ni)):
+            cap = self.recon_cap[t]
+            ids = np.asarray(batch_ids_dict.get(key, ()), np.int32)[:cap]
+            arr = np.full(cap, -1, np.int32)
+            arr[:ids.size] = ids
+            out.append(arr)
+        return out
+
+    def _make_batch(self, rating_sampler, recon_sampler):
+        """Host-only batch construction: the next rating batch (padded),
+        the noise arrays and recon ids of the next recon batch, and the
+        plan over them.  Returns ``(plan, (bu, bi), gt, valid, noise_u,
+        noise_i)``."""
+        pairs, gt = next(rating_sampler)
+        n = gt.size
+        B = self.train_batch_pad
+        bu = np.zeros(B, np.int32)
+        bi = np.zeros(B, np.int32)
+        gt_pad = np.zeros(B, np.float32)
+        valid = np.zeros(B, np.float32)
+        bu[:n], bi[:n], gt_pad[:n], valid[:n] = (
+            pairs[0], pairs[1], gt, 1.0)
+        kw = {}
+        if recon_sampler is not None:
+            noise_dict, batch_ids, _ = next(recon_sampler)
+            nu, ni = self.names
+            noise_u = noise_dict[nu].astype(np.int32)
+            noise_i = noise_dict[ni].astype(np.int32)
+            ru, ri = self._pad_recon(batch_ids)
+            kw = dict(recon_user_ids=ru, recon_item_ids=ri)
+        else:
+            noise_u = np.arange(self.model_cfg.num_users, dtype=np.int32)
+            noise_i = np.arange(self.model_cfg.num_items, dtype=np.int32)
+        exclude = (pairs[0], pairs[1]) if self.do_remove else None
+        plan = StackedPlan.build(
+            self.data_iter.train_graph, self.model_cfg, bu[:n], bi[:n],
+            fanout=self.fanout, sampler=self.samplers["train"],
+            exclude_pairs=exclude, **kw)
+        return plan, (bu, bi), gt_pad, valid, noise_u, noise_i
+
+    # ------------------------------ driving ----------------------------------
+
+    def _pack_batch(self, batch):
+        """``(int_buf, float_buf, spec)`` of one batch: the plan with the
+        padded batch's positions, the noise arrays, targets and validity."""
+        plan, (bu, bi), gt, valid, noise_u, noise_i = batch
+        ht = plan.as_host_tree()
+        # Replace the plan's (unpadded, variable-length) pairs_pos with
+        # the padded-batch positions so the packed spec stays constant.
+        ht["pairs_pos"] = _pairs_positions(plan, bu, bi)
+        return pack_tree({
+            "plan": ht, "noise_u": noise_u, "noise_i": noise_i,
+            "gt": gt, "valid": valid})
+
+    def _feed(self, packed):
+        """The packed batch on the device, unpacked: two copies."""
+        ibuf, fbuf, spec = packed
+        return unpack_tree(torch.from_numpy(ibuf).to(self.device),
+                           torch.from_numpy(fbuf).to(self.device), spec)
+
+    # ---------------------- frontier-cap recovery ----------------------
+
+    def _grow_caps(self, needed: dict, slack: float = 1.3):
+        """Grow the frontier caps past an observed overflow and point
+        every sampler at the new caps.  The next step's tensors take the
+        new shapes and the run continues — a rare large frontier must
+        never be fatal mid-``fit``."""
+        for t, n in needed.items():
+            new = _round_up(int(n * slack), 256)
+            if new > self.caps.get(t, 0):
+                logging.warning(
+                    "frontier cap for %r grew %d -> %d (overflow "
+                    "recovery)", t, self.caps.get(t), new)
+                self.caps[t] = new
+        for s in self.samplers.values():
+            s.frontier_caps = self.caps
+
+    def _replan(self, batch):
+        """Rebuild a batch's plan under the CURRENT caps (same pairs,
+        noise and recon ids; the neighborhoods are re-sampled)."""
+        plan, (bu, bi), gt, valid, noise_u, noise_i = batch
+        n = int(valid.sum())
+        exclude = (bu[:n], bi[:n]) if self.do_remove else None
+        kw = {}
+        if self.recon_cap.get("user", 0) or self.recon_cap.get("item", 0):
+            kw = dict(recon_user_ids=plan.recon_ids["user"],
+                      recon_item_ids=plan.recon_ids["item"])
+        new_plan = StackedPlan.build(
+            self.data_iter.train_graph, self.model_cfg, bu[:n], bi[:n],
+            fanout=self.fanout, sampler=self.samplers["train"],
+            exclude_pairs=exclude, **kw)
+        return new_plan, (bu, bi), gt, valid, noise_u, noise_i
+
+    def _build_batch_safe(self, rating_sampler, recon_sampler):
+        """``_make_batch`` with frontier-cap overflow recovery."""
+        while True:
+            try:
+                return self._make_batch(rating_sampler, recon_sampler)
+            except FrontierCapError as e:
+                self._grow_caps(e.needed)
+
+    def train_iteration(self, batch):
+        """One optimisation step on a ``_make_batch`` batch.  Returns a
+        dict of device-side stats (``loss``, ``gnorm`` scalars;
+        ``rating_loss``, ``recon_loss``, ``sq_err`` per block)."""
+        return _loss_update(self, self._feed(self._pack_batch(batch)))
+
+    def train_chunk(self, batches):
+        """k optimisation steps in one call: a loop of ``train_iteration``
+        with the same dropout stream as k single calls.  Batches planned
+        under caps that have grown since are planned again first.  Returns
+        stats stacked along a leading k axis."""
+        packed = [self._pack_batch(b) for b in batches]
+        spec = packed[-1][2]
+        if any(p[2] != spec for p in packed[:-1]):
+            batches = [b if packed[i][2] == spec else self._replan(b)
+                       for i, b in enumerate(batches)]
+            packed = [self._pack_batch(b) for b in batches]
+            if any(p[2] != spec for p in packed):
+                raise ValueError(
+                    "train_chunk needs a constant packed spec across "
+                    "the chunk (fixed caps/batch)")
+        steps = [_loss_update(self, self._feed(p)) for p in packed]
+        return {k: torch.stack([st[k] for st in steps])
+                for k in _STAT_NAMES}
+
+    @torch.no_grad()
+    def evaluate(self, segment: str = "valid"):
+        """Per-block RMSE with fanout-sampled neighborhoods on the eval
+        graph and cold-start eval noise; predictions are denormalised and
+        clipped to the rating range."""
+        it = self.data_iter
+        pairs = (it.valid_node_pairs if segment == "valid"
+                 else it.test_node_pairs)
+        ratings = (it.valid_ratings if segment == "valid"
+                   else it.test_ratings)
+        graph = it.val_graph if segment == "valid" else it.test_graph
+        sampler = self.samplers[segment]
+        nu, ni = self.names
+        noise_u = np.asarray(it.evaluate_embed_noise_dict[nu], np.int32)
+        noise_i = np.asarray(it.evaluate_embed_noise_dict[ni], np.int32)
+        B = self.train_batch_pad
+        sq_sum = torch.zeros(self.model_cfg.nblocks, dtype=torch.float64,
+                             device=self.device)
+        cnt = 0
+        for start in range(0, pairs.shape[1], B):
+            end = min(start + B, pairs.shape[1])
+            n = end - start
+            bu = np.zeros(B, np.int32)
+            bi = np.zeros(B, np.int32)
+            gt = np.zeros(B, np.float32)
+            valid = np.zeros(B, np.float32)
+            bu[:n], bi[:n] = pairs[0, start:end], pairs[1, start:end]
+            gt[:n], valid[:n] = ratings[start:end], 1.0
+            while True:
+                try:
+                    plan = StackedPlan.build(
+                        graph, self.model_cfg, bu[:n], bi[:n],
+                        fanout=self.fanout, sampler=sampler)
+                    break
+                except FrontierCapError as e:
+                    self._grow_caps(e.needed)
+            feed = self._feed(self._pack_batch(
+                (plan, (bu, bi), gt, valid, noise_u, noise_i)))
+            sq_sum += _eval_step(self, feed)
+            cnt += n
+        return np.sqrt(sq_sum.cpu().numpy() / max(cnt, 1))
+
+    # -------------------------------- fit ------------------------------------
+
+    def fit(self, max_iter: Optional[int] = None, log=logging.info):
+        """The training schedule of ``Trainer.fit`` over sampled
+        mini-batches: steps, a train log line every ``log_interval``,
+        validation every ``valid_interval`` with a test evaluation and the
+        best checkpoint on improvement, LR decay after ``decay_patience``
+        validations without one, early stopping at ``min_lr``, recovery
+        from a non-finite loss (restore the best checkpoint, halve the
+        LR), and the last checkpoint at the end."""
+        s = self.s
+        it = self.data_iter
+        max_iter = max_iter or s.max_iter
+        rating_sampler = it.rating_sampler(batch_size=self.train_batch,
+                                           segment="train")
+        recon_sampler = (it.recon_nodes_sampler(
+            batch_size=s.recon_batch_size) if s.use_dae else None)
+        loggers = make_metric_loggers(self.save_dir, self.save_id,
+                                      self.model_cfg.nblocks)
+        nb = self.model_cfg.nblocks
+        best_valid_rmse = np.inf
+        best_test_rmse = None
+        best_iter = -1
+        no_better = 0
+        stop = False
+        t_start = time.time()
+        # Stats stay on the device between log intervals; each entry is
+        # the stats of one call flattened in _STAT_NAMES order, one row
+        # per step.
+        pending = []
+        pending_cnt = 0
+
+        def next_batch():
+            return self._build_batch_safe(rating_sampler, recon_sampler)
+
+        # Steps per train_chunk call, when the cadence allows.
+        k = s.scan_steps if (s.scan_steps > 1
+                             and s.log_interval % s.scan_steps == 0
+                             and s.valid_interval % s.scan_steps == 0
+                             and max_iter >= s.scan_steps) else 1
+        iter_idx = 0
+        while iter_idx < max_iter:
+            if k == 1:
+                stats = self.train_iteration(next_batch())
+            else:
+                stats = self.train_chunk([next_batch() for _ in range(k)])
+            iter_idx += k
+            pending.append(torch.cat(
+                [stats[name].reshape(k, -1) for name in _STAT_NAMES], 1))
+            pending_cnt += self.train_batch * k
+
+            logging_str = ""
+            if iter_idx % s.log_interval == 0:
+                fetched = torch.cat(pending).double().cpu().numpy()
+                n_batches = fetched.shape[0]
+                last_loss = float(fetched[-1, 0])
+                gn = fetched[:, 1].sum()
+                rl = fetched[:, 2:2 + nb].sum(axis=0)
+                cl = fetched[:, 2 + nb:2 + 2 * nb].sum(axis=0)
+                sq = fetched[:, 2 + 2 * nb:2 + 3 * nb].sum(axis=0)
+                pending, n_pairs = [], pending_cnt
+                pending_cnt = 0
+                if not np.isfinite(last_loss):
+                    log(f"Non-finite loss at iter {iter_idx}; "
+                        "restoring best checkpoint and halving LR.")
+                    ckpt = self._checkpoint_path("best")
+                    if ckpt and os.path.exists(ckpt):
+                        self.restore_checkpoint(ckpt)
+                    self.set_lr(max(self.lr * 0.5, s.min_lr))
+                    continue
+                rmse = np.sqrt(sq / max(n_pairs, 1))
+                row = {"iter": iter_idx, "loss": last_loss}
+                for i in range(nb):
+                    row[f"rmse{i}"] = rmse[i]
+                    row[f"rating_loss{i}"] = rl[i] / n_batches
+                    row[f"recon_loss{i}"] = cl[i] / n_batches
+                loggers["train"].log(**row)
+                dt = time.time() - t_start
+                logging_str = (
+                    f"Iter={iter_idx}, gnorm={gn / n_batches:.3f}, "
+                    f"loss={last_loss:.3f}, "
+                    + ", ".join(f"RMSE{i}={rmse[i]:.3f}"
+                                for i in range(nb))
+                    + f", {n_pairs / dt:.0f} pairs/s")
+                t_start = time.time()
+
+            if iter_idx % s.valid_interval == 0:
+                valid_rmse = self.evaluate("valid")
+                loggers["valid"].log(**{"iter": iter_idx, **{
+                    f"rmse{i}": valid_rmse[i] for i in range(nb)}})
+                logging_str += ", " + ", ".join(
+                    f"Val RMSE{i}={valid_rmse[i]:.3f}"
+                    for i in range(nb))
+                if valid_rmse[-1] < best_valid_rmse:
+                    best_valid_rmse = valid_rmse[-1]
+                    no_better = 0
+                    best_iter = iter_idx
+                    best_test_rmse = self.evaluate("test")
+                    loggers["test"].log(**{"iter": iter_idx, **{
+                        f"rmse{i}": best_test_rmse[i]
+                        for i in range(nb)}})
+                    logging_str += ", " + ", ".join(
+                        f"Test RMSE{i}={best_test_rmse[i]:.4f}"
+                        for i in range(nb))
+                    self.save_checkpoint("best")
+                else:
+                    no_better += 1
+                    if (no_better > s.early_stopping_patience
+                            and self.lr <= s.min_lr):
+                        log("Early stopping threshold reached.")
+                        stop = True
+                    elif no_better > s.decay_patience:
+                        new_lr = max(self.lr * s.lr_decay_factor,
+                                     s.min_lr)
+                        if new_lr < self.lr:
+                            log(f"\tChange the LR to {new_lr:g}")
+                            self.set_lr(new_lr)
+                            no_better = 0
+            if logging_str:
+                log(logging_str)
+            if stop:
+                break
+        for lg in loggers.values():
+            lg.close()
+        self.save_checkpoint("last")
+        log(f"Best Iter={best_iter}, "
+            f"Best Valid RMSE={best_valid_rmse:.4f}, "
+            + (", ".join(f"Best Test RMSE{i}={best_test_rmse[i]:.4f}"
+                         for i in range(nb))
+               if best_test_rmse is not None else "no test eval"))
+        return {"best_iter": best_iter,
+                "best_valid_rmse": float(best_valid_rmse),
+                "best_test_rmse": (None if best_test_rmse is None
+                                   else [float(x) for x in best_test_rmse])}
+
+    # ---------------------------- checkpointing ------------------------------
+
+    def _checkpoint_path(self, tag):
+        if self.save_dir is None:
+            return None
+        return os.path.join(self.save_dir, f"ckpt_{tag}_{self.save_id}.pt")
+
+    def save_checkpoint(self, tag: str = "last"):
+        """Persist parameters + optimiser state + the learning rate, in
+        the format of ``Trainer.save_checkpoint``."""
+        path = self._checkpoint_path(tag)
+        if path is None:
+            return None
+        from stargcn_tpu_torch.train.checkpoint import save_checkpoint
+        os.makedirs(self.save_dir, exist_ok=True)
+        save_checkpoint(path, self.model.state_dict(),
+                        self.opt.state_dict(), {"lr": self.lr})
+        return path
+
+    def restore_checkpoint(self, path: str):
+        from stargcn_tpu_torch.train.checkpoint import restore_checkpoint
+        params, opt_state, extra = restore_checkpoint(
+            path, self.model.state_dict(), self.opt.state_dict())
+        self.model.load_state_dict(params)
+        self.opt.load_state_dict(opt_state)
+        if "lr" in extra:
+            self.set_lr(float(extra["lr"]))
+
+
+# ----------------------------- step functions --------------------------------
+
+
+def _pairs_positions(plan, bu, bi):
+    """Positions of the (padded) batch pairs in each block's top
+    frontier, as host numpy arrays — they ship inside the packed feed
+    (padded slots resolve to position 0 and are masked by ``valid``)."""
+    out = []
+    for chain in plan.chains:
+        top = chain.frontiers[-1]
+
+        def pos_of(ids, arr):
+            size = int(max(arr.max(initial=0), ids.max(initial=0))) + 1
+            pmap = np.zeros(size + 1, np.int32)
+            ok = arr >= 0
+            pmap[arr[ok]] = np.nonzero(ok)[0]
+            return pmap[np.minimum(ids, size)].astype(np.int32)
+
+        out.append({"user": pos_of(bu, top["user"]),
+                    "item": pos_of(bi, top["item"])})
+    return out
+
+
+def _sampled_outputs(trainer, feed, *, train):
+    backend = trainer.backend if train else trainer.eval_backend
+    return sampled_forward(
+        trainer.model, trainer.model_cfg, feed["plan"], feed["noise_u"],
+        feed["noise_i"], backend=backend, train=train,
+        generator=trainer._dropout_gen)
+
+
+def _loss_and_grads(trainer, feed):
+    """Loss, statistics and per-parameter gradients over an unpacked
+    feed."""
+    cfg, s = trainer.model_cfg, trainer.s
+    mean, std = trainer.rating_mean, trainer.rating_std
+    gt_ratings, pairs_valid = feed["gt"], feed["valid"]
+    n_valid = pairs_valid.sum().clamp_min(1.0)
+
+    out = _sampled_outputs(trainer, feed, train=True)
+    target = (gt_ratings - mean) / std
+    sq = (out["pred_ratings"] - target[None, :]) ** 2
+    rating_loss = 0.5 * (sq * pairs_valid[None, :]).sum(dim=1) / n_valid
+    loss = rating_loss.sum()
+    recon_loss = torch.zeros(cfg.nblocks, device=trainer.device)
+    if s.use_dae and out["pred_embed"]:
+        recon_loss = recon_losses(out)
+        loss = loss + s.recon_lambda * recon_loss.sum()
+
+    names, params = zip(*trainer.model.named_parameters())
+    grads = {k: (torch.zeros_like(p) if g is None else g)
+             for k, p, g in zip(names, params, torch.autograd.grad(
+                 loss, params, allow_unused=True))}
+    with torch.no_grad():
+        denorm = out["pred_ratings"] * std + mean
+        sq_err = ((denorm - gt_ratings[None, :]) ** 2
+                  * pairs_valid[None, :]).sum(dim=1)
+    return {"loss": loss.detach(), "rating_loss": rating_loss.detach(),
+            "recon_loss": recon_loss.detach(), "sq_err": sq_err}, grads
+
+
+def _loss_update(trainer, feed):
+    """Loss + clipped Adam update over an unpacked feed."""
+    stats, grads = _loss_and_grads(trainer, feed)
+    stats["gnorm"] = trainer.opt.step(grads)
+    return stats
+
+
+def _eval_step(trainer, feed):
+    """Per-block sums of squared errors of the clipped, denormalised
+    predictions over the valid pairs of one evaluation batch."""
+    out = _sampled_outputs(trainer, feed, train=False)
+    denorm = out["pred_ratings"] * trainer.rating_std + trainer.rating_mean
+    clipped = denorm.clamp(trainer.rating_min, trainer.rating_max)
+    sq = (clipped - feed["gt"][None, :]) ** 2
+    return (sq * feed["valid"][None, :]).sum(dim=1)

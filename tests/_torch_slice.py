@@ -2,25 +2,34 @@
 package: one small ML-10M-shaped configuration (10 rating levels, 2 blocks,
 ``leaky``, the ``bitdense`` backend, narrow widths), one synthetic graph
 split the same way in both packages, a JAX ``Trainer`` and the port's
-``ServingState`` or ``Trainer`` on the same parameters."""
+``ServingState`` or ``Trainer`` on the same parameters; and, for sampled
+mode, a 30 x 22 graph with both packages' ``SampledTrainer``."""
 
+import contextlib
 import os
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
 
 from stargcn_tpu.data import DataIterator as JDataIterator
 from stargcn_tpu.data import synthetic as jsyn
+from stargcn_tpu.graph import kernels as jkernels
+from stargcn_tpu.models import STARGCNConfig as JSTARGCNConfig
+from stargcn_tpu.ops import pallas_kernels as jpallas
 from stargcn_tpu.train import Trainer
 from stargcn_tpu.train import build_model_config as j_build_model_config
 from stargcn_tpu.train.loop import TrainSettings
+from stargcn_tpu.train.sampled_loop import SampledTrainer
 from stargcn_tpu.utils import cfg_from_file as j_cfg_from_file
 from stargcn_tpu_torch import convert
 from stargcn_tpu_torch.data import DataIterator
 from stargcn_tpu_torch.data import synthetic as tsyn
-from stargcn_tpu_torch.models import build_model_config
+from stargcn_tpu_torch.graph import kernels as tkernels
+from stargcn_tpu_torch.models import STARGCNConfig, build_model_config
 from stargcn_tpu_torch.serve import ServingState
 from stargcn_tpu_torch.train import Trainer as TTrainer
+from stargcn_tpu_torch.train import SampledTrainer as TSampledTrainer
 from stargcn_tpu_torch.train import TrainSettings as TTrainSettings
 from stargcn_tpu_torch.utils import cfg_from_file
 
@@ -149,3 +158,94 @@ def host_batches(trainer, n):
         noise, _, ids = next(recon)
         out.append((rb, trainer.prepare_recon_batch(noise, ids)))
     return out
+
+
+# ------------------------------ sampled mode ------------------------------
+
+SAMPLED_GRAPH = dict(num_users=30, num_items=22, num_edges=260,
+                     rating_values=(1, 2, 3), seed=2)
+SAMPLED_MODEL = dict(num_users=30, num_items=22, num_links=3, nblocks=2,
+                     embed_units=8, agg_units=(12,), out_units=(10,),
+                     gcn_dropout=0.0, gen_rating_mid_map=6, agg_accum="sum")
+SAMPLED_SETTINGS = dict(rating_batch_size=24, recon_batch_size=8,
+                        max_iter=20, log_interval=5, valid_interval=10,
+                        lr=1e-2, seed=3, remove_rating=True)
+
+
+@contextlib.contextmanager
+def reference_on_cpu():
+    """While open, the JAX package plans with its NumPy path (as if its
+    native extension were not built) and runs its Pallas ELL pooling in
+    interpret mode; nothing in the package changes."""
+    real = jpallas.ell_spmm
+
+    def interpreted(values, nbr_idx, nbr_weight, interpret=False):
+        return real(values, nbr_idx, nbr_weight, True)
+
+    with mock.patch.object(jkernels, "_native", None), \
+            mock.patch.object(jpallas, "ell_spmm", interpreted):
+        yield
+
+
+def seed_planners(seed):
+    """Restart both packages' neighbor-sampling streams from ``seed``."""
+    jkernels.set_seed(seed)
+    tkernels.set_seed(seed)
+
+
+def sampled_graphs():
+    """The 30 x 22 synthetic graph of ``tests/test_sampled.py`` in both
+    packages: ``(jax_graph, port_graph)``."""
+    return (jsyn.synthetic_graph(**SAMPLED_GRAPH),
+            tsyn.synthetic_graph(**SAMPLED_GRAPH))
+
+
+def sampled_cfgs(**overrides):
+    """``(jax_cfg, port_cfg)``: the same small two-block model config."""
+    kw = {**SAMPLED_MODEL, **overrides}
+    return JSTARGCNConfig(**kw), STARGCNConfig(**kw)
+
+
+def sampled_iterator(cls, graph):
+    pairs = graph["user", "movie"].node_pair_ids
+    perm = np.random.RandomState(0).permutation(pairs.shape[1])
+    return cls(graph, "user", "movie",
+               test_node_pairs=pairs[:, perm[:40]],
+               valid_node_pairs=pairs[:, perm[40:80]],
+               embed_P_mask=0.2, seed=0, embed_p_zero=1.0, embed_p_self=0.0)
+
+
+def build_sampled_trainers(backend="xla", save_dir=None, fanout=4,
+                           planner="loop", model=None, **settings):
+    """``(jax_trainer, torch_trainer)``: both packages' ``SampledTrainer``
+    over the same graph, split, sampler seeds, caps and parameters
+    (``random_params``), the port's on the CPU with the loop planner, whose
+    draws are the reference's.  Call inside ``reference_on_cpu()``."""
+    jg, tg = sampled_graphs()
+    jcfg, tcfg = sampled_cfgs(**(model or {}))
+    kw = {**SAMPLED_SETTINGS, **settings}
+    seed_planners(5)
+    jtrainer = SampledTrainer(
+        jcfg, sampled_iterator(JDataIterator, jg), TrainSettings(**kw),
+        fanout=fanout, backend=backend,
+        save_dir=None if save_dir is None else os.path.join(save_dir, "jax"))
+    jtrainer.params = random_params(jtrainer.params)
+    jtrainer.opt_state = jtrainer.opt.init(jtrainer.params)
+    seed_planners(5)
+    ttrainer = TSampledTrainer(
+        tcfg, sampled_iterator(DataIterator, tg), TTrainSettings(**kw),
+        fanout=fanout, backend=backend, planner=planner, device="cpu",
+        save_dir=None if save_dir is None
+        else os.path.join(save_dir, "torch"))
+    ttrainer.model.load_state_dict(convert.params_from_flax(jtrainer.params))
+    seed_planners(7)
+    return jtrainer, ttrainer
+
+
+def sampled_batches(trainer, n):
+    """The first ``n`` batches of a ``SampledTrainer`` (either package's),
+    as ``fit`` builds them."""
+    it = trainer.data_iter
+    rs = it.rating_sampler(batch_size=trainer.train_batch, segment="train")
+    recon = it.recon_nodes_sampler(batch_size=trainer.s.recon_batch_size)
+    return [trainer._make_batch(rs, recon) for _ in range(n)]
