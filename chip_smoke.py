@@ -11,6 +11,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``bit_reduce_matmul`` on the card against their plain PyTorch versions
    fed the same bf16-rounded input (dense and sparse packs, f32 and bf16
    input, long rows that are split over warps, permuted-view cotangents);
+   the same for ``bit_expand_matmul16`` and ``bit_reduce_matmul16`` on
+   ``row_interleave=128`` packs (F = 1 to 600), each also equal bit for bit
+   to its natural kernel on the natural pack;
 4. set-up: ``configs/transductive_ml_10m.yml`` on a synthetic graph of the
    real ML-10M size, one ``DataIterator`` and one ``Trainer`` on the card
    (parameters from seed 123), the train and test bit packs;
@@ -22,8 +25,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    two pack layouts together;
 6. training slice: one ``train_iteration`` (launch counts), the same step
    through a plain twin (loss and every gradient compared), ``fit`` for 20
-   steps with two validations and checkpoints, ``restore_checkpoint``,
-   then ``export_serving(trainer)`` and queries on the trained parameters;
+   steps with two validations and checkpoints (and the path's peak memory),
+   ``restore_checkpoint``, then ``export_serving(trainer)`` and queries on
+   the trained parameters;
+5b. run after phase 6, so that phase 6's peak memory holds no tensor of
+   another path: a second ``Trainer`` with ``KERNEL.BIT_IMPL: pallas16``
+   and its row-interleaved packs, then phase 5 for the 16-bit pair on those
+   packs, which must equal the natural packs with their rows permuted, and
+   whose kernels must give the natural kernels' bits on the natural packs;
+6b. the ``pallas16`` trainer on the same parameters: one
+   ``train_iteration`` (4 ``bit_expand_matmul16`` + 4
+   ``bit_reduce_matmul16``, no natural bit kernel), the same batch against
+   the ``pallas`` trainer (loss and every gradient), ``fit`` for 10 steps
+   with one validation, its checkpoint loaded into the ``pallas`` trainer,
+   its export (4 ``bit_expand_matmul16``) equal to the ``pallas`` export,
+   queries, and ``python -m stargcn_tpu_torch.train``'s entry point on a
+   YAML that sets ``KERNEL.BIT_IMPL: pallas16`` (10 steps, 16-bit kernels
+   only);
 7. serving slice: the export of random parameters from seed 123 through
    the kernel (launch counts), checked against the same export through
    the plain version, then ``predict`` and ``recommend`` on the card;
@@ -46,7 +64,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    same bits, the adjoint identity ``<spmm(v), g> = <v, spmm_t(g)>``, the
    three results of ``ell_spmm`` forward + backward with a weight gradient
    against plain autograd, and times per launch beside the bound and the
-   library call (``F.embedding_bag`` and its backward).
+   library call (``F.embedding_bag`` and its backward);
+10. probes: ``probe_bitcast`` and ``probe_int8_mma`` through their entry
+   points (``run``), each with launch counts of its own, then each kernel
+   against its plain version (equal), with times beside the bound and a
+   library call as a yardstick.
 
 Phase 3 also checks the three ELL kernels on small cases (K = 1, 8, 32;
 F = 1, 65, 250, 256; padded slots with in-range and out-of-range indices;
@@ -55,7 +77,7 @@ rows that repeat a source; a single source row; matrices that start off a
 carries the card's name and power limit.
 
 The line before the last is the card's name and power limit, the one
-before it ``{"kernels": [...]}`` (all five kernels); the last is
+before it ``{"kernels": [...]}`` (all nine kernels); the last is
 ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing of
 JAX and nothing of the JAX package.
 """
@@ -156,8 +178,8 @@ def device_busy_ms(fn, top=0):
 # ------------------------------ kernel check ------------------------------
 
 
-def _sub_err(got, want):
-    """Max abs error, the tolerance (1e-4 of the largest output: kernel
+def _sub_err(got, want, rel=1e-4):
+    """Max abs error, the tolerance (``rel`` of the largest output: kernel
     and plain version sum the same bf16 values in float32, in another
     order) and the scale."""
     import torch
@@ -165,41 +187,56 @@ def _sub_err(got, want):
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
-    return err, 1e-4 * max(scale, 1.0), scale
+    return err, rel * max(scale, 1.0), scale
 
 
-def expand_err(bd, P, x, R, d8, rows=None):
-    """The expand kernel against its plain version fed the bf16-rounded
-    x; ``rows = (r, m0, m1)`` compares packed rows r*d8 + [m0, m1) only."""
+def expand_err(bd, P, x, R, d8, rows=None, route="", rel=1e-4):
+    """The expand kernel of ``route`` ("" natural, "16" row-interleaved)
+    against its plain version fed the bf16-rounded x; ``rows = (r, m0,
+    m1)`` compares packed rows r*d8 + [m0, m1) only (m0, m1 multiples of
+    128 on the 16-bit route)."""
     import torch
 
-    got = bd.bit_expand_matmul(P, x, R, d8)
+    kernel = getattr(bd, f"bit_expand_matmul{route}")
+    plain = getattr(bd, f"xla_expand_matmul{route}")
+    got = kernel(P, x, R, d8)
     xr = x.to(torch.bfloat16).float()
     if rows is None:
-        want = bd.xla_expand_matmul(P, xr, R, d8)
+        want = plain(P, xr, R, d8)
     else:
         r, m0, m1 = rows
         got = got[r:r + 1, :, m0:m1]
-        want = bd.xla_expand_matmul(P[r * d8 + m0:r * d8 + m1], xr, 1,
-                                    m1 - m0)
-    return _sub_err(got, want)
+        want = plain(P[r * d8 + m0:r * d8 + m1], xr, 1, m1 - m0)
+    return _sub_err(got, want, rel)
 
 
-def reduce_err(bd, P, g, R, d8, rows=None):
-    """The reduce kernel against its plain version fed the bf16-rounded
-    g; ``rows = (m0, m1)`` compares output rows [m0, m1) only."""
+def reduce_err(bd, P, g, R, d8, rows=None, route="", rel=1e-4):
+    """The reduce kernel of ``route`` against its plain version fed the
+    bf16-rounded g; ``rows = (m0, m1)`` compares output rows [m0, m1)
+    only."""
     import torch
 
-    got = bd.bit_reduce_matmul(P, g, R, d8)
+    kernel = getattr(bd, f"bit_reduce_matmul{route}")
+    plain = getattr(bd, f"xla_reduce_matmul{route}")
+    got = kernel(P, g, R, d8)
     gr = g.to(torch.bfloat16).float()
     if rows is None:
-        want = bd.xla_reduce_matmul(P, gr, R, d8)
+        want = plain(P, gr, R, d8)
     else:
         m0, m1 = rows
         got = got[:, m0:m1]
         sub = torch.cat([P[r * d8 + m0:r * d8 + m1] for r in range(R)])
-        want = bd.xla_reduce_matmul(sub, gr, R, m1 - m0)
-    return _sub_err(got, want)
+        want = plain(sub, gr, R, m1 - m0)
+    return _sub_err(got, want, rel)
+
+
+def natural_rows(bd, P16, R, d8):
+    """The natural pack whose rows a ``row_interleave=128`` pack permutes:
+    ``P[r*d8 + m] = P16[r*d8 + phys(m)]`` (a copy)."""
+    import torch
+
+    phys = bd.natural_to_physical(torch.arange(d8, device=P16.device), 128)
+    return P16.view(R, d8, -1).index_select(1, phys).reshape(R * d8, -1)
 
 
 def small_kernel_checks(bd):
@@ -247,6 +284,66 @@ def small_kernel_checks(bd):
     return worst
 
 
+def small_kernel16_checks(bd):
+    """``{kernel name: worst max abs error}`` of the two 16-bit kernels
+    over small cases on ``row_interleave=128`` packs: each against its
+    plain version (tolerance 1e-5 of the largest output), and each equal
+    bit for bit to its natural kernel on the natural pack.  F = 600 is
+    where the reference's ``bit_reduce_matmul16`` halves its row block
+    (``bitdense.py:424``) and scrambles its output; this one must not."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(SEED + 7)
+    worst = {"bit_expand_matmul16": 0.0, "bit_reduce_matmul16": 0.0}
+    # (R, F, dense P, input dtype, D, S, g as a permuted view)
+    for R, F, dense, dtype, D, S, view in (
+            (1, 1, False, torch.float32, 2000, 1500, False),
+            (3, 7, True, torch.float32, 2000, 1500, True),
+            (10, 65, False, torch.float32, 2000, 1500, True),
+            (10, 65, True, torch.bfloat16, 2000, 1500, False),
+            (3, 256, False, torch.float32, 2000, 1500, True),
+            (2, 600, True, torch.float32, 2000, 1500, True),
+            (10, 600, False, torch.bfloat16, 300, 40000, True),
+            (10, 65, False, torch.float32, 300, 70000, True),
+            (1, 65, True, torch.float32, 300, 40000, False)):
+        e = 40000
+        P, d8 = bd.pack_bits(rng.randint(0, D, e), rng.randint(0, S, e),
+                             rng.randint(0, R, e), R, D, S,
+                             row_interleave=128)
+        if dense:
+            P = rng.randint(0, 256, P.shape).astype(np.uint8)
+        Pt = torch.from_numpy(P).to(DEVICE)
+        Pn = natural_rows(bd, Pt, R, d8)
+        s_pad = P.shape[1]
+        x = torch.from_numpy(rng.randn(s_pad, F).astype(
+            np.float32)).to(DEVICE, dtype)
+        g = torch.from_numpy(rng.randn(s_pad, R, F).astype(
+            np.float32)).to(DEVICE, dtype).permute(1, 0, 2)
+        if not view:
+            g = g.contiguous()
+        what = (f"R={R} F={F} D={D} S={S} {'dense' if dense else 'sparse'} "
+                f"{str(dtype)[6:]}")
+        for name, (err, tol, scale), same in (
+                ("bit_expand_matmul16",
+                 expand_err(bd, Pt, x, R, d8, route="16", rel=1e-5),
+                 torch.equal(bd.bit_expand_matmul16(Pt, x, R, d8),
+                             bd.bit_expand_matmul(Pn, x, R, d8))),
+                ("bit_reduce_matmul16",
+                 reduce_err(bd, Pt, g, R, d8, route="16", rel=1e-5),
+                 torch.equal(bd.bit_reduce_matmul16(Pt, g, R, d8),
+                             bd.bit_reduce_matmul(Pn, g, R, d8)))):
+            log(f"  {name} {what}"
+                f"{' g=view' if view and 'reduce' in name else ''}: "
+                f"max_abs_err={err:.3e} rel={err / max(scale, 1e-30):.3e} "
+                f"tol={tol:.3e}; equal to the natural kernel on the natural "
+                f"pack: {same}")
+            check(err <= tol, f"{name} disagrees ({what})")
+            check(same, f"{name} differs from the natural kernel ({what})")
+            worst[name] = max(worst[name], err)
+    return worst
+
+
 def bound_ms(nbytes, set_bits, f):
     """Least time for one launch: its operands and its output moved once
     at the HBM rate, or one f32 add per set bit per column at the f32
@@ -267,12 +364,17 @@ def set_bits(P):
     return total
 
 
-def full_expand_checks(bd, pack, R, F, card):
-    """``bit_expand_matmul`` on the full ML-10M packs of the serving path:
-    a few row blocks checked, then timed against the plain version and the
-    bound."""
+def full_expand_checks(bd, pack, R, F, card, route="", natural=None):
+    """``bit_expand_matmul{route}`` on the full ML-10M packs of the serving
+    path: a few row blocks checked against the plain version, two launches
+    compared, then timed against the plain version and the bound.  On the
+    16-bit route (``natural`` = the natural pack of the same variant) the
+    result must also equal the natural kernel's on the natural pack."""
     import torch
 
+    name = f"bit_expand_matmul{route}"
+    kernel = getattr(bd, name)
+    plain = getattr(bd, f"xla_expand_matmul{route}")
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     shapes, worst = [], 0.0
     for direction in ("user", "item"):
@@ -280,41 +382,52 @@ def full_expand_checks(bd, pack, R, F, card):
         d8 = P.shape[0] // R
         s_pad = P.shape[1]
         x = torch.randn(s_pad, F, device=DEVICE, generator=gen)
-        w = min(256, d8 // 2)
-        for rows in ((0, 0, w), (R // 2, d8 // 2, d8 // 2 + w),
-                     (R - 1, d8 - w, d8)):
-            err, tol, scale = expand_err(bd, P, x, R, d8, rows)
-            log(f"  full-size check {direction} rows {rows}: "
+        w, mid = (256 if d8 >= 512 else 128), d8 // 2 // 128 * 128
+        for rows in ((0, 0, w), (R // 2, mid, mid + w), (R - 1, d8 - w, d8)):
+            err, tol, scale = expand_err(bd, P, x, R, d8, rows, route)
+            log(f"  full-size check {name} {direction} rows {rows}: "
                 f"max_abs_err={err:.3e} rel={err / max(scale, 1e-30):.3e} "
                 f"tol={tol:.3e}")
-            check(err <= tol, f"bit_expand_matmul disagrees at ML-10M "
-                              f"({direction}, rows {rows})")
+            check(err <= tol, f"{name} disagrees at ML-10M ({direction}, "
+                              f"rows {rows})")
             worst = max(worst, err)
-        check(torch.equal(bd.bit_expand_matmul(P, x, R, d8),
-                          bd.bit_expand_matmul(P, x, R, d8)),
-              f"bit_expand_matmul does not repeat bit for bit ({direction})")
-        ms = cuda_ms(lambda: bd.bit_expand_matmul(P, x, R, d8), reps=20)
-        plain = cuda_ms(lambda: bd.xla_expand_matmul(P, x, R, d8), reps=2)
+        out = kernel(P, x, R, d8)
+        check(torch.equal(out, kernel(P, x, R, d8)),
+              f"{name} does not repeat bit for bit ({direction})")
+        if natural is not None:
+            check(torch.equal(out, bd.bit_expand_matmul(
+                natural[direction]["pf"], x, R, d8)),
+                  f"{name} differs from bit_expand_matmul on the natural "
+                  f"pack ({direction})")
+            log(f"  {name} {direction}: equal bit for bit to "
+                f"bit_expand_matmul on the natural pack")
+        del out
+        ms = cuda_ms(lambda: kernel(P, x, R, d8), reps=20)
+        plain_ms = cuda_ms(lambda: plain(P, x, R, d8), reps=2)
         ones = set_bits(P)
         bms, by = bound_ms(P.numel() + s_pad * F * 4 + R * 8 * d8 * F * 4,
                            ones, F)
         shapes.append(dict(direction=direction, P=list(P.shape), F=F,
-                           set_bits=ones, ms=ms, plain_ms=plain,
+                           set_bits=ones, ms=ms, plain_ms=plain_ms,
                            bound_ms=bms, bound_by=by))
-        log(f"  bit_expand_matmul {direction} P={tuple(P.shape)} F={F}: "
-            f"kernel {ms:.4f} ms/launch, plain {plain:.3f} ms, bound "
-            f"{bms:.4f} ms ({by}), set bits {ones} [{card}]")
+        log(f"  {name} {direction} P={tuple(P.shape)} F={F}: kernel "
+            f"{ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound {bms:.4f} "
+            f"ms ({by}), set bits {ones} [{card}]")
     return worst, shapes
 
 
-def full_reduce_checks(bd, pack, R, F, card):
-    """``bit_reduce_matmul`` on the full ML-10M train packs, at the shapes
-    the training step gives it: the backward of the aggregation into
+def full_reduce_checks(bd, pack, R, F, card, route="", natural=None):
+    """``bit_reduce_matmul{route}`` on the full ML-10M train packs, at the
+    shapes the training step gives it: the backward of the aggregation into
     ``direction`` reads that direction's ``pb`` and a permuted view of the
     ``(D_pad, R, F)`` cotangent, and gives the gradient for the other
-    type.  A few output-row blocks checked, then timed."""
+    type.  A few output-row blocks checked, two launches compared (and, on
+    the 16-bit route, the natural kernel on ``natural``), then timed."""
     import torch
 
+    name = f"bit_reduce_matmul{route}"
+    kernel = getattr(bd, name)
+    plain = getattr(bd, f"xla_reduce_matmul{route}")
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     shapes, worst = [], 0.0
     for direction, grad_for in (("user", "item"), ("item", "user")):
@@ -323,39 +436,69 @@ def full_reduce_checks(bd, pack, R, F, card):
         s_pad = P.shape[1]
         g = torch.randn(s_pad, R, F, device=DEVICE,
                         generator=gen).permute(1, 0, 2)
-        w = min(64, d8 // 2)
-        for rows in ((0, w), (d8 // 2, d8 // 2 + w), (d8 - w, d8)):
-            err, tol, scale = reduce_err(bd, P, g, R, d8, rows)
-            log(f"  full-size check gradient for {grad_for} rows {rows}: "
-                f"max_abs_err={err:.3e} rel={err / max(scale, 1e-30):.3e} "
-                f"tol={tol:.3e}")
-            check(err <= tol, f"bit_reduce_matmul disagrees at ML-10M "
-                              f"(gradient for {grad_for}, rows {rows})")
+        w, mid = 128, d8 // 2 // 128 * 128
+        for rows in ((0, w), (mid, mid + w), (d8 - w, d8)):
+            err, tol, scale = reduce_err(bd, P, g, R, d8, rows, route)
+            log(f"  full-size check {name} gradient for {grad_for} rows "
+                f"{rows}: max_abs_err={err:.3e} "
+                f"rel={err / max(scale, 1e-30):.3e} tol={tol:.3e}")
+            check(err <= tol, f"{name} disagrees at ML-10M (gradient for "
+                              f"{grad_for}, rows {rows})")
             worst = max(worst, err)
-        check(torch.equal(bd.bit_reduce_matmul(P, g, R, d8),
-                          bd.bit_reduce_matmul(P, g, R, d8)),
-              f"bit_reduce_matmul does not repeat bit for bit (gradient "
-              f"for {grad_for})")
-        ms = cuda_ms(lambda: bd.bit_reduce_matmul(P, g, R, d8), reps=20)
-        plain = cuda_ms(lambda: bd.xla_reduce_matmul(P, g, R, d8), reps=2)
+        out = kernel(P, g, R, d8)
+        check(torch.equal(out, kernel(P, g, R, d8)),
+              f"{name} does not repeat bit for bit (gradient for "
+              f"{grad_for})")
+        if natural is not None:
+            check(torch.equal(out, bd.bit_reduce_matmul(
+                natural[direction]["pb"], g, R, d8)),
+                  f"{name} differs from bit_reduce_matmul on the natural "
+                  f"pack (gradient for {grad_for})")
+            log(f"  {name} gradient for {grad_for}: equal bit for bit to "
+                f"bit_reduce_matmul on the natural pack")
+        del out
+        ms = cuda_ms(lambda: kernel(P, g, R, d8), reps=20)
+        plain_ms = cuda_ms(lambda: plain(P, g, R, d8), reps=2)
         ones = set_bits(P)
         bms, by = bound_ms(P.numel() + R * s_pad * F * 4 + 8 * d8 * F * 4,
                            ones, F)
         shapes.append(dict(gradient_for=grad_for, P=list(P.shape),
                            g=[R, s_pad, F], F=F, set_bits=ones, ms=ms,
-                           plain_ms=plain, bound_ms=bms, bound_by=by))
-        log(f"  bit_reduce_matmul gradient for {grad_for} "
-            f"P={tuple(P.shape)} g=({R}, {s_pad}, {F}) view: kernel "
-            f"{ms:.4f} ms/launch, plain {plain:.3f} ms, bound {bms:.4f} ms "
-            f"({by}), set bits {ones} [{card}]")
+                           plain_ms=plain_ms, bound_ms=bms, bound_by=by))
+        log(f"  {name} gradient for {grad_for} P={tuple(P.shape)} "
+            f"g=({R}, {s_pad}, {F}) view: kernel {ms:.4f} ms/launch, plain "
+            f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), set bits {ones} "
+            f"[{card}]")
     return worst, shapes
 
 
-def adjoint_check(bd, pack, R, F):
-    """``<expand(p_fwd, x), g> = <x, reduce(p_bwd, g)>`` on the full packs
-    with bf16-representable x and g, sums in float64, relative 1e-5."""
+def pack_layout_check(bd, packs16, packs, R):
+    """Every ``row_interleave=128`` pack equals its natural pack with the
+    rows permuted, byte for byte."""
     import torch
 
+    for variant in packs16:
+        check(packs16[variant]["row_interleave"] == 128
+              and packs[variant]["row_interleave"] == 0,
+              f"{variant}: pack layouts")
+        for direction in ("user", "item"):
+            P16 = packs16[variant][direction]["pf"]
+            check(torch.equal(natural_rows(bd, P16, R, P16.shape[0] // R),
+                              packs[variant][direction]["pf"]),
+                  f"{variant} {direction}: the interleaved pack is not the "
+                  f"natural one with its rows permuted")
+        log(f"  {variant}: both row_interleave=128 layouts equal the natural "
+            f"ones with rows permuted, byte for byte")
+
+
+def adjoint_check(bd, pack, R, F, route=""):
+    """``<expand(p_fwd, x), g> = <x, reduce(p_bwd, g)>`` on the full packs
+    (of ``route``'s layout) with bf16-representable x and g, sums in
+    float64, relative 1e-5."""
+    import torch
+
+    expand = getattr(bd, f"bit_expand_matmul{route}")
+    reduce = getattr(bd, f"bit_reduce_matmul{route}")
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     for direction in ("user", "item"):
         pf, pb = pack[direction]["pf"], pack[direction]["pb"]
@@ -364,16 +507,16 @@ def adjoint_check(bd, pack, R, F):
                         generator=gen).to(torch.bfloat16).float()
         g = torch.randn(8 * d8_dst, R, F, device=DEVICE,
                         generator=gen).to(torch.bfloat16).float()
-        fwd = bd.bit_expand_matmul(pf, x, R, d8_dst)
+        fwd = expand(pf, x, R, d8_dst)
         lhs = float((fwd.permute(1, 2, 0, 3).reshape(8 * d8_dst, R, F)
                      .double() * g.double()).sum())
-        bwd = bd.bit_reduce_matmul(pb, g.permute(1, 0, 2), R, d8_src)
+        bwd = reduce(pb, g.permute(1, 0, 2), R, d8_src)
         rhs = float((x.double() * bwd.reshape(8 * d8_src, F).double()).sum())
         rel = abs(lhs - rhs) / max(abs(lhs), 1e-30)
-        log(f"  adjoint, aggregation into {direction}: <expand(x), g> = "
-            f"{lhs:.6f}, <x, reduce(g)> = {rhs:.6f}, rel diff {rel:.3e} "
-            f"(tol 1e-5)")
-        check(rel <= 1e-5, f"adjoint identity fails ({direction})")
+        log(f"  adjoint{route and ' (16-bit route)'}, aggregation into "
+            f"{direction}: <expand(x), g> = {lhs:.6f}, <x, reduce(g)> = "
+            f"{rhs:.6f}, rel diff {rel:.3e} (tol 1e-5)")
+        check(rel <= 1e-5, f"adjoint identity fails ({direction}{route})")
 
 
 # --------------------------------- set-up ---------------------------------
@@ -447,6 +590,12 @@ def rel_err(a, b):
     import numpy as np
 
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def bit_counts(expand, reduce, expand16, reduce16):
+    """The launch counts of the four bit kernel wrappers, as a dict."""
+    return {"bit_expand_matmul": expand, "bit_reduce_matmul": reduce,
+            "bit_expand_matmul16": expand16, "bit_reduce_matmul16": reduce16}
 
 
 def zero_launches(*modules):
@@ -532,7 +681,7 @@ def run_training_slice(bd, trainer, card):
     log(f"  first train_iteration: {t_first * 1e3:.1f} ms (start-up "
         f"included), loss {float(stats['loss']):.4f}, gnorm "
         f"{float(stats['gnorm']):.4f}, launches {launches} [{card}]")
-    check(launches == {"bit_expand_matmul": 4, "bit_reduce_matmul": 4},
+    check(launches == bit_counts(4, 4, 0, 0),
           f"expected 4 + 4 kernel launches in a step, got {launches}")
     check(bool(torch.isfinite(stats["loss"])), "non-finite first loss")
 
@@ -573,6 +722,7 @@ def run_training_slice(bd, trainer, card):
     log(f"  forward+backward through the kernels {t_k * 1e3:.1f} ms, "
         f"through the plain versions {t_p * 1e3:.1f} ms")
     floor = [compare(*rep) for rep in repeats]
+    spread = (max(x[3] for x in floor), max(x[1] for x in floor))
     del repeats
     log(f"  the same step 4 more times through the kernels, each against "
         f"the first: all gradients together "
@@ -692,14 +842,216 @@ def run_training_slice(bd, trainer, card):
     # (e) export and serve the trained parameters.
     zero_launches(bd)
     art, t_export = host_s(lambda: export_serving(trainer, segment="test"))
-    check(bd.LAUNCHES["bit_expand_matmul"] == 4,
+    check(bd.LAUNCHES == bit_counts(4, 0, 0, 0),
           f"export launches {bd.LAUNCHES}")
     check_artifact(art)
     log(f"  export_serving(trainer): {t_export:.3f} s [{card}]")
     check_queries(art, card, "trained parameters")
     return launches, dict(step_ms=step_ms, first_step_ms=t_first * 1e3,
                           prep_ms=prep_ms, device_busy_ms=busy_ms,
-                          peak_gib=peak_gb, fit_s=t_fit)
+                          peak_gib=peak_gb, fit_s=t_fit,
+                          repeat_spread_all=spread[0],
+                          repeat_spread_worst=spread[1])
+
+
+def compare_grads(ref, other):
+    """``(loss rel diff, worst single-parameter diff over its largest
+    entry, that parameter, all gradients together relative)`` of
+    ``other = (stats, grads)`` against ``ref``."""
+    (r_stats, r_grads), (o_stats, o_grads) = ref, other
+    loss_rel = abs(float(o_stats["loss"]) - float(r_stats["loss"])) \
+        / abs(float(r_stats["loss"]))
+    worst, worst_name, diff2, norm2 = 0.0, "", 0.0, 0.0
+    for name, rg in r_grads.items():
+        scale = float(rg.abs().max())
+        check(scale > 0, f"zero gradient for {name}")
+        rel = float((o_grads[name] - rg).abs().max()) / scale
+        if rel > worst:
+            worst, worst_name = rel, name
+        diff2 += float((o_grads[name] - rg).double().pow(2).sum())
+        norm2 += float(rg.double().pow(2).sum())
+    return loss_rel, worst, worst_name, (diff2 / norm2) ** 0.5
+
+
+def run_training16_slice(bd, trainer, t16, card, numbers):
+    """Phase 6b: the ``KERNEL.BIT_IMPL: pallas16`` trainer ``t16`` (same
+    data iterator, row-interleaved packs) on the parameters ``trainer``
+    holds.  Returns the launch counts of its step and of its export."""
+    import numpy as np
+    import torch
+
+    from stargcn_tpu_torch.serve import export_serving
+
+    it, s = trainer.data_iter, trainer.s
+    rating_sampler = it.rating_sampler(batch_size=s.rating_batch_size,
+                                       segment="train")
+    recon_sampler = it.recon_nodes_sampler(batch_size=s.recon_batch_size)
+    batch = next_batches(trainer, rating_sampler, recon_sampler)
+    params0 = copy.deepcopy(trainer.model.state_dict())
+    opt0 = copy.deepcopy(trainer.opt.state_dict())
+    t16.model.load_state_dict(params0)
+    t16.opt.load_state_dict(opt0)
+
+    # (a) one step through the entry point: counts from 0, then read.
+    t16.seed_dropout(SEED)
+    zero_launches(bd)
+    stats, t_first = host_s(lambda: t16.train_iteration(*batch))
+    launches = dict(bd.LAUNCHES)
+    log(f"  first pallas16 train_iteration: {t_first * 1e3:.1f} ms, loss "
+        f"{float(stats['loss']):.4f}, launches {launches} [{card}]")
+    check(launches == bit_counts(0, 0, 4, 4),
+          f"expected 4 + 4 16-bit launches and no natural bit kernel in a "
+          f"pallas16 step, got {launches}")
+
+    # (b) the same batch, parameters and dropout masks through both
+    # trainers; the pallas trainer's own repeats give the spread.
+    t16.model.load_state_dict(params0)
+    runs = {}
+    for name, owner in (("pallas", trainer), ("pallas16", t16),
+                        ("pallas again", trainer)):
+        owner.seed_dropout(SEED)
+        runs[name] = owner.loss_and_grads(*batch)
+    rep = compare_grads(runs["pallas"], runs["pallas again"])
+    loss_rel, worst, worst_name, glob = compare_grads(runs["pallas"],
+                                                      runs["pallas16"])
+    del runs
+    log(f"  pallas16 step against the pallas step (same parameters, batch "
+        f"and dropout masks): loss rel diff {loss_rel:.3e} (tol 1e-5), all "
+        f"gradients together {glob:.3e} relative (tol 1e-3), worst single "
+        f"parameter {worst:.3e} of its largest entry ({worst_name}; tol "
+        f"5e-2); the pallas step against itself {rep[3]:.3e} / {rep[1]:.3e}, "
+        f"phase 6's repeats up to {numbers['repeat_spread_all']:.3e} / "
+        f"{numbers['repeat_spread_worst']:.3e}.  The bit kernels of the two "
+        f"routes give the same bits; index_add_ and the row gather's "
+        f"backward use atomics")
+    check(loss_rel <= 1e-5 and glob <= 1e-3 and worst <= 5e-2,
+          "the pallas16 step disagrees with the pallas step")
+
+    # Steady steps of the two routes in turns, host clock.
+    times = {"pallas": [], "pallas16": []}
+    for _ in range(3):
+        for name, owner in (("pallas", trainer), ("pallas16", t16)):
+            b = next_batches(owner, rating_sampler, recon_sampler)
+            _, t = host_s(lambda: owner.train_iteration(*b))
+            times[name].append(t * 1e3)
+    step_ms = {k: median(v) for k, v in times.items()}
+    log(f"  train_iteration in turns, 3 each: pallas "
+        f"{', '.join(f'{t:.1f}' for t in times['pallas'])} ms, pallas16 "
+        f"{', '.join(f'{t:.1f}' for t in times['pallas16'])} ms [{card}]")
+    trainer.model.load_state_dict(params0)
+    trainer.opt.load_state_dict(opt0)
+
+    # (c) fit: 10 steps, one validation, checkpoints (save id 2).
+    t16.model.load_state_dict(params0)
+    t16.opt.load_state_dict(opt0)
+    t16.seed_dropout(SEED)
+    lines = []
+    zero_launches(bd)
+    summary, t_fit = host_s(lambda: t16.fit(max_iter=10, log=lines.append))
+    fit_launches = dict(bd.LAUNCHES)
+    for line in lines:
+        log(f"  fit: {line}")
+    log(f"  pallas16 fit(max_iter=10): {t_fit:.2f} s with one validation "
+        f"and one test evaluation; launches {fit_launches} [{card}]")
+    eval_batches = -(-it.valid_node_pairs.shape[1] // s.rating_batch_size)
+    check(fit_launches["bit_reduce_matmul16"] == 40
+          and fit_launches["bit_expand_matmul16"] >= 40 + 4 * eval_batches
+          and fit_launches["bit_expand_matmul"] == 0
+          and fit_launches["bit_reduce_matmul"] == 0,
+          f"pallas16 fit launch counts {fit_launches}")
+    span = trainer.rating_max - trainer.rating_min
+    rmses = [summary["best_valid_rmse"], *summary["best_test_rmse"]]
+    check(summary["best_iter"] == 10 and np.isfinite(rmses).all()
+          and 0 <= min(rmses) and max(rmses) <= span,
+          f"pallas16 fit summary {summary}")
+
+    # (d) its checkpoint loads into the pallas trainer.
+    best = os.path.join(t16.save_dir, "ckpt_best_2.pt")
+    check(os.path.exists(best), "pallas16 checkpoint")
+    saved = torch.load(best, map_location="cpu", weights_only=True)
+    trainer.restore_checkpoint(best)
+    for name, t in saved["params"].items():
+        check(torch.equal(trainer.model.state_dict()[name].cpu(), t)
+              and torch.equal(t16.model.state_dict()[name].cpu(), t),
+              f"restored parameter {name} differs")
+    check(trainer.opt.count == t16.opt.count, "restored optimizer step count")
+    log(f"  restore_checkpoint({os.path.basename(best)}) into the pallas "
+        f"trainer: parameters equal the pallas16 trainer's, optimizer at "
+        f"step {trainer.opt.count}")
+
+    # (e) export through the 16-bit kernel, against the pallas export of
+    # the same parameters, then queries.
+    zero_launches(bd)
+    art16, t_export = host_s(lambda: export_serving(t16, segment="test"))
+    export_launches = dict(bd.LAUNCHES)
+    check(export_launches == bit_counts(0, 0, 4, 0),
+          f"pallas16 export launches {export_launches}")
+    art = export_serving(trainer, segment="test")
+    check_artifact(art16)
+    same = (np.array_equal(art16.user_feats, art.user_feats)
+            and np.array_equal(art16.item_feats, art.item_feats))
+    log(f"  export_serving(pallas16 trainer): {t_export:.3f} s, launches "
+        f"{export_launches}; equal to the pallas export bit for bit: {same} "
+        f"[{card}]")
+    check(same, "the pallas16 export differs from the pallas export")
+    check_queries(art16, card, "pallas16 export")
+    numbers.update(pallas16_first_step_ms=t_first * 1e3,
+                   pallas16_fit_s=t_fit,
+                   steps_in_turns_ms=step_ms,
+                   pallas16_vs_pallas=dict(loss_rel=loss_rel, all=glob,
+                                           worst=worst))
+    return {"pallas16 train_iteration": launches,
+            "pallas16 export": export_launches}
+
+
+def run_pallas16_cli(bd, card, save_dir):
+    """Phase 6b (f): ``python -m stargcn_tpu_torch.train``'s entry point,
+    in this process, with a YAML that is ``transductive_ml_10m.yml`` plus
+    ``KERNEL.BIT_IMPL: pallas16`` on the CLI's synthetic graph (943 x 1682
+    users x items, batch cut to 10,000 ratings), 10 steps and one
+    validation.  Returns its launch counts."""
+    import logging
+
+    import numpy as np
+    import yaml
+
+    from stargcn_tpu_torch.train import __main__ as train_cli
+
+    with open(os.path.join(ROOT, "configs", "transductive_ml_10m.yml")) as f:
+        doc = yaml.safe_load(f)
+    doc.setdefault("KERNEL", {})["BIT_IMPL"] = "pallas16"
+    doc["TRAIN"]["RATING_BATCH_SIZE"] = 10_000
+    cfg_path = os.path.join(save_dir, "pallas16.yml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(doc, f)
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    zero_launches(bd)
+    try:
+        result, t_cli = host_s(lambda: train_cli.main([
+            "--cfg", cfg_path, "--dataset", "synthetic", "--backend",
+            "bitdense", "--save_dir", os.path.join(save_dir, "cli16"),
+            "--max_iter", "10", "--silent", "--device", DEVICE]))
+    finally:
+        for h in list(root.handlers):
+            if h not in handlers:
+                h.close()
+        root.handlers[:] = handlers
+        root.setLevel(level)
+    launches = dict(bd.LAUNCHES)
+    log(f"  python -m stargcn_tpu_torch.train --cfg <transductive_ml_10m.yml "
+        f"+ KERNEL.BIT_IMPL: pallas16> --dataset synthetic --max_iter 10: "
+        f"{t_cli:.2f} s, best valid RMSE {result['best_valid_rmse']:.4f}, "
+        f"launches {launches} [{card}]")
+    check(result["best_iter"] == 10
+          and np.isfinite(result["best_valid_rmse"]),
+          f"pallas16 CLI result {result}")
+    check(launches["bit_reduce_matmul16"] == 40
+          and launches["bit_expand_matmul16"] >= 44
+          and launches["bit_expand_matmul"] == 0
+          and launches["bit_reduce_matmul"] == 0,
+          f"pallas16 CLI launch counts {launches}")
+    return launches
 
 
 # ------------------------------ ELL kernels ------------------------------
@@ -1077,8 +1429,7 @@ def run_sampled_slice(bd, ek, cfg, it, model_cfg, full_trainer, save_dir,
         f"{float(stats['loss']):.4f}, gnorm {float(stats['gnorm']):.4f}, "
         f"launches {step_launches} [{card}]")
     check(step_launches == {"ell_spmm_fwd_only": 4, "ell_spmm_transpose": 4,
-                            "ell_sddmm": 0, "bit_expand_matmul": 0,
-                            "bit_reduce_matmul": 0},
+                            "ell_sddmm": 0, **bit_counts(0, 0, 0, 0)},
           f"expected 4 + 4 + 0 ELL launches and no bit kernel in a step, "
           f"got {step_launches}")
 
@@ -1333,7 +1684,7 @@ def run_serving_slice(bd, trainer, card):
     launches = dict(bd.LAUNCHES)
     log(f"  export through the kernel: {t_export:.3f} s, launches "
         f"{launches} [{card}]")
-    check(launches == {"bit_expand_matmul": 4, "bit_reduce_matmul": 0},
+    check(launches == bit_counts(4, 0, 0, 0),
           f"expected 4 bit_expand_matmul launches, got {launches}")
 
     ref, t_ref = host_s(lambda: export_serving(plain_twin(state),
@@ -1349,6 +1700,126 @@ def run_serving_slice(bd, trainer, card):
     return launches
 
 
+# --------------------------------- probes ---------------------------------
+
+
+def run_probes(card):
+    """Phase 10.  Each probe's entry point with counts of its own, then its
+    kernel against its plain version.  Returns ``(launches by probe, worst
+    errors, shapes by kernel)``."""
+    import numpy as np
+    import torch
+
+    from stargcn_tpu_torch.probes import probe_bitcast as pb
+    from stargcn_tpu_torch.probes import probe_int8_mma as pm
+
+    # ---- probe_bitcast ----
+    zero_launches(pb, pm)
+    res = pb.run(DEVICE, log=lambda line: log(f"  {line}"))
+    bitcast_launches = {**pb.LAUNCHES, **pm.LAUNCHES}
+    v = pb.probe_input()
+    check(np.array_equal(res["row_pair"], v[0::2].astype(np.uint16)
+                         | (v[1::2].astype(np.uint16) << 8)),
+          "probe_bitcast: the row-pair view is not v[2k] | v[2k+1] << 8")
+    check(np.array_equal(res["column_pair"], v.view("<u2")),
+          "probe_bitcast: a u16 reading on the card is not little-endian "
+          "adjacent columns")
+    rng = np.random.RandomState(SEED + 8)
+    worst = {"probe_bitcast": 0.0, "probe_mma": 0.0}
+    for shape in ((32, 256), (2, 1), (4096, 1000)):
+        vv = torch.from_numpy(rng.randint(0, 256, shape).astype(
+            np.uint8)).to(DEVICE)
+        got = pb.row_pair_u16(vv).view(torch.int16)
+        want = pb.plain_row_pair_u16(vv).view(torch.int16)
+        worst["probe_bitcast"] = max(worst["probe_bitcast"], float(
+            ((got.int() & 0xFFFF) - (want.int() & 0xFFFF)).abs().max()))
+        check(torch.equal(got, want), f"probe_bitcast disagrees at {shape}")
+    log("  row_pair_u16 equal to its plain version at (32, 256), (2, 1) and "
+        "(4096, 1000)")
+    vt = torch.from_numpy(v).to(DEVICE)
+    library = lambda: vt.view(pb.M // 2, 2, pb.S).transpose(  # noqa: E731
+        1, 2).contiguous().view(torch.int16)
+    check(torch.equal(library().squeeze(-1),
+                      pb.row_pair_u16(vt).view(torch.int16)),
+          "the library yardstick computes another function")
+    nbytes = 2 * v.size
+    bshape = dict(v=list(v.shape), ms=cuda_ms(lambda: pb.row_pair_u16(vt),
+                                              reps=200),
+                  plain_ms=cuda_ms(lambda: pb.plain_row_pair_u16(vt),
+                                   reps=200),
+                  library_ms=cuda_ms(library, reps=200),
+                  bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    log(f"  probe_bitcast (32, 256): kernel {bshape['ms']:.4f} ms/launch, "
+        f"plain {bshape['plain_ms']:.4f} ms, library (a transposing copy) "
+        f"{bshape['library_ms']:.4f} ms, bound {bshape['bound_ms']:.2e} ms "
+        f"(bytes): launch-bound [{card}]")
+
+    # ---- probe_int8_mma ----
+    zero_launches(pb, pm)
+    mma = pm.run(DEVICE, log=lambda line: log(f"  {line}"))
+    mma_launches = {**pb.LAUNCHES, **pm.LAUNCHES}
+    want00 = pm.G * pm.K
+    for name, r in mma.items():
+        check(r["out00"] == want00, f"probe_int8_mma {name}: out[0,0] = "
+                                    f"{r['out00']}, not {want00}")
+    shapes = []
+    for dtype in (torch.bfloat16, torch.int8):
+        name = str(dtype).split(".")[-1]
+        for groups, m, k, n in ((3, 64, 256, 256), (7, 128, 1024, 512),
+                                (pm.G, pm.M, pm.K, pm.N)):
+            a = torch.from_numpy(rng.randint(-2, 3, (groups * m, k))).to(
+                DEVICE, dtype)
+            b = torch.from_numpy(rng.randint(-2, 3, (k, n))).to(DEVICE,
+                                                                dtype)
+            got = pm.grouped_matmul(a, b, groups)
+            want = pm.plain_grouped_matmul(a, b, groups)
+            err = float((got.double() - want.double()).abs().max())
+            worst["probe_mma"] = max(worst["probe_mma"], err)
+            log(f"  grouped_matmul {name} G={groups} M={m} K={k} N={n}, "
+                f"integers in [-2, 2]: max_abs_err={err} (exact expected)")
+            check(torch.equal(got, want), f"probe_mma {name} disagrees at "
+                                          f"G={groups} M={m} K={k} N={n}")
+        plain_ms = cuda_ms(lambda: pm.plain_grouped_matmul(a, b, pm.G),
+                           reps=2)
+        if dtype == torch.bfloat16:
+            a3 = a.view(pm.G, pm.M, pm.K)
+            lib = lambda: torch.einsum("gmk,kn->mn", a3, b)  # noqa: E731
+            lib_name = 'torch.einsum("gmk,kn->mn")'
+        elif hasattr(torch, "_int_mm"):
+            b_cols = b.t().contiguous().t()     # the layout cuBLASLt takes
+            lib = lambda: torch._int_mm(a, b_cols).view(  # noqa: E731
+                pm.G, pm.M, pm.N).sum(0)
+            lib_name = "torch._int_mm + sum over groups"
+        else:
+            lib, lib_name = None, "none (no torch._int_mm)"
+        library_ms = None if lib is None else cuda_ms(lib, reps=10)
+        r = mma[name]
+        shapes.append(dict(dtype=name, A=[pm.G * pm.M, pm.K],
+                           B=[pm.K, pm.N], ms=r["median_ms"],
+                           top_s=r["top_s"], first_s=r["first_s"],
+                           plain_ms=plain_ms, library_ms=library_ms,
+                           library=lib_name, bound_ms=r["bound_ms"],
+                           bound_by=r["bound_by"],
+                           bound_share=r["bound_ms"] / r["median_ms"]))
+        log(f"  probe_mma {name}: kernel {r['median_ms']:.4f} ms "
+            f"({r['top_s']:.0f} TOP/s, {r['bound_ms'] / r['median_ms']:.1%} "
+            f"of the {r['bound_ms']:.4f} ms bound, {r['bound_by']}), plain "
+            f"(float64) {plain_ms:.3f} ms, library {lib_name} "
+            f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'} "
+            f"[{card}]")
+        del a, b
+    ratio = mma["bfloat16"]["median_ms"] / mma["int8"]["median_ms"]
+    log(f"  int8 runs {ratio:.2f}x as fast as bf16 on this card's mma.sync "
+        f"path (2x on paper) [{card}]")
+    launches = {"probe_bitcast.run": bitcast_launches,
+                "probe_int8_mma.run": mma_launches}
+    check(bitcast_launches == {"probe_bitcast": 1, "probe_mma": 0}
+          and mma_launches["probe_bitcast"] == 0
+          and mma_launches["probe_mma"] == 22,
+          f"probe launch counts {launches}")
+    return launches, worst, {"probe_bitcast": [bshape], "probe_mma": shapes}
+
+
 def kernel_row(name, source, replaces, launches, worst, shapes):
     """One entry of the ``kernels`` line: the times are means over the
     directions measured (``shapes`` holds each)."""
@@ -1358,8 +1829,8 @@ def kernel_row(name, source, replaces, launches, worst, shapes):
         launches=launches, max_abs_err=worst, ms=mean("ms"),
         plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
         bound_by=max(shapes, key=lambda s: s["bound_ms"])["bound_by"],
-        library_ms=(mean("library_ms") if "library_ms" in shapes[0]
-                    else None),
+        library_ms=(mean("library_ms") if all(
+            s.get("library_ms") is not None for s in shapes) else None),
         shapes=shapes)
 
 
@@ -1396,6 +1867,7 @@ def main():
 
     log("== 3. kernel check (small cases)")
     worst = small_kernel_checks(bd)
+    worst.update(small_kernel16_checks(bd))
     worst.update(small_ell_checks(ek))
 
     log("== 4. set-up: ML-10M graph, iterator, trainer, bit packs")
@@ -1436,15 +1908,48 @@ def main():
             "the trained parameters")
         train_launches, train_numbers = run_training_slice(bd, trainer, card)
 
+        # Built after phase 6, whose peak memory is the full-graph path's.
+        log("== 5b. set-up of a KERNEL.BIT_IMPL: pallas16 trainer; 16-bit "
+            "kernel check (row-interleaved ML-10M packs) and times")
+        t16, t_t16 = host_s(lambda: Trainer(
+            dataclasses.replace(model_cfg, bit_impl="pallas16"), it,
+            TrainSettings.from_cfg(cfg), save_dir=save_dir, save_id=2,
+            device=DEVICE))
+        packs16 = {}
+        for variant in ("train", "test"):
+            packs16[variant], t_pack = host_s(
+                lambda: t16.variants.bit_pack(variant))
+            log(f"  {variant}-variant row_interleave=128 packs for a "
+                f"KERNEL.BIT_IMPL: pallas16 trainer (built {t_t16:.2f} s): "
+                f"{t_pack:.2f} s [{card}]")
+        pack_layout_check(bd, packs16, packs, R)
+        e16_worst, e16_shapes = full_expand_checks(
+            bd, packs16["test"], R, F, card, "16", natural=packs["test"])
+        r16_worst, r16_shapes = full_reduce_checks(
+            bd, packs16["train"], R, F, card, "16", natural=packs["train"])
+        adjoint_check(bd, packs16["train"], R, F, "16")
+
+        log("== 6b. slice: ML-10M bitdense training, export and queries "
+            "with KERNEL.BIT_IMPL: pallas16")
+        launches16 = run_training16_slice(bd, trainer, t16, card,
+                                          train_numbers)
+        del t16, packs16
+        launches16["pallas16 train CLI"] = run_pallas16_cli(bd, card,
+                                                            save_dir)
+
         log("== 7. slice: ML-10M bitdense serving export + queries")
         export_launches = run_serving_slice(bd, trainer, card)
 
         log("== 8. slice: ML-10M sampled mini-batch training (batch 4096, "
             "fanout 8) through the ELL kernels")
         del packs
+        torch.cuda.empty_cache()
         ell_launches, ell_worst, ell_shapes, sampled_numbers = \
             run_sampled_slice(bd, ek, cfg, it, model_cfg, trainer, save_dir,
                               card)
+
+    log("== 10. probes: probe_bitcast and probe_int8_mma")
+    probe_launches, probe_worst, probe_shapes = run_probes(card)
 
     kernel_ms = sum(sum(s["ms"] for s in shapes) * 2
                     for shapes in (e_shapes, r_shapes))
@@ -1474,6 +1979,20 @@ def main():
     ]
     rows[0]["launches_by_path"] = {"train_iteration": train_launches[
         "bit_expand_matmul"], "export": export_launches["bit_expand_matmul"]}
+    # The 16-bit pair: the launches of one pallas16 step; its export and
+    # the train CLI, each counted from 0, under launches_by_path.
+    for name, source, replaces, shapes, worst16 in (
+            ("bit_expand_matmul16", "bit_expand.cu", 391, e16_shapes,
+             e16_worst),
+            ("bit_reduce_matmul16", "bit_reduce.cu", 418, r16_shapes,
+             r16_worst)):
+        by_path = {path: counts[name] for path, counts in launches16.items()}
+        rows.append(kernel_row(
+            name, f"stargcn_tpu_torch/ops/csrc/{source}",
+            f"stargcn_tpu/ops/bitdense.py:{replaces}",
+            by_path["pallas16 train_iteration"], max(worst16, worst[name]),
+            shapes))
+        rows[-1]["launches_by_path"] = by_path
     # Every path was driven with the counts set to 0 just before it.  A
     # sampled training step launches no ell_sddmm (the plan's weights need
     # no gradient), so that kernel's count is the sum over its own two
@@ -1491,6 +2010,15 @@ def main():
             name, f"stargcn_tpu_torch/ops/csrc/{source}",
             f"stargcn_tpu/ops/pallas_kernels.py:{replaces}",
             launches, max(ell_worst[name], worst[name]), ell_shapes[name]))
+        rows[-1]["launches_by_path"] = by_path
+    for name, source, replaces in (
+            ("probe_bitcast", "probe_bitcast.cu", "scripts/probe_bitcast.py:37"),
+            ("probe_mma", "probe_mma.cu", "scripts/probe_int8_mxu.py:26")):
+        by_path = {path: counts[name]
+                   for path, counts in probe_launches.items()}
+        rows.append(kernel_row(
+            name, f"stargcn_tpu_torch/ops/csrc/{source}", replaces,
+            sum(by_path.values()), probe_worst[name], probe_shapes[name]))
         rows[-1]["launches_by_path"] = by_path
     log(json.dumps({"training": train_numbers}))
     log(json.dumps({"sampled_training": sampled_numbers}))

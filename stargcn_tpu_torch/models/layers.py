@@ -37,7 +37,7 @@ class BitStatic:
     rem_weight: Optional[torch.Tensor] = None  # (B,) 1 for a real edge
     d8_dst: int = 0
     d8_src: int = 0
-    impl: str = "kernel"                # 'kernel' | 'plain'
+    impl: str = "kernel"                # 'kernel' | 'kernel16' | 'plain'
 
 
 class HeterGCNLayer(nn.Module):

@@ -28,7 +28,7 @@ from stargcn_tpu_torch.models.layers import (
     InnerProductLayer,
     StackedHeterGCNLayers,
 )
-from stargcn_tpu_torch.ops.bitdense import resolve_impl
+from stargcn_tpu_torch.ops.bitdense import pack_row_interleave, resolve_impl
 from stargcn_tpu_torch.ops.gather import onehot_segment_sum, take_rows
 
 
@@ -244,6 +244,12 @@ def _build_bit_static_operands(cfg, bit_pack, deg_u, deg_i,
     direction's ``pb`` is the other's forward layout.  ``removed_info``:
     optional ``(pu, pi, hit, rating)`` removed-edge arrays."""
     impl = resolve_impl(cfg.bit_impl)
+    want = pack_row_interleave(impl)
+    if bit_pack.get("row_interleave", 0) != want:
+        raise ValueError(
+            f"bit_impl {cfg.bit_impl!r} reads packs with row_interleave="
+            f"{want}, but these were built with "
+            f"{bit_pack.get('row_interleave', 0)}")
     scales = _norm_scales(cfg, deg_u, deg_i)
     rem = {"user": (None,) * 4, "item": (None,) * 4}
     if removed_info is not None:

@@ -15,7 +15,11 @@ tensor that lies on the card, and its plain version ``xla_expand_matmul``
 on one that lies on the CPU; ``bit_reduce_matmul``
 (``ops/csrc/bit_reduce.cu``, plain version ``xla_reduce_matmul``) is its
 adjoint over the transpose pack, and ``bit_pool_rated`` ties the two into
-one differentiable function.  Padding follows the JAX package (``_BM``,
+one differentiable function.  ``bit_expand_matmul16`` and
+``bit_reduce_matmul16`` (``KERNEL.BIT_IMPL: pallas16``) compute the same on
+packs whose rows are interleaved inside blocks of ``_BM``
+(``pack_bits(row_interleave=_BM)``); the same two kernels read them
+through a row map.  Padding follows the JAX package (``_BM``,
 ``_BS``: node counts padded to a multiple of 1024) so packs compare byte
 for byte.
 """
@@ -33,7 +37,8 @@ _BS = 1024
 
 # Launches of each kernel wrapper on the card (the plain versions are not
 # counted).  A run sets these to 0, drives its path, and reads them.
-LAUNCHES = {"bit_expand_matmul": 0, "bit_reduce_matmul": 0}
+LAUNCHES = {"bit_expand_matmul": 0, "bit_reduce_matmul": 0,
+            "bit_expand_matmul16": 0, "bit_reduce_matmul16": 0}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -58,13 +63,23 @@ def pad_dims(num_dst: int, num_src: int, bm: int = _BM, bs: int = _BS):
 
 
 def pack_bits(edge_dst, edge_src, edge_rating, num_links, num_dst,
-              num_src, mask=None, bm: int = _BM, bs: int = _BS):
+              num_src, mask=None, bm: int = _BM, bs: int = _BS,
+              interleave: int = 0, row_interleave: int = 0):
     """Bit-pack one direction's multi-link adjacency (NumPy).
 
     Returns ``(P, D8)`` with ``P`` of shape ``(num_links * D8, S_pad)``
     uint8, bit ``b`` of ``P[r*D8 + d8, s]`` set iff edge
     ``(dst = b*D8 + d8  <-  src = s)`` carries rating level ``r`` (and
     ``mask > 0``).  Duplicate edges collapse (one-hot semantics).
+
+    ``interleave`` > 0 permutes source columns within blocks of that size
+    (logical ``L`` -> physical ``2L`` in the first half, ``2(L - half) + 1``
+    in the second), a column-pairing layout no kernel reads.
+
+    ``row_interleave`` > 0 (``bm`` of the ``pallas16`` route) permutes the
+    packed rows within each block of that many rows of the ``D8`` axis:
+    natural position ``w`` goes to physical row ``2*(w % (bm/2)) +
+    w // (bm/2)`` (see ``natural_to_physical``).
     """
     d8, _, s_pad = pad_dims(num_dst, num_src, bm, bs)
     edge_dst = np.asarray(edge_dst, np.int64)
@@ -74,9 +89,17 @@ def pack_bits(edge_dst, edge_src, edge_rating, num_links, num_dst,
         keep = np.asarray(mask) > 0
         edge_dst, edge_src, edge_rating = (
             edge_dst[keep], edge_src[keep], edge_rating[keep])
+    if interleave:
+        half = interleave // 2
+        blk, off = edge_src // interleave, edge_src % interleave
+        edge_src = blk * interleave + np.where(
+            off < half, 2 * off, 2 * (off - half) + 1)
     P = np.zeros((num_links * d8) * s_pad, np.uint8)
     b = edge_dst // d8
-    flat = (edge_rating * d8 + edge_dst % d8) * s_pad + edge_src
+    pos = edge_dst % d8
+    if row_interleave:
+        pos = natural_to_physical(pos, row_interleave)
+    flat = (edge_rating * d8 + pos) * s_pad + edge_src
     # One fancy-indexed OR per bit plane: within a plane all writes carry
     # the same value, so duplicate indices are benign.
     for bit in range(8):
@@ -86,20 +109,35 @@ def pack_bits(edge_dst, edge_src, edge_rating, num_links, num_dst,
     return P.reshape(num_links * d8, s_pad), d8
 
 
+def natural_to_physical(pos, ril: int):
+    """Physical packed row of natural position ``pos`` along the ``D8``
+    axis of a pack built with ``row_interleave=ril`` (numpy or torch
+    integers): ``2*(w % (ril/2)) + w // (ril/2)`` inside each block of
+    ``ril`` rows.  The CUDA kernels use the same map
+    (``ops/csrc/bit_walk.cuh:physical_row``)."""
+    half = ril // 2
+    blk, w = pos // ril, pos % ril
+    return blk * ril + 2 * (w % half) + w // half
+
+
 def build_bit_pack(edge_user, edge_item, edge_rating, edge_mask,
                    num_users, num_items, num_links, device,
-                   bm: int = _BM, bs: int = _BS):
+                   bm: int = _BM, bs: int = _BS, row_interleave: int = 0):
     """Both layouts for one graph variant, as uint8 tensors on ``device``:
-    ``{'user': {'pf', 'pb'}, 'item': {'pf', 'pb'}}``, where entry ``t``
-    drives aggregation into type ``t`` (``pf`` = that direction's layout,
-    ``pb`` = the transpose layout its backward will read)."""
+    ``{'user': {'pf', 'pb'}, 'item': {'pf', 'pb'}, 'row_interleave': n}``,
+    where entry ``t`` drives aggregation into type ``t`` (``pf`` = that
+    direction's layout, ``pb`` = the transpose layout its backward will
+    read) and ``row_interleave`` records the packed-row order of both, so
+    that a pooling route that expects the other order refuses the pack."""
+    kw = dict(mask=edge_mask, bm=bm, bs=bs, row_interleave=row_interleave)
     pa, _ = pack_bits(edge_user, edge_item, edge_rating, num_links,
-                      num_users, num_items, mask=edge_mask, bm=bm, bs=bs)
+                      num_users, num_items, **kw)
     pb, _ = pack_bits(edge_item, edge_user, edge_rating, num_links,
-                      num_items, num_users, mask=edge_mask, bm=bm, bs=bs)
+                      num_items, num_users, **kw)
     ta = torch.from_numpy(pa).to(device)
     tb = torch.from_numpy(pb).to(device)
-    return {"user": {"pf": ta, "pb": tb}, "item": {"pf": tb, "pb": ta}}
+    return {"user": {"pf": ta, "pb": tb}, "item": {"pf": tb, "pb": ta},
+            "row_interleave": row_interleave}
 
 
 def resolve_impl(impl: str) -> str:
@@ -107,20 +145,108 @@ def resolve_impl(impl: str) -> str:
     ``KERNEL.BIT_IMPL``: ``'auto'`` and ``'pallas'`` give ``'kernel'``
     (the ``bit_expand_matmul`` and ``bit_reduce_matmul`` wrappers: the
     CUDA kernels for tensors on the card, their plain versions for tensors
-    on the CPU), ``'xla'`` gives ``'plain'`` (``xla_expand_matmul`` and
-    ``xla_reduce_matmul`` on any device)."""
+    on the CPU), ``'pallas16'`` gives ``'kernel16'`` (the same for
+    ``bit_expand_matmul16`` and ``bit_reduce_matmul16``, which read packs
+    built with ``row_interleave=_BM``), ``'xla'`` gives ``'plain'``
+    (``xla_expand_matmul`` and ``xla_reduce_matmul`` on any device)."""
     if impl in ("auto", "pallas"):
         return "kernel"
+    if impl == "pallas16":
+        return "kernel16"
     if impl == "xla":
         return "plain"
-    if impl == "pallas16":
-        raise NotImplementedError(
-            "bit_impl 'pallas16' (row-interleaved packs) comes as a layout "
-            "flag on the bitdense kernels in a later slice")
     raise ValueError(f"unknown bit_impl: {impl!r}")
 
 
-# ------------------------------ the kernel ------------------------------
+def pack_row_interleave(impl: str) -> int:
+    """The ``row_interleave`` of the packs that a resolved ``impl``
+    reads: ``_BM`` for ``'kernel16'``, else 0."""
+    return _BM if impl == "kernel16" else 0
+
+
+# ------------------------------ the kernels ------------------------------
+
+
+def _check_ril(name: str, d8: int, bm: int):
+    if bm <= 0 or bm % 2 or d8 % bm:
+        raise ValueError(f"{name}: the row block bm={bm} must be even and "
+                         f"divide d8={d8}")
+
+
+def _launch(name, lib, P, v, out, *args):
+    """Launch ``ops/csrc/<lib>.cu`` on P's stream: ``fn(P, v, v_is_bf16,
+    out, *args, stream)``; raise on a launch error, count the launch."""
+    from stargcn_tpu_torch.ops import _build
+
+    fn = _build.load(lib)
+    with torch.cuda.device(P.device):
+        stream = torch.cuda.current_stream(P.device).cuda_stream
+        err = fn(P.data_ptr(), v.data_ptr(), int(v.dtype == torch.bfloat16),
+                 out.data_ptr(), *args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def _check_operands(name, P, v, what, dims):
+    """Device, type and layout checks shared by the four wrappers."""
+    if not (P.is_cuda and v.is_cuda and P.device == v.device):
+        raise ValueError(f"{name}: P and {what} must lie on one CUDA device "
+                         f"(got {P.device} and {v.device})")
+    if P.dtype != torch.uint8 or v.dtype not in (torch.float32,
+                                                 torch.bfloat16):
+        raise TypeError(f"{name} takes uint8 P and float32 or bfloat16 "
+                        f"{what} (got {P.dtype} and {v.dtype})")
+    if P.dim() != 2 or v.dim() != dims:
+        raise ValueError(f"{name} takes 2-D P and {dims}-D {what}")
+    if not P.is_contiguous():
+        raise ValueError(f"{name} takes contiguous P")
+    if P.shape[1] % 16 or P.data_ptr() % 16:
+        raise ValueError(f"{name}: P rows must be 16-byte aligned "
+                         "(S_pad % 16 == 0)")
+    if max(*P.shape, v.shape[-1]) >= 2**31:
+        raise ValueError(f"{name}: dimension exceeds int32")
+
+
+def _expand(name, P, x, num_links, d8, ril):
+    """``bit_expand_matmul`` (ril 0) or ``bit_expand_matmul16`` (ril = bm)
+    on the card."""
+    _check_operands(name, P, x, "x", 2)
+    m8, s_pad = P.shape
+    f = x.shape[1]
+    if m8 != num_links * d8 or x.shape[0] != s_pad:
+        raise ValueError(
+            f"{name}: P {tuple(P.shape)} and x {tuple(x.shape)} do not fit "
+            f"num_links={num_links}, d8={d8}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} takes contiguous x")
+    out = torch.empty((num_links, 8, d8, f), dtype=torch.float32,
+                      device=P.device)
+    if out.numel() == 0:
+        return out
+    return _launch(name, "bit_expand", P, x, out, m8, s_pad, f, d8, ril)
+
+
+def _reduce(name, P, g, num_links, d8, ril):
+    """``bit_reduce_matmul`` (ril 0) or ``bit_reduce_matmul16`` (ril = bm)
+    on the card."""
+    _check_operands(name, P, g, "g", 3)
+    m8, s_pad = P.shape
+    f = g.shape[2]
+    if m8 != num_links * d8 or tuple(g.shape[:2]) != (num_links, s_pad):
+        raise ValueError(
+            f"{name}: P {tuple(P.shape)} and g {tuple(g.shape)} do not fit "
+            f"num_links={num_links}, d8={d8}")
+    if (f > 1 and g.stride(2) != 1) or min(g.stride()[:2]) < 0:
+        raise ValueError(f"{name}: the last dimension of g must be "
+                         f"contiguous (strides {g.stride()})")
+    out = torch.empty((8, d8, f), dtype=torch.float32, device=P.device)
+    if out.numel() == 0:
+        return out
+    return _launch(name, "bit_reduce", P, g, out, num_links, s_pad, f,
+                   d8, g.stride(0), g.stride(1), ril)
 
 
 def bit_expand_matmul(P: torch.Tensor, x: torch.Tensor, num_links: int,
@@ -138,44 +264,20 @@ def bit_expand_matmul(P: torch.Tensor, x: torch.Tensor, num_links: int,
     """
     if P.device.type == "cpu" and x.device.type == "cpu":
         return xla_expand_matmul(P, x, num_links, d8)
-    if not (P.is_cuda and x.is_cuda and P.device == x.device):
-        raise ValueError("bit_expand_matmul: P and x must lie on one CUDA "
-                         f"device (got {P.device} and {x.device})")
-    if P.dtype != torch.uint8 or x.dtype not in (torch.float32,
-                                                 torch.bfloat16):
-        raise TypeError("bit_expand_matmul takes uint8 P and float32 or "
-                        f"bfloat16 x (got {P.dtype} and {x.dtype})")
-    if P.dim() != 2 or x.dim() != 2:
-        raise ValueError("bit_expand_matmul takes 2-D P and x")
-    m8, s_pad = P.shape
-    f = x.shape[1]
-    if m8 != num_links * d8 or x.shape[0] != s_pad:
-        raise ValueError(
-            f"bit_expand_matmul: P {tuple(P.shape)} and x {tuple(x.shape)} "
-            f"do not fit num_links={num_links}, d8={d8}")
-    if not (P.is_contiguous() and x.is_contiguous()):
-        raise ValueError("bit_expand_matmul takes contiguous P and x")
-    if s_pad % 16 or P.data_ptr() % 16:
-        raise ValueError("bit_expand_matmul: P rows must be 16-byte "
-                         "aligned (S_pad % 16 == 0)")
-    if max(m8, s_pad, f) >= 2**31:
-        raise ValueError("bit_expand_matmul: dimension exceeds int32")
-    out = torch.empty((num_links, 8, d8, f), dtype=torch.float32,
-                      device=P.device)
-    if out.numel() == 0:
-        return out
-    from stargcn_tpu_torch.ops import _build
+    return _expand("bit_expand_matmul", P, x, num_links, d8, 0)
 
-    fn = _build.load("bit_expand")
-    with torch.cuda.device(P.device):
-        stream = torch.cuda.current_stream(P.device).cuda_stream
-        err = fn(P.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
-                 out.data_ptr(), m8, s_pad, f, d8, stream)
-    if err != 0:
-        raise RuntimeError(f"bit_expand_matmul: kernel launch failed with "
-                           f"CUDA error {err}")
-    LAUNCHES["bit_expand_matmul"] += 1
-    return out
+
+def bit_expand_matmul16(P: torch.Tensor, x: torch.Tensor, num_links: int,
+                        d8: int, *, bm: int = _BM) -> torch.Tensor:
+    """``bit_expand_matmul`` on a pack built with ``row_interleave=bm``:
+    the output is ``(num_links, 8, d8, F)`` float32 in natural destination
+    order.  On the card this launches ``ops/csrc/bit_expand.cu`` with the
+    row map, which gives the bits ``bit_expand_matmul`` gives on the
+    natural pack; on the CPU it is ``xla_expand_matmul16``."""
+    _check_ril("bit_expand_matmul16", d8, bm)
+    if P.device.type == "cpu" and x.device.type == "cpu":
+        return xla_expand_matmul16(P, x, num_links, d8, bm=bm)
+    return _expand("bit_expand_matmul16", P, x, num_links, d8, bm)
 
 
 def xla_expand_matmul(P: torch.Tensor, x: torch.Tensor, num_links: int,
@@ -204,6 +306,16 @@ def xla_expand_matmul(P: torch.Tensor, x: torch.Tensor, num_links: int,
     return out.reshape(8, num_links, d8, f).permute(1, 0, 2, 3)
 
 
+def xla_expand_matmul16(P: torch.Tensor, x: torch.Tensor, num_links: int,
+                        d8: int, *, bm: int = _BM) -> torch.Tensor:
+    """Plain PyTorch version of ``bit_expand_matmul16``: the natural plain
+    version on the physical rows, then the inverse of the row map on the
+    ``d8`` axis of its output (the pack itself is never copied)."""
+    out = xla_expand_matmul(P, x, num_links, d8)
+    phys = natural_to_physical(torch.arange(d8, device=P.device), bm)
+    return out.index_select(2, phys)
+
+
 def bit_reduce_matmul(P: torch.Tensor, g: torch.Tensor, num_links: int,
                       d8: int) -> torch.Tensor:
     """``out[b, m, f] = sum_{r, s} bit_b(P[r*d8+m, s]) g[r, s, f]``.
@@ -222,47 +334,19 @@ def bit_reduce_matmul(P: torch.Tensor, g: torch.Tensor, num_links: int,
     """
     if P.device.type == "cpu" and g.device.type == "cpu":
         return xla_reduce_matmul(P, g, num_links, d8)
-    if not (P.is_cuda and g.is_cuda and P.device == g.device):
-        raise ValueError("bit_reduce_matmul: P and g must lie on one CUDA "
-                         f"device (got {P.device} and {g.device})")
-    if P.dtype != torch.uint8 or g.dtype not in (torch.float32,
-                                                 torch.bfloat16):
-        raise TypeError("bit_reduce_matmul takes uint8 P and float32 or "
-                        f"bfloat16 g (got {P.dtype} and {g.dtype})")
-    if P.dim() != 2 or g.dim() != 3:
-        raise ValueError("bit_reduce_matmul takes 2-D P and 3-D g")
-    m8, s_pad = P.shape
-    f = g.shape[2]
-    if m8 != num_links * d8 or tuple(g.shape[:2]) != (num_links, s_pad):
-        raise ValueError(
-            f"bit_reduce_matmul: P {tuple(P.shape)} and g {tuple(g.shape)} "
-            f"do not fit num_links={num_links}, d8={d8}")
-    if not P.is_contiguous():
-        raise ValueError("bit_reduce_matmul takes contiguous P")
-    if (f > 1 and g.stride(2) != 1) or min(g.stride()[:2]) < 0:
-        raise ValueError("bit_reduce_matmul: the last dimension of g must "
-                         f"be contiguous (strides {g.stride()})")
-    if s_pad % 16 or P.data_ptr() % 16:
-        raise ValueError("bit_reduce_matmul: P rows must be 16-byte "
-                         "aligned (S_pad % 16 == 0)")
-    if max(m8, s_pad, f) >= 2**31:
-        raise ValueError("bit_reduce_matmul: dimension exceeds int32")
-    out = torch.empty((8, d8, f), dtype=torch.float32, device=P.device)
-    if out.numel() == 0:
-        return out
-    from stargcn_tpu_torch.ops import _build
+    return _reduce("bit_reduce_matmul", P, g, num_links, d8, 0)
 
-    fn = _build.load("bit_reduce")
-    with torch.cuda.device(P.device):
-        stream = torch.cuda.current_stream(P.device).cuda_stream
-        err = fn(P.data_ptr(), g.data_ptr(), int(g.dtype == torch.bfloat16),
-                 out.data_ptr(), num_links, s_pad, f, d8, g.stride(0),
-                 g.stride(1), stream)
-    if err != 0:
-        raise RuntimeError(f"bit_reduce_matmul: kernel launch failed with "
-                           f"CUDA error {err}")
-    LAUNCHES["bit_reduce_matmul"] += 1
-    return out
+
+def bit_reduce_matmul16(P: torch.Tensor, g: torch.Tensor, num_links: int,
+                        d8: int, *, bm: int = _BM) -> torch.Tensor:
+    """``bit_reduce_matmul`` on a pack built with ``row_interleave=bm``:
+    the output is ``(8, d8, F)`` float32 in natural order at every F.  On
+    the card this launches ``ops/csrc/bit_reduce.cu`` with the row map; on
+    the CPU it is ``xla_reduce_matmul16``."""
+    _check_ril("bit_reduce_matmul16", d8, bm)
+    if P.device.type == "cpu" and g.device.type == "cpu":
+        return xla_reduce_matmul16(P, g, num_links, d8, bm=bm)
+    return _reduce("bit_reduce_matmul16", P, g, num_links, d8, bm)
 
 
 def xla_reduce_matmul(P: torch.Tensor, g: torch.Tensor, num_links: int,
@@ -291,7 +375,25 @@ def xla_reduce_matmul(P: torch.Tensor, g: torch.Tensor, num_links: int,
     return out
 
 
+def xla_reduce_matmul16(P: torch.Tensor, g: torch.Tensor, num_links: int,
+                        d8: int, *, bm: int = _BM) -> torch.Tensor:
+    """Plain PyTorch version of ``bit_reduce_matmul16``: the natural plain
+    version on the physical rows, then the inverse of the row map on the
+    ``d8`` axis of its output."""
+    out = xla_reduce_matmul(P, g, num_links, d8)
+    phys = natural_to_physical(torch.arange(d8, device=P.device), bm)
+    return out.index_select(1, phys)
+
+
 # ------------------------------ aggregation ------------------------------
+
+
+def _engine(impl: str):
+    """``(expand, reduce)`` of a resolved impl, looked up when called (so
+    that a caller may wrap the module's functions)."""
+    return {"kernel": (bit_expand_matmul, bit_reduce_matmul),
+            "kernel16": (bit_expand_matmul16, bit_reduce_matmul16),
+            "plain": (xla_expand_matmul, xla_reduce_matmul)}[impl]
 
 
 class _BitPoolRated(torch.autograd.Function):
@@ -302,8 +404,7 @@ class _BitPoolRated(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, p_fwd, p_bwd, num_links, d8_dst, d8_src, impl):
-        expand = xla_expand_matmul if impl == "plain" else bit_expand_matmul
-        out = expand(p_fwd, x, num_links, d8_dst)
+        out = _engine(impl)[0](p_fwd, x, num_links, d8_dst)
         ctx.save_for_backward(p_bwd)
         ctx.static = (num_links, d8_src, impl, x.dtype)
         # (R, 8, d8, F) -> (8*d8, R, F), natural dst index.
@@ -319,8 +420,7 @@ class _BitPoolRated(torch.autograd.Function):
             g = g.contiguous()
         # g: (D_pad, R, F); the reduce reads it rating-major, as a view.
         g_rm = g.permute(1, 0, 2)
-        reduce = xla_reduce_matmul if impl == "plain" else bit_reduce_matmul
-        d_x = reduce(p_bwd, g_rm, num_links, d8_src)
+        d_x = _engine(impl)[1](p_bwd, g_rm, num_links, d8_src)
         return (d_x.reshape(8 * d8_src, -1).to(x_dtype),) + (None,) * 6
 
 
@@ -334,7 +434,9 @@ def bit_pool_rated(x, p_fwd, p_bwd, num_links, d8_dst, d8_src,
       p_fwd: ``(num_links * d8_dst, S_pad)`` uint8 — this direction.
       p_bwd: ``(num_links * d8_src, D_pad)`` uint8 — the transpose layout,
         read only by the backward.
-      impl: ``'kernel'`` | ``'plain'`` (see ``resolve_impl``).
+      impl: ``'kernel'`` | ``'kernel16'`` | ``'plain'`` (see
+        ``resolve_impl``); ``'kernel16'`` reads packs built with
+        ``row_interleave=_BM``, the others natural packs.
 
     Returns ``(8 * d8_dst, num_links, F)`` f32, indexed by the natural
     destination id.

@@ -1,17 +1,27 @@
-// bit_expand_matmul on Hopper (sm_90a): expand a bit-packed multi-link
-// adjacency against a feature table.
+// bit_expand_matmul and bit_expand_matmul16 on Hopper (sm_90a): expand a
+// bit-packed multi-link adjacency against a feature table.
 //
-//   out[r, b, m, f] = sum_s bit_b(P[r*d8 + m, s]) * bf16(x[s, f])
+//   out[r, b, m, f] = sum_s bit_b(P[r*d8 + phys(m), s]) * bf16(x[s, f])
 //
-// P is (R*d8, S_pad) uint8; bit b of packed row r*d8+m, column s, is set
-// iff destination b*d8+m has an edge with rating level r from source s.
-// x is (S_pad, F), f32 or bf16; it is rounded to bf16 and summed in f32.
-// out is (R, 8, d8, F) f32, the layout of the TPU kernel's output.
+// P is (R*d8, S_pad) uint8; bit b of packed row r*d8+phys(m), column s, is
+// set iff destination b*d8+m has an edge with rating level r from source s.
+// phys is the identity for a natural pack (ril = 0) and the row map of
+// bit_walk.cuh:physical_row for a pack built with row_interleave = ril
+// (ril = 128 for KERNEL.BIT_IMPL: pallas16).  x is (S_pad, F), f32 or bf16;
+// it is rounded to bf16 and summed in f32.  out is (R, 8, d8, F) f32 in
+// natural order, the layout of the TPU kernels' output.
 //
-// Replaces: stargcn_tpu/ops/bitdense.py:_k1_kernel (bit_expand_matmul).
-// That kernel unpacks all eight bit planes of a (bm, bs) block into bf16
-// and feeds the matrix unit, carrying the sum across sequential grid
-// steps over S.
+// Replaces: stargcn_tpu/ops/bitdense.py:_k1_kernel (bit_expand_matmul) and,
+// with ril = 128, _k1_kernel16 (bit_expand_matmul16).  The first unpacks all
+// eight bit planes of a (bm, bs) block into bf16 and feeds the matrix unit,
+// carrying the sum across sequential grid steps over S.  The second
+// bitcasts the u8 block to u16 so that one VPU lane holds two packed rows
+// (the TPU pairs adjacent sublanes) and halves the unpack work; the pack's
+// rows are interleaved so that the (plane, half) order of its accumulator is
+// the natural order.  That pairing is a device of the TPU's vector unit with
+// no counterpart here: the walk below never reads the pack as u16, it only
+// sends each physical row's sums to the natural row the interleave put
+// there, so both routes give the same bits from the same edges.
 //
 // Bound on the H100: the packed operand has to be read once.  At ML-10M
 // width (R=10, F=65) the user direction reads P (88320 x 11264, 0.995 GB)
@@ -21,6 +31,8 @@
 // of the bytes non-zero), far below the memory time.  A dense bf16
 // tensor-core expansion would be ~1.03e12 FLOP per launch, ~1.05 ms at
 // 989 TFLOP/s, so the kernel skips zero bytes instead of expanding them.
+// The 16-bit route has the same bound: its row map moves no byte and adds
+// two integer operations per packed row.
 //
 // Design: a block of 8 warps owns 8/splits packed rows and every column of
 // one feature tile; the `splits` warps of a row walk interleaved 512-byte
@@ -51,7 +63,7 @@ template <typename T, int K, bool kSplit>
 __global__ void __launch_bounds__(kWarps * 32)
 bit_expand_kernel(const uint8_t* __restrict__ P, const T* __restrict__ x,
                   float* __restrict__ out, int m8, int s_pad, int f,
-                  int d8, int splits) {
+                  int d8, int ril, int splits) {
   __shared__ float red[kSplit ? kWarps : 1][kMaxK][32];
   if (!kSplit) splits = 1;  // a constant for the compiler
   const int lane = threadIdx.x & 31;
@@ -75,7 +87,7 @@ bit_expand_kernel(const uint8_t* __restrict__ P, const T* __restrict__ x,
                              static_cast<size_t>(f), col0, f, acc);
 
   const int r = row / d8;
-  const int m = row - r * d8;
+  const int m = bitwalk::natural_row(row - r * d8, ril);
   bitwalk::reduce_store<K, kSplit, kWarps>(
       acc, red, warp, part, splits, lane, live, col0, f,
       out + (static_cast<size_t>(r) * 8 * d8 + m) * f,
@@ -84,7 +96,7 @@ bit_expand_kernel(const uint8_t* __restrict__ P, const T* __restrict__ x,
 
 template <typename T>
 void launch(const uint8_t* P, const T* x, float* out, int m8, int s_pad,
-            int f, int d8, cudaStream_t stream) {
+            int f, int d8, int ril, cudaStream_t stream) {
   const int splits = bitwalk::pick_splits(m8, (s_pad >> 4) / 32, kWarps);
   const int rows_per_block = kWarps / splits;
   const dim3 grid((m8 + rows_per_block - 1) / rows_per_block,
@@ -97,10 +109,10 @@ void launch(const uint8_t* P, const T* x, float* out, int m8, int s_pad,
   case K:                                                                 \
     if (splits > 1)                                                       \
       bit_expand_kernel<T, K, true><<<grid, block, 0, stream>>>(          \
-          P, x, out, m8, s_pad, f, d8, splits);                           \
+          P, x, out, m8, s_pad, f, d8, ril, splits);                      \
     else                                                                  \
       bit_expand_kernel<T, K, false><<<grid, block, 0, stream>>>(         \
-          P, x, out, m8, s_pad, f, d8, 1);                                \
+          P, x, out, m8, s_pad, f, d8, ril, 1);                           \
     break;
     BIT_EXPAND_CASE(1)
     BIT_EXPAND_CASE(2)
@@ -118,19 +130,21 @@ void launch(const uint8_t* P, const T* x, float* out, int m8, int s_pad,
 
 // Plain C entry point (loaded with ctypes).  The caller has checked that
 // P rows are 16-byte aligned (s_pad % 16 == 0, P 16-byte aligned), that
-// m8 = R*d8 and f are positive, and that x is f32 (x_is_bf16 = 0) or
-// bf16 (1).  Returns cudaGetLastError() after the launch.
+// m8 = R*d8 and f are positive, that x is f32 (x_is_bf16 = 0) or bf16 (1),
+// and that ril is 0 or an even number that divides d8.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int bit_expand_matmul_launch(const void* P, const void* x,
                                         int x_is_bf16, void* out, int m8,
-                                        int s_pad, int f, int d8,
+                                        int s_pad, int f, int d8, int ril,
                                         void* stream) {
   const uint8_t* p = static_cast<const uint8_t*>(P);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_is_bf16) {
-    launch(p, static_cast<const __nv_bfloat16*>(x), o, m8, s_pad, f, d8, st);
+    launch(p, static_cast<const __nv_bfloat16*>(x), o, m8, s_pad, f, d8, ril,
+           st);
   } else {
-    launch(p, static_cast<const float*>(x), o, m8, s_pad, f, d8, st);
+    launch(p, static_cast<const float*>(x), o, m8, s_pad, f, d8, ril, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,6 +31,26 @@ __device__ __forceinline__ float bf16_round(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// The row map of a pack built with row_interleave = ril (ops/bitdense.py:
+// pack_bits; ril = 0 is the natural order).  Inside each block of ril rows
+// of the d8 axis, natural position w sits at physical row
+// 2*(w % (ril/2)) + w / (ril/2), so physical row q holds natural position
+// (q & 1) * ril/2 + (q >> 1) of its block.  The TPU's 16-bit kernels need
+// that order because a u8 -> u16 bitcast there pairs adjacent sublanes
+// (packed rows 2k and 2k+1) into one lane; nothing on this card pairs rows,
+// so the walk reads the pack as bytes and only the owner's row changes.
+__device__ __forceinline__ int physical_row(int m, int ril) {
+  if (ril == 0) return m;
+  const int half = ril >> 1;
+  const int w = m % ril;
+  return m - w + 2 * (w % half) + w / half;
+}
+__device__ __forceinline__ int natural_row(int q, int ril) {
+  if (ril == 0) return q;
+  const int w = q % ril;
+  return q - w + (w & 1) * (ril >> 1) + (w >> 1);
+}
+
 // Pieces [base, base+32) of the packed row `prow` (n16 pieces of 16 bytes):
 // acc[b][k] += bf16(src[s * row_stride + col0 + 32k]) for every set bit b of
 // byte s.  All 32 lanes of the warp call it together.

@@ -34,7 +34,8 @@ import torch
 
 from stargcn_tpu_torch.graph.device import BipartiteGraphData
 from stargcn_tpu_torch.models.stargcn import STARGCN, STARGCNConfig
-from stargcn_tpu_torch.ops.bitdense import build_bit_pack
+from stargcn_tpu_torch.ops.bitdense import (build_bit_pack,
+                                           pack_row_interleave, resolve_impl)
 from stargcn_tpu_torch.utils.device import resolve_device
 from stargcn_tpu_torch.utils.logging import MetricLogger
 
@@ -60,13 +61,16 @@ class _LazyBitPacks:
             key = hashlib.sha1(m.tobytes()).hexdigest()
             if key not in self._cache:
                 cfg = self._cfg
+                # The pack layout follows the kernels the model resolves
+                # to: the 16-bit route reads row-interleaved packs.
+                ril = pack_row_interleave(resolve_impl(cfg.bit_impl))
                 # Packs outlive the call that first asks for them, so they
                 # are ordinary tensors even when that call runs under
                 # ``torch.inference_mode()``.
                 with torch.inference_mode(False):
                     self._cache[key] = build_bit_pack(
                         eu, ei, er, m, cfg.num_users, cfg.num_items,
-                        cfg.num_links, self._device)
+                        cfg.num_links, self._device, row_interleave=ril)
             self._by_variant[variant] = self._cache[key]
         return self._by_variant[variant]
 

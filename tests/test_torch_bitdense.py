@@ -150,8 +150,7 @@ def test_resolve_impl():
     for name in ("auto", "pallas"):
         assert tbd.resolve_impl(name) == "kernel"
     assert tbd.resolve_impl("xla") == "plain"
-    with pytest.raises(NotImplementedError):
-        tbd.resolve_impl("pallas16")
+    assert tbd.resolve_impl("pallas16") == "kernel16"
     with pytest.raises(ValueError):
         tbd.resolve_impl("nope")
 

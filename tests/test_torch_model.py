@@ -137,13 +137,11 @@ def test_unported_paths_raise(pair_sum):
     with pytest.raises(NotImplementedError):
         STARGCN(dataclasses.replace(state.model_cfg, backend="dense"))
     for field, value in (("backend", "xla"), ("backend", "ell"),
-                         ("bit_impl", "pallas16"),
                          ("compute_dtype", "bfloat16"),
                          ("dropout_per_edge", True),
                          ("use_fea_proj", True)):
         cfg = dataclasses.replace(state.model_cfg, **{field: value})
         with pytest.raises(NotImplementedError):
-            # pallas16 is refused where the pack layout is resolved
             model = STARGCN(cfg)
             pu = torch.zeros(1, dtype=torch.long)
             model(None, None, pu, pu, state.variants.degrees("test"),
