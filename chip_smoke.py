@@ -13,14 +13,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    input, long rows that are split over warps, permuted-view cotangents);
    the same for ``bit_expand_matmul16`` and ``bit_reduce_matmul16`` on
    ``row_interleave=128`` packs (F = 1 to 600), each also equal bit for bit
-   to its natural kernel on the natural pack;
+   to its natural kernel on the natural pack; then the four on the edge
+   cases of the walk (full stage lists, non-zeros only in a row's tail,
+   S_pad = 16 and off the stage, rows of one warp and of a block, F = 1 to
+   600, strided cotangents), each also repeated bit for bit;
 4. set-up: ``configs/transductive_ml_10m.yml`` on a synthetic graph of the
    real ML-10M size, one ``DataIterator`` and one ``Trainer`` on the card
    (parameters from seed 123), the train and test bit packs;
 5. kernel check, full size: both kernels on the ML-10M packs (a few row
    blocks compared with the plain versions; two launches on the same
    input give the same bits), their time per launch at the
-   main path's shapes beside their bounds, and the adjoint identity
+   main path's shapes beside their bounds, their share of the bound and
+   their time on an all-zero pack of the same shape (the stream's own
+   cost), and the adjoint identity
    ``<expand(x), g> = <x, reduce(g)>`` that ties the two kernels and the
    two pack layouts together;
 6. training slice: one ``train_iteration`` (launch counts), the same step
@@ -344,6 +349,111 @@ def small_kernel16_checks(bd):
     return worst
 
 
+def design_pack(rng, kind, rows, s_pad):
+    """A (rows, s_pad) uint8 pack for the walk's edge cases: ``sparse``
+    (about 1% of the bytes non-zero, one bit each), ``dense`` (every byte
+    non-zero, so a stage's list is full), ``random`` (uniform bytes) or
+    ``last`` (non-zero bytes only past the last multiple of 4096, the
+    row's tail)."""
+    import numpy as np
+
+    if kind == "dense":
+        return rng.randint(1, 256, (rows, s_pad)).astype(np.uint8)
+    if kind == "random":
+        return rng.randint(0, 256, (rows, s_pad)).astype(np.uint8)
+    P = np.zeros((rows, s_pad), np.uint8)
+    lo = (s_pad - 1) // 4096 * 4096 if kind == "last" else 0
+    live = rng.rand(rows, s_pad - lo) < (0.2 if kind == "last" else 0.01)
+    P[:, lo:] = np.where(live, 1 << rng.randint(0, 8, live.shape), 0)
+    return P
+
+
+def strided_g(rng, R, s_pad, F, dtype, view):
+    """A (R, s_pad, F) cotangent on the card with non-default row strides:
+    ``perm`` (the permuted (s_pad, R, F) view autograd hands over), ``pad``
+    (rows of a wider table) or ``skip`` (every other row of a taller
+    one)."""
+    import numpy as np
+    import torch
+
+    if view == "perm":
+        base = rng.randn(s_pad, R, F).astype(np.float32)
+        return torch.from_numpy(base).to(DEVICE, dtype).permute(1, 0, 2)
+    if view == "pad":
+        base = rng.randn(R, s_pad, F + 5).astype(np.float32)
+        return torch.from_numpy(base).to(DEVICE, dtype)[..., :F]
+    base = rng.randn(R, 2 * s_pad, F).astype(np.float32)
+    return torch.from_numpy(base).to(DEVICE, dtype)[:, ::2]
+
+
+def small_design_checks(bd):
+    """``{kernel name: worst max abs error}`` over the walk's edge cases
+    (bit_walk.cuh): full stage lists, non-zeros only in a last partial
+    stage, S_pad = 16 and S_pad off the 512-byte stage, rows walked by one
+    warp and by a block's 8, F = 1 to 600 (one or two register rounds, one
+    to three column tiles), f32 and bf16 input, cotangents with non-default
+    strides.  Each kernel against its plain
+    version fed the same bf16-rounded input (1e-4 of the largest output,
+    1e-5 on the 16-bit route), each repeated bit for bit, and the 16-bit
+    route on the row-interleaved pack equal bit for bit to the natural
+    kernel on the natural pack."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(SEED + 11)
+    names = ("bit_expand_matmul", "bit_reduce_matmul", "bit_expand_matmul16",
+             "bit_reduce_matmul16")
+    worst = dict.fromkeys(names, 0.0)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (R, d8, S_pad, F, input dtype, pack kind, g view)
+    for R, d8, s_pad, F, dtype, kind, view in (
+            (2, 128, 16, 65, f32, "dense", "perm"),
+            (2, 128, 4096, 8, bf16, "dense", "pad"),
+            (3, 128, 4624, 65, f32, "last", "skip"),
+            (1, 128, 1040, 1, f32, "sparse", "perm"),
+            (2, 128, 8208, 72, bf16, "sparse", "pad"),
+            (2, 256, 2048, 256, f32, "random", "perm"),
+            (2, 128, 1024, 257, f32, "sparse", "skip"),
+            (1, 128, 528, 600, bf16, "random", "perm"),
+            (10, 128, 12288, 65, f32, "sparse", "perm"),
+            (2, 128, 32784, 65, f32, "last", "pad")):
+        Pn = torch.from_numpy(design_pack(rng, kind, R * d8, s_pad)).to(
+            DEVICE)
+        # The row_interleave=128 pack of the same edges.
+        phys = bd.natural_to_physical(torch.arange(d8, device=DEVICE), 128)
+        P16 = torch.empty_like(Pn)
+        P16.view(R, d8, -1)[:, phys] = Pn.view(R, d8, -1)
+        x = torch.from_numpy(rng.randn(s_pad, F).astype(np.float32)).to(
+            DEVICE, dtype)
+        g = strided_g(rng, R, s_pad, F, dtype, view)
+        what = (f"R={R} d8={d8} S_pad={s_pad} F={F} {kind} "
+                f"{str(dtype)[6:]} g={view}{tuple(g.stride())}")
+        for name, P, v, rel in (
+                ("bit_expand_matmul", Pn, x, 1e-4),
+                ("bit_reduce_matmul", Pn, g, 1e-4),
+                ("bit_expand_matmul16", P16, x, 1e-5),
+                ("bit_reduce_matmul16", P16, g, 1e-5)):
+            err_fn = expand_err if "expand" in name else reduce_err
+            route = "16" if name.endswith("16") else ""
+            err, tol, scale = err_fn(bd, P, v, R, d8, route=route, rel=rel)
+            kernel = getattr(bd, name)
+            out = kernel(P, v, R, d8)
+            again = torch.equal(out, kernel(P, v, R, d8))
+            same = True
+            if route:
+                natural = getattr(bd, name[:-2])
+                same = torch.equal(out, natural(Pn, v, R, d8))
+            log(f"  {name} {what}: max_abs_err={err:.3e} "
+                f"rel={err / max(scale, 1e-30):.3e} tol={tol:.3e}; repeats "
+                f"bit for bit: {again}"
+                + (f"; equal to the natural kernel: {same}" if route else ""))
+            check(err <= tol, f"{name} disagrees ({what})")
+            check(again, f"{name} does not repeat bit for bit ({what})")
+            check(same, f"{name} differs from the natural kernel ({what})")
+            worst[name] = max(worst[name], err)
+    return worst
+
+
 def bound_ms(nbytes, set_bits, f):
     """Least time for one launch: its operands and its output moved once
     at the HBM rate, or one f32 add per set bit per column at the f32
@@ -403,16 +513,21 @@ def full_expand_checks(bd, pack, R, F, card, route="", natural=None):
                 f"bit_expand_matmul on the natural pack")
         del out
         ms = cuda_ms(lambda: kernel(P, x, R, d8), reps=20)
+        zero = torch.zeros_like(P)
+        zero_ms = cuda_ms(lambda: kernel(zero, x, R, d8), reps=20)
+        del zero
         plain_ms = cuda_ms(lambda: plain(P, x, R, d8), reps=2)
         ones = set_bits(P)
         bms, by = bound_ms(P.numel() + s_pad * F * 4 + R * 8 * d8 * F * 4,
                            ones, F)
         shapes.append(dict(direction=direction, P=list(P.shape), F=F,
-                           set_bits=ones, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bms, bound_by=by))
+                           set_bits=ones, ms=ms, zero_pack_ms=zero_ms,
+                           plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                           bound_share=bms / ms))
         log(f"  {name} {direction} P={tuple(P.shape)} F={F}: kernel "
-            f"{ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound {bms:.4f} "
-            f"ms ({by}), set bits {ones} [{card}]")
+            f"{ms:.4f} ms/launch ({bms / ms:.1%} of the bound), on an "
+            f"all-zero pack {zero_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bms:.4f} ms ({by}), set bits {ones} [{card}]")
     return worst, shapes
 
 
@@ -458,17 +573,22 @@ def full_reduce_checks(bd, pack, R, F, card, route="", natural=None):
                 f"bit_reduce_matmul on the natural pack")
         del out
         ms = cuda_ms(lambda: kernel(P, g, R, d8), reps=20)
+        zero = torch.zeros_like(P)
+        zero_ms = cuda_ms(lambda: kernel(zero, g, R, d8), reps=20)
+        del zero
         plain_ms = cuda_ms(lambda: plain(P, g, R, d8), reps=2)
         ones = set_bits(P)
         bms, by = bound_ms(P.numel() + R * s_pad * F * 4 + 8 * d8 * F * 4,
                            ones, F)
         shapes.append(dict(gradient_for=grad_for, P=list(P.shape),
                            g=[R, s_pad, F], F=F, set_bits=ones, ms=ms,
-                           plain_ms=plain_ms, bound_ms=bms, bound_by=by))
+                           zero_pack_ms=zero_ms, plain_ms=plain_ms,
+                           bound_ms=bms, bound_by=by, bound_share=bms / ms))
         log(f"  {name} gradient for {grad_for} P={tuple(P.shape)} "
-            f"g=({R}, {s_pad}, {F}) view: kernel {ms:.4f} ms/launch, plain "
-            f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), set bits {ones} "
-            f"[{card}]")
+            f"g=({R}, {s_pad}, {F}) view: kernel {ms:.4f} ms/launch "
+            f"({bms / ms:.1%} of the bound), on an all-zero pack "
+            f"{zero_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms "
+            f"({by}), set bits {ones} [{card}]")
     return worst, shapes
 
 
@@ -1868,6 +1988,8 @@ def main():
     log("== 3. kernel check (small cases)")
     worst = small_kernel_checks(bd)
     worst.update(small_kernel16_checks(bd))
+    for name, err in small_design_checks(bd).items():
+        worst[name] = max(worst[name], err)
     worst.update(small_ell_checks(ek))
 
     log("== 4. set-up: ML-10M graph, iterator, trainer, bit packs")

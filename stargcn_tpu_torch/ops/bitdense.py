@@ -173,16 +173,78 @@ def _check_ril(name: str, d8: int, bm: int):
                          f"divide d8={d8}")
 
 
-def _launch(name, lib, P, v, out, *args):
-    """Launch ``ops/csrc/<lib>.cu`` on P's stream: ``fn(P, v, v_is_bf16,
-    out, *args, stream)``; raise on a launch error, count the launch."""
+# The walk's geometry (ops/csrc/bit_walk.cuh): bytes of a packed row per
+# stage, columns per register round, warps per block, and the size up to
+# which a reduce's whole bf16 table is taken to stay in the 50 MB L2.
+_STAGE = 512
+_ROUND = 128
+_WARPS = 8
+_L2_TABLE = 24 << 20
+
+
+def walk_plan(s_pad: int, f: int, num_links: int = 1,
+              reduce: bool = False) -> dict:
+    """The launch plan of the bit kernels, from the shape alone.
+
+    ``fp``: the bf16 table's padded width (a multiple of 8, so its rows are
+    16-byte aligned); ``k`` register rounds of 128 columns per column tile
+    (at most 256 columns) and ``tiles`` column tiles, each walking the pack
+    once; ``stages``: 512-byte stages per packed row; ``levels``: packed
+    rows (rating levels) one unit walks: all R on the reduce when its whole
+    table fits ``_L2_TABLE``, else 1; ``chain``: the units of one output
+    row add into it in rating order; ``np``: warps per unit, 8 (the block)
+    for units of 64 stages or more or chained ones, else 1."""
+    fp = _round_up(max(f, 1), 8)
+    k = 1 if fp <= _ROUND else 2
+    stages = -(-s_pad // _STAGE)
+    whole = reduce and num_links * s_pad * fp * 2 <= _L2_TABLE
+    levels = num_links if whole else 1
+    chain = reduce and levels < num_links
+    np_ = _WARPS if chain or levels * stages >= 64 else 1
+    return dict(fp=fp, k=k, tiles=-(-fp // (k * _ROUND)), stages=stages,
+                levels=levels, chain=chain, np=np_)
+
+
+def bf16_table(v: torch.Tensor) -> torch.Tensor:
+    """Plain version of the table the bit kernels gather from (built on the
+    card by ``bit_walk.cuh:table_kernel``): ``v`` (``(..., F)``, any row
+    strides) rounded to bf16 (nearest even, as the TPU kernels round) into
+    a contiguous table of ``walk_plan``'s ``fp`` columns, zero past F (for
+    the reduce's g, level-major: ``(R, S_pad, fp)``)."""
+    f = v.shape[-1]
+    fp = _round_up(max(f, 1), 8)
+    tab = torch.empty(tuple(v.shape[:-1]) + (fp,), dtype=torch.bfloat16,
+                      device=v.device)
+    tab[..., f:] = 0
+    tab[..., :f] = v
+    return tab
+
+
+def _launch(name, lib, P, v, out, num_links, d8, ril):
+    """Launch ``ops/csrc/<lib>.cu`` on P's stream with ``walk_plan``'s
+    geometry: it rounds ``v`` into a bf16 table (scratch allocated here),
+    then walks the pack.  Raise on a launch error, count the launch."""
     from stargcn_tpu_torch.ops import _build
 
     fn = _build.load(lib)
+    reduce = lib == "bit_reduce"
+    s_pad, f = P.shape[1], out.shape[-1]
+    plan = walk_plan(s_pad, f, num_links, reduce)
+    if num_links * s_pad >= 2**32:
+        raise ValueError(f"{name}: num_links * S_pad exceeds uint32")
+    tab = torch.empty(((num_links if reduce else 1) * s_pad, plan["fp"]),
+                      dtype=torch.bfloat16, device=P.device)
+    sync = torch.empty(plan["tiles"] * (1 + d8), dtype=torch.int32,
+                       device=P.device)
+    operand = (v.data_ptr(), int(v.dtype == torch.bfloat16))
+    if reduce:
+        operand += (v.stride(0), v.stride(1))
+    head = (num_links, plan["levels"]) if reduce else (num_links * d8,)
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream(P.device).cuda_stream
-        err = fn(P.data_ptr(), v.data_ptr(), int(v.dtype == torch.bfloat16),
-                 out.data_ptr(), *args, stream)
+        err = fn(P.data_ptr(), *operand, tab.data_ptr(), out.data_ptr(),
+                 sync.data_ptr(), *head, s_pad, f, plan["fp"], plan["k"],
+                 plan["np"], plan["tiles"], d8, ril, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
@@ -226,7 +288,7 @@ def _expand(name, P, x, num_links, d8, ril):
                       device=P.device)
     if out.numel() == 0:
         return out
-    return _launch(name, "bit_expand", P, x, out, m8, s_pad, f, d8, ril)
+    return _launch(name, "bit_expand", P, x, out, num_links, d8, ril)
 
 
 def _reduce(name, P, g, num_links, d8, ril):
@@ -245,8 +307,7 @@ def _reduce(name, P, g, num_links, d8, ril):
     out = torch.empty((8, d8, f), dtype=torch.float32, device=P.device)
     if out.numel() == 0:
         return out
-    return _launch(name, "bit_reduce", P, g, out, num_links, s_pad, f,
-                   d8, g.stride(0), g.stride(1), ril)
+    return _launch(name, "bit_reduce", P, g, out, num_links, d8, ril)
 
 
 def bit_expand_matmul(P: torch.Tensor, x: torch.Tensor, num_links: int,
@@ -257,10 +318,11 @@ def bit_expand_matmul(P: torch.Tensor, x: torch.Tensor, num_links: int,
       P: ``(num_links * d8, S_pad)`` uint8, contiguous.
       x: ``(S_pad, F)`` float32 or bfloat16, contiguous.
 
-    Returns ``(num_links, 8, d8, F)`` float32.  On the card this launches
-    ``ops/csrc/bit_expand.cu``, which rounds x to bf16 and sums in f32, as
-    the TPU kernel does.  On the CPU it is ``xla_expand_matmul`` in x's
-    own precision, as the JAX package's CPU path is.
+    Returns ``(num_links, 8, d8, F)`` float32.  On the card
+    ``ops/csrc/bit_expand.cu`` rounds x to bf16 once (into the table of
+    ``bf16_table``) and sums in f32, as the TPU kernel does.  On the CPU it
+    is ``xla_expand_matmul`` in x's own precision, as the JAX package's CPU
+    path is.
     """
     if P.device.type == "cpu" and x.device.type == "cpu":
         return xla_expand_matmul(P, x, num_links, d8)
@@ -325,12 +387,13 @@ def bit_reduce_matmul(P: torch.Tensor, g: torch.Tensor, num_links: int,
       g: ``(num_links, S_pad, F)`` float32 or bfloat16, rating-major as in
         the JAX package.  Its last dimension must be contiguous; the two
         row strides are free, so a ``permute(1, 0, 2)`` view of an
-        ``(S_pad, num_links, F)`` cotangent is read in place.
+        ``(S_pad, num_links, F)`` cotangent is taken as it comes.
 
-    Returns ``(8, d8, F)`` float32.  On the card this launches
-    ``ops/csrc/bit_reduce.cu``, which rounds g to bf16 and sums in f32, as
-    the TPU kernel does.  On the CPU it is ``xla_reduce_matmul`` in g's own
-    precision, as the JAX package's CPU path is.
+    Returns ``(8, d8, F)`` float32.  On the card ``ops/csrc/bit_reduce.cu``
+    rounds g to bf16 once (into the level-major table of ``bf16_table``)
+    and sums in f32, as the TPU kernel does.  On the CPU it
+    is ``xla_reduce_matmul`` in g's own precision, as the JAX package's CPU
+    path is.
     """
     if P.device.type == "cpu" and g.device.type == "cpu":
         return xla_reduce_matmul(P, g, num_links, d8)

@@ -8,160 +8,89 @@
 // P is (R*d8, S_pad) uint8, the transpose layout of the forward's pack;
 // phys is the identity for a natural pack (ril = 0) and the row map of
 // bit_walk.cuh:physical_row for a pack built with row_interleave = ril
-// (ril = 128 for KERNEL.BIT_IMPL: pallas16).  g is (R, S_pad, F), f32 or
-// bf16, addressed through its two row strides (the inner dimension is
-// contiguous), so the (S_pad, R, F) cotangent that autograd hands over is
-// read in place as a permuted view; it is rounded to bf16 and summed in
-// f32.  out is (8, d8, F) f32 in natural order.
+// (ril = 128 for KERNEL.BIT_IMPL: pallas16).  The wrapper
+// (ops/bitdense.py:_reduce) hands over g, which autograd gives as a
+// permuted (S_pad, R, F) view; the launch rounds it to bf16 (nearest
+// even) into a level-major table (R, S_pad, fp) with fp a multiple of 8;
+// sums are f32.  out is (8, d8, F)
+// f32 in natural order.
 //
 // Replaces: stargcn_tpu/ops/bitdense.py:_k2_kernel (bit_reduce_matmul) and,
 // with ril = 128, _k2_kernel16 (bit_reduce_matmul16).  Those kernels fold
 // the rating axis into a sequential grid dimension and carry one
-// accumulator across its steps; blocks on this card run in no order, so
-// here the owner of an output row loops over the R packed rows
-// r*d8 + phys(m) itself.  _k2_kernel16 reads two packed rows per u16 lane,
-// a device of the TPU's vector unit (it pairs adjacent sublanes) with no
-// counterpart here: this kernel reads the interleaved pack as bytes, and
-// the owner of natural row m reads the physical rows the interleave put m
-// in.  Unlike the reference (bitdense.py:424 halves its row block for
-// F > 512 while the pack stays interleaved at 128, which scrambles the
-// output rows), the map here depends on ril alone, so the output is in
-// natural order at every F.
+// accumulator across its steps.  Blocks on this card run in no order, so
+// here a unit folds the R packed rows of output row m itself where g's
+// table fits L2, and otherwise the R rows are R units, handed out
+// rating-major, whose sums are added into out[:, m] in the order
+// r = 0..R-1 (a turn flag per m orders the adds).  _k2_kernel16 reads two
+// packed rows per u16 lane, a device of the TPU's vector unit with no
+// counterpart here: the walk reads the interleaved pack as bytes, row
+// phys(m) for position m.  Unlike the reference (bitdense.py:424 halves its
+// row block for F > 512 while the pack stays interleaved at 128, which
+// scrambles the output rows), the map depends on ril alone, so the output
+// is in natural order at every F.
 //
 // Bound on the H100: P, g and out moved once.  At ML-10M width (R=10, F=65)
 // the gradient for the items reads P (14080 x 70656, 0.995 GB) and g
-// (10 x 70656 x 65 f32, 184 MB) and writes 3 MB, about 0.35 ms at
-// 3.35 TB/s; the gradient for the users reads 0.995 GB + 29 MB and writes
-// 18 MB, about 0.31 ms.  The arithmetic the data needs is one F-wide add
-// per set bit (about 1e7 per pack), far below the memory time.
+// (10 x 70656 x 65 f32, 184 MB) and writes 3 MB, 0.3527 ms at 3.35 TB/s;
+// the gradient for the users reads 0.995 GB + 29 MB and writes 18 MB,
+// 0.3112 ms.  The arithmetic the data needs is one F-wide add per set bit
+// (about 1e7 per pack), far below the memory time.
 //
-// The 16-bit route has the same bound: its row map moves no byte.
-//
-// Design: a block of 16 warps owns 16/splits output rows m with all eight
-// bit planes and every column of one feature tile.  The `splits` warps of a
-// row share the R * ceil(S_pad/512) steps of its R packed rows, interleaved,
-// and add their partial sums in a fixed order through shared memory: nothing
-// crosses blocks, no atomics, the same result on every run.  The item
-// gradient has only 1408 output rows, each folding ten packed rows of 70656
-// bytes in which the popular items' set bits sit, so it takes 16 warps per
-// row; the user gradient (8832 rows of ten short packed rows) takes fewer
-// (bit_walk.cuh:pick_splits).  The walk of a step is bit_walk.cuh:walk_step,
-// shared with bit_expand.cu.  Offsets into P and g are computed in size_t
-// (they pass 2^31 at this size).  Columns past F (F=65 is odd, so g rows are
-// not 16-byte aligned and are read per lane) are masked; a grid dimension
-// tiles F above 256.
+// Design (the walk is bit_walk.cuh, shared with bit_expand.cu, whose note
+// gives points 1, 2 and 4):
+// 1. Each warp keeps 4 stages of the pack in flight and 8 row gathers.
+// 2. g is rounded to bf16 once a launch (bit_walk.cuh:table_kernel, which
+//    reads the cotangent in its own (S_pad, R) order) into a level-major
+//    table of 16-byte aligned rows; its time is part of the launch's.
+// 3. The table that does not fit: the item gradient's is 10 levels of
+//    70656 x 72 bf16, 102 MB, twice the L2.  Its units take one level each
+//    and are handed out rating-major (every m of level 0, then level 1,
+//    ...), so the blocks at work gather from one or two levels' slices
+//    (10 MB each, contiguous), which stay in L2 beside the evict-first
+//    stream.  The user gradient's table (16 MB) fits, so a unit walks all
+//    ten rows of its m and writes once.
+// 4. Units of 64 stages or more are a block's (8 warps, stages in turn).
+// The adds into out follow r = 0..R-1 and each unit's own sum has a fixed
+// order, so two launches give the same bits; no atomic adds a value.  F
+// above 256 is cut into column tiles (grid.y), each walking the pack again.
 
 #include "bit_walk.cuh"
-
-namespace {
-
-using bitwalk::kColTile;
-using bitwalk::kMaxK;
-
-constexpr int kWarps = 16;         // warps per block
-
-// kSplit: whether splits > 1 (see bit_expand.cu).
-template <typename T, int K, bool kSplit>
-__global__ void __launch_bounds__(kWarps * 32)
-bit_reduce_kernel(const uint8_t* __restrict__ P, const T* __restrict__ g,
-                  float* __restrict__ out, int num_links, int s_pad, int f,
-                  int d8, long long g_stride_r, long long g_stride_s,
-                  int ril, int splits) {
-  __shared__ float red[kSplit ? kWarps : 1][kMaxK][32];
-  if (!kSplit) splits = 1;  // a constant for the compiler
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int part = warp % splits;
-  const int m = blockIdx.x * (kWarps / splits) + warp / splits;
-  const bool live = m < d8;  // no early return: the block syncs below
-  const int col0 = blockIdx.y * kColTile + lane;
-
-  float acc[8][K];
-#pragma unroll
-  for (int b = 0; b < 8; ++b)
-#pragma unroll
-    for (int k = 0; k < K; ++k) acc[b][k] = 0.f;
-
-  const int q = bitwalk::physical_row(live ? m : 0, ril);
-  const int n16 = s_pad >> 4;
-  const int steps_per_row = (n16 + 31) >> 5;
-  const int steps = live ? num_links * steps_per_row : 0;
-  for (int t = part; t < steps; t += splits) {
-    const int r = t / steps_per_row;
-    const int base = (t - r * steps_per_row) << 5;
-    const uint4* prow = reinterpret_cast<const uint4*>(
-        P + (static_cast<size_t>(r) * d8 + q) * s_pad);
-    bitwalk::walk_step<T, K>(prow, n16, base, lane,
-                             g + static_cast<size_t>(r) * g_stride_r,
-                             static_cast<size_t>(g_stride_s), col0, f, acc);
-  }
-
-  bitwalk::reduce_store<K, kSplit, kWarps>(
-      acc, red, warp, part, splits, lane, live, col0, f,
-      out + static_cast<size_t>(live ? m : 0) * f,
-      static_cast<size_t>(d8) * f);
-}
-
-template <typename T>
-void launch(const uint8_t* P, const T* g, float* out, int num_links,
-            int s_pad, int f, int d8, long long g_stride_r,
-            long long g_stride_s, int ril, cudaStream_t stream) {
-  const long long steps =
-      static_cast<long long>(num_links) * (((s_pad >> 4) + 31) >> 5);
-  const int splits = bitwalk::pick_splits(d8, steps, kWarps);
-  const int rows_per_block = kWarps / splits;
-  const dim3 grid((d8 + rows_per_block - 1) / rows_per_block,
-                  (f + kColTile - 1) / kColTile);
-  const dim3 block(kWarps * 32);
-  int k = (f + 31) / 32;
-  if (k > kMaxK) k = kMaxK;
-  switch (k) {
-#define BIT_REDUCE_CASE(K)                                                \
-  case K:                                                                 \
-    if (splits > 1)                                                       \
-      bit_reduce_kernel<T, K, true><<<grid, block, 0, stream>>>(          \
-          P, g, out, num_links, s_pad, f, d8, g_stride_r, g_stride_s,     \
-          ril, splits);                                                   \
-    else                                                                  \
-      bit_reduce_kernel<T, K, false><<<grid, block, 0, stream>>>(         \
-          P, g, out, num_links, s_pad, f, d8, g_stride_r, g_stride_s, ril, \
-          1);                                                             \
-    break;
-    BIT_REDUCE_CASE(1)
-    BIT_REDUCE_CASE(2)
-    BIT_REDUCE_CASE(3)
-    BIT_REDUCE_CASE(4)
-    BIT_REDUCE_CASE(5)
-    BIT_REDUCE_CASE(6)
-    BIT_REDUCE_CASE(7)
-    BIT_REDUCE_CASE(8)
-#undef BIT_REDUCE_CASE
-  }
-}
-
-}  // namespace
 
 // Plain C entry point (loaded with ctypes).  The caller has checked that P
 // rows are 16-byte aligned (s_pad % 16 == 0, P 16-byte aligned), that
 // num_links, d8 and f are positive, that g is f32 (g_is_bf16 = 0) or bf16
-// (1) with a contiguous inner dimension, and that ril is 0 or an even
-// number that divides d8; it gives g's strides over r and s in elements.
-// Returns cudaGetLastError() after the launch.
+// (1) with a contiguous inner dimension and row strides g_stride_r,
+// g_stride_s (elements), that tab holds num_links * s_pad * fp bf16 with fp
+// a multiple of 8, that levels (1 or num_links), k, np and tiles are the
+// plan of ops/bitdense.py:walk_plan, that sync holds tiles * (1 + d8)
+// ints, and that ril is 0 or an even number that divides d8.  Rounds g into
+// tab, then walks.  Returns the first CUDA error, or 0.
 extern "C" int bit_reduce_matmul_launch(const void* P, const void* g,
-                                        int g_is_bf16, void* out,
-                                        int num_links, int s_pad, int f,
-                                        int d8, long long g_stride_r,
-                                        long long g_stride_s, int ril,
-                                        void* stream) {
-  const uint8_t* p = static_cast<const uint8_t*>(P);
-  float* o = static_cast<float*>(out);
+                                        int g_is_bf16, long long g_stride_r,
+                                        long long g_stride_s, void* tab,
+                                        void* out, void* sync, int num_links,
+                                        int levels, int s_pad, int f, int fp,
+                                        int k, int np, int tiles, int d8,
+                                        int ril, void* stream) {
+  bitwalk::Walk w{};
+  w.P = static_cast<const uint8_t*>(P);
+  w.tab = static_cast<const __nv_bfloat16*>(tab);
+  w.out = static_cast<float*>(out);
+  w.sync = static_cast<int*>(sync);
+  w.units = num_links / levels * d8;
+  w.levels = levels;
+  w.s_pad = s_pad;
+  w.f = f;
+  w.fp = fp;
+  w.d8 = d8;
+  w.ril = ril;
+  w.row_step = 1;  // the table is (R, S_pad, fp): one level is contiguous
+  w.level_step = s_pad;
+  w.out_level = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (g_is_bf16) {
-    launch(p, static_cast<const __nv_bfloat16*>(g), o, num_links, s_pad, f,
-           d8, g_stride_r, g_stride_s, ril, st);
-  } else {
-    launch(p, static_cast<const float*>(g), o, num_links, s_pad, f, d8,
-           g_stride_r, g_stride_s, ril, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int e = bitwalk::make_table(g, g_is_bf16, g_stride_r, g_stride_s, w,
+                                    num_links, st);
+  if (e != 0) return e;
+  return bitwalk::run(w, k, np, tiles, levels < num_links, st);
 }
