@@ -72,8 +72,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    library call (``F.embedding_bag`` and its backward);
 10. probes: ``probe_bitcast`` and ``probe_int8_mma`` through their entry
    points (``run``), each with launch counts of its own, then each kernel
-   against its plain version (equal), with times beside the bound and a
-   library call as a yardstick.
+   against its plain version with ``torch.equal`` and two launches giving
+   the same bits, on edge cases (row pairs: odd S, S % 8 != 0, an odd
+   storage offset; grouped products: M = 64, a short last chunk, K of one
+   64-byte step, N = 512, an int8 B^T with K != N), then times: kernel and
+   library calls alike back to back by ``cuda_ms`` with operands and
+   outputs allocated first (bf16 beside ``torch.einsum``, which sums A over
+   the groups before its one product, and beside a call that does every
+   product), the profiler's device time, the int8 : bf16 ratio, and
+   ``row_pair_u16``'s host cost part by part.
 
 Phase 3 also checks the three ELL kernels on small cases (K = 1, 8, 32;
 F = 1, 65, 250, 256; padded slots with in-range and out-of-range indices;
@@ -1823,10 +1830,137 @@ def run_serving_slice(bd, trainer, card):
 # --------------------------------- probes ---------------------------------
 
 
+def mma_library_calls(a, b, groups):
+    """The PyTorch calls timed beside ``probe_mma`` on ``a`` (groups * M,
+    K) and ``b`` (K, N): ``{"library" | "every product": (call, what)}``.
+    bf16: ``torch.einsum`` (it sums A over the groups first, in bf16, then
+    runs one bmm: 1/G of the products; its result is bf16) and a call that
+    does every product, ``torch.mm(..., out_dtype=float32)`` where the
+    installed torch takes it on this device, else ``torch.matmul`` in bf16
+    (each product block rounded to bf16), then the sum over groups.  int8:
+    ``torch._int_mm`` (every product, int32) and the sum over groups, as
+    both."""
+    import torch
+
+    m, n = a.shape[0] // groups, b.shape[1]
+    if a.dtype == torch.int8:
+        b_cols = b.t().contiguous().t()     # the layout cuBLASLt takes
+        call = (lambda: torch._int_mm(a, b_cols).view(groups, m, n).sum(
+            0, dtype=torch.int32), "torch._int_mm + sum over groups")
+        return {"library": call, "every product": call}
+    a3 = a.view(groups, m, -1)
+    calls = {"library": (lambda: torch.einsum("gmk,kn->mn", a3, b),
+                         'torch.einsum("gmk,kn->mn") (sums A over the '
+                         'groups first, then one bmm)')}
+    try:
+        torch.mm(a[:16], b, out_dtype=torch.float32)
+        calls["every product"] = (
+            lambda: torch.mm(a, b, out_dtype=torch.float32).view(
+                groups, m, n).sum(0),
+            "torch.mm(out_dtype=float32) + sum over groups")
+    except (RuntimeError, TypeError):
+        calls["every product"] = (
+            lambda: torch.matmul(a, b).view(groups, m, n).sum(
+                0, dtype=torch.float32),
+            "torch.matmul in bf16 (rounds each product block) + sum over "
+            "groups in float32")
+    return calls
+
+
+def device_ms_per_call(fn, calls=20, tries=3):
+    """The profiler's device time of one call of ``fn``, whose kernels each
+    launch once a call: ``calls`` calls in one session, each kernel's time
+    over the records the trace holds of it (late in a long process a trace
+    can hold fewer records than launches), summed over the kernels; a new
+    session where a trace shows no device time, None after ``tries``."""
+    for _ in range(tries):
+        total, kernels = device_busy_ms(
+            lambda: [fn() for _ in range(calls)], top=16)
+        if total is not None:
+            return sum(ms / count for _, ms, count in kernels if count)
+    return None
+
+
+def bitcast_launch_costs(pb, v, n=10_000):
+    """Host microseconds a call of each part of ``row_pair_u16``'s launch
+    path, of the path it replaced and of the transposing copy, each over
+    ``n`` calls back to back with the card synchronised after them."""
+    import torch
+
+    from stargcn_tpu_torch.ops import _build
+
+    dev = v.device
+    fn = _build.load("probe_bitcast")
+    out = pb.row_pair_u16(v)
+    half, cols = out.shape
+    vp, op = v.data_ptr(), out.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def import_build():
+        from stargcn_tpu_torch.ops import _build as build  # noqa: F401
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    def replaced_path():
+        # The replaced wrapper without its checks: the import and the
+        # locked load on every call, the device context and a Stream
+        # object.
+        from stargcn_tpu_torch.ops import _build as build
+        o = torch.empty((half, cols), dtype=torch.uint16, device=dev)
+        f = build.load("probe_bitcast")
+        with torch.cuda.device(dev):
+            s = torch.cuda.current_stream(dev).cuda_stream
+            f(v.data_ptr(), o.data_ptr(), half, cols, s)
+
+    parts = {
+        "an empty Python call": lambda: None,
+        "the checks (check_input)": lambda: pb.check_input(v),
+        "from ... import _build": import_build,
+        "_build.load (lock, dict)": lambda: _build.load("probe_bitcast"),
+        "torch.cuda.device(dev) context": device_context,
+        "_build.call_on an empty call (device current)":
+            lambda: _build.call_on(dev, lambda: None),
+        "torch.cuda.current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "_build.raw_stream(dev)": lambda: _build.raw_stream(dev),
+        "torch.empty of the output": lambda: torch.empty(
+            (half, cols), dtype=torch.uint16, device=dev),
+        "two data_ptr()": lambda: (v.data_ptr(), out.data_ptr()),
+        "the ctypes call (the launch)": lambda: fn(vp, op, half, cols,
+                                                   stream),
+        "the replaced path, checks left out": replaced_path,
+        "row_pair_u16": lambda: pb.row_pair_u16(v),
+        "the transposing copy": lambda: v.view(half, 2, cols).transpose(
+            1, 2).contiguous(),
+    }
+    costs = {}
+    for name, f in parts.items():
+        for _ in range(100):
+            f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            f()
+        torch.cuda.synchronize()
+        costs[name] = (time.perf_counter() - t0) / n * 1e6
+    return costs
+
+
+def _ms_or_not(ms):
+    return "not measured (no device time in the trace)" if ms is None \
+        else f"{ms:.5f} ms"
+
+
 def run_probes(card):
     """Phase 10.  Each probe's entry point with counts of its own, then its
-    kernel against its plain version.  Returns ``(launches by probe, worst
-    errors, shapes by kernel)``."""
+    kernel against its plain version on edge cases (each launched twice,
+    the same bits), then times: kernel and library calls alike back to back
+    by ``cuda_ms`` with operands and outputs allocated first, the
+    profiler's device time, and the bitcast wrapper's host costs part by
+    part.  Returns ``(launches by probe, worst errors, shapes by
+    kernel)``."""
     import numpy as np
     import torch
 
@@ -1846,16 +1980,25 @@ def run_probes(card):
           "adjacent columns")
     rng = np.random.RandomState(SEED + 8)
     worst = {"probe_bitcast": 0.0, "probe_mma": 0.0}
-    for shape in ((32, 256), (2, 1), (4096, 1000)):
-        vv = torch.from_numpy(rng.randint(0, 256, shape).astype(
-            np.uint8)).to(DEVICE)
+    # (shape, storage offset): eight outputs a thread where S % 8 == 0 and
+    # v is 8-byte aligned, one a thread otherwise (odd S, S % 8 != 0, an
+    # odd offset).
+    for shape, offset in (((32, 256), 0), ((2, 1), 0), ((4096, 1000), 0),
+                          ((6, 13), 0), ((4, 12), 0), ((32, 256), 1)):
+        flat = torch.from_numpy(rng.randint(
+            0, 256, shape[0] * shape[1] + offset).astype(np.uint8)).to(DEVICE)
+        vv = flat[offset:].view(shape)
         got = pb.row_pair_u16(vv).view(torch.int16)
+        again = pb.row_pair_u16(vv).view(torch.int16)
         want = pb.plain_row_pair_u16(vv).view(torch.int16)
         worst["probe_bitcast"] = max(worst["probe_bitcast"], float(
             ((got.int() & 0xFFFF) - (want.int() & 0xFFFF)).abs().max()))
-        check(torch.equal(got, want), f"probe_bitcast disagrees at {shape}")
-    log("  row_pair_u16 equal to its plain version at (32, 256), (2, 1) and "
-        "(4096, 1000)")
+        check(torch.equal(got, want) and torch.equal(got, again),
+              f"probe_bitcast disagrees (or does not repeat) at {shape}, "
+              f"offset {offset}")
+    log("  row_pair_u16 equal to its plain version and repeated bit for bit "
+        "at (32, 256), (2, 1), (4096, 1000), (6, 13), (4, 12) and (32, 256) "
+        "at storage offset 1")
     vt = torch.from_numpy(v).to(DEVICE)
     library = lambda: vt.view(pb.M // 2, 2, pb.S).transpose(  # noqa: E731
         1, 2).contiguous().view(torch.int16)
@@ -1863,16 +2006,23 @@ def run_probes(card):
                       pb.row_pair_u16(vt).view(torch.int16)),
           "the library yardstick computes another function")
     nbytes = 2 * v.size
+    costs = bitcast_launch_costs(pb, vt)
     bshape = dict(v=list(v.shape), ms=cuda_ms(lambda: pb.row_pair_u16(vt),
-                                              reps=200),
+                                              reps=2000),
                   plain_ms=cuda_ms(lambda: pb.plain_row_pair_u16(vt),
                                    reps=200),
-                  library_ms=cuda_ms(library, reps=200),
-                  bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
-    log(f"  probe_bitcast (32, 256): kernel {bshape['ms']:.4f} ms/launch, "
-        f"plain {bshape['plain_ms']:.4f} ms, library (a transposing copy) "
-        f"{bshape['library_ms']:.4f} ms, bound {bshape['bound_ms']:.2e} ms "
-        f"(bytes): launch-bound [{card}]")
+                  library_ms=cuda_ms(library, reps=2000),
+                  device_ms=device_ms_per_call(
+                      lambda: pb.row_pair_u16(vt)),
+                  bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                  host_us_by_part=costs)
+    log(f"  probe_bitcast (32, 256): kernel {bshape['ms']:.4f} ms a call "
+        f"back to back, plain {bshape['plain_ms']:.4f} ms, library (a "
+        f"transposing copy) {bshape['library_ms']:.4f} ms, the kernel's "
+        f"device time {_ms_or_not(bshape['device_ms'])} (profiler), bound "
+        f"{bshape['bound_ms']:.2e} ms (bytes): launch-bound [{card}]")
+    for name, us in costs.items():
+        log(f"    host cost, {name}: {us:.2f} us a call [{card}]")
 
     # ---- probe_int8_mma ----
     zero_launches(pb, pm)
@@ -1885,52 +2035,65 @@ def run_probes(card):
     shapes = []
     for dtype in (torch.bfloat16, torch.int8):
         name = str(dtype).split(".")[-1]
+        esize = 2 if dtype == torch.bfloat16 else 1
+        # (G, M, K, N): M = 64 leaves one consumer warpgroup idle; N = 512
+        # takes two N-tiles; 67 groups make 34 chunks of 2, the last
+        # holding one; K of one 64-byte step (zeros read past it) with a
+        # last M-tile of 64 rows; K = 384 ends off a 256-byte stage and
+        # (int8) transposes a B whose K differs from N; then the probe's
+        # shape, whose operands are timed below.
         for groups, m, k, n in ((3, 64, 256, 256), (7, 128, 1024, 512),
+                                (67, 256, 128, 256), (5, 192, 64 // esize,
+                                                      256),
+                                (2, 128, 384, 256),
                                 (pm.G, pm.M, pm.K, pm.N)):
             a = torch.from_numpy(rng.randint(-2, 3, (groups * m, k))).to(
                 DEVICE, dtype)
             b = torch.from_numpy(rng.randint(-2, 3, (k, n))).to(DEVICE,
                                                                 dtype)
             got = pm.grouped_matmul(a, b, groups)
+            again = pm.grouped_matmul(a, b, groups)
             want = pm.plain_grouped_matmul(a, b, groups)
             err = float((got.double() - want.double()).abs().max())
             worst["probe_mma"] = max(worst["probe_mma"], err)
             log(f"  grouped_matmul {name} G={groups} M={m} K={k} N={n}, "
-                f"integers in [-2, 2]: max_abs_err={err} (exact expected)")
+                f"integers in [-2, 2]: max_abs_err={err} (exact expected), "
+                f"{pm.launch_plan(groups, m, k, n, dtype)}")
             check(torch.equal(got, want), f"probe_mma {name} disagrees at "
                                           f"G={groups} M={m} K={k} N={n}")
+            check(torch.equal(got, again), f"probe_mma {name} does not "
+                  f"repeat bit for bit at G={groups} M={m} K={k} N={n}")
+        out, ws = pm.buffers(a, b, pm.G)
+        kernel = lambda: pm.grouped_matmul(  # noqa: E731
+            a, b, pm.G, out=out, workspace=ws)
+        ms = cuda_ms(kernel, reps=20)
+        device_ms = device_ms_per_call(kernel)
         plain_ms = cuda_ms(lambda: pm.plain_grouped_matmul(a, b, pm.G),
                            reps=2)
-        if dtype == torch.bfloat16:
-            a3 = a.view(pm.G, pm.M, pm.K)
-            lib = lambda: torch.einsum("gmk,kn->mn", a3, b)  # noqa: E731
-            lib_name = 'torch.einsum("gmk,kn->mn")'
-        elif hasattr(torch, "_int_mm"):
-            b_cols = b.t().contiguous().t()     # the layout cuBLASLt takes
-            lib = lambda: torch._int_mm(a, b_cols).view(  # noqa: E731
-                pm.G, pm.M, pm.N).sum(0)
-            lib_name = "torch._int_mm + sum over groups"
-        else:
-            lib, lib_name = None, "none (no torch._int_mm)"
-        library_ms = None if lib is None else cuda_ms(lib, reps=10)
-        r = mma[name]
-        shapes.append(dict(dtype=name, A=[pm.G * pm.M, pm.K],
-                           B=[pm.K, pm.N], ms=r["median_ms"],
-                           top_s=r["top_s"], first_s=r["first_s"],
-                           plain_ms=plain_ms, library_ms=library_ms,
-                           library=lib_name, bound_ms=r["bound_ms"],
-                           bound_by=r["bound_by"],
-                           bound_share=r["bound_ms"] / r["median_ms"]))
-        log(f"  probe_mma {name}: kernel {r['median_ms']:.4f} ms "
-            f"({r['top_s']:.0f} TOP/s, {r['bound_ms'] / r['median_ms']:.1%} "
-            f"of the {r['bound_ms']:.4f} ms bound, {r['bound_by']}), plain "
-            f"(float64) {plain_ms:.3f} ms, library {lib_name} "
-            f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'} "
+        lib = {key: (cuda_ms(call, reps=20), what) for key, (call, what)
+               in mma_library_calls(a, b, pm.G).items()}
+        ops = 2 * pm.G * pm.M * pm.K * pm.N
+        bms, by = pm.bound_ms(pm.G, pm.M, pm.K, pm.N, dtype)
+        shapes.append(dict(
+            dtype=name, A=[pm.G * pm.M, pm.K], B=[pm.K, pm.N], ms=ms,
+            top_s=ops / ms / 1e9, device_ms=device_ms, run_ms=mma[name]["ms"],
+            first_s=mma[name]["first_s"], plain_ms=plain_ms,
+            library_ms=lib["library"][0], library=lib["library"][1],
+            every_product_ms=lib["every product"][0],
+            every_product=lib["every product"][1], bound_ms=bms,
+            bound_by=by, bound_share=bms / ms))
+        log(f"  probe_mma {name}: kernel {ms:.4f} ms a call back to back "
+            f"({ops / ms / 1e9:.0f} TOP/s, {bms / ms:.1%} of the {bms:.4f} "
+            f"ms bound, {by}), device {_ms_or_not(device_ms)} (profiler), "
+            f"plain (float64) {plain_ms:.3f} ms; library {lib['library'][1]} "
+            f"{lib['library'][0]:.4f} ms; every product "
+            f"{lib['every product'][1]} {lib['every product'][0]:.4f} ms "
             f"[{card}]")
-        del a, b
-    ratio = mma["bfloat16"]["median_ms"] / mma["int8"]["median_ms"]
-    log(f"  int8 runs {ratio:.2f}x as fast as bf16 on this card's mma.sync "
-        f"path (2x on paper) [{card}]")
+        del a, b, out, ws
+    ratio = shapes[0]["ms"] / shapes[1]["ms"]
+    log(f"  int8 runs {ratio:.2f}x as fast as bf16 through wgmma on this "
+        f"card (2x on paper; both are bound by reading A, int8's A is half "
+        f"the bytes) [{card}]")
     launches = {"probe_bitcast.run": bitcast_launches,
                 "probe_int8_mma.run": mma_launches}
     check(bitcast_launches == {"probe_bitcast": 1, "probe_mma": 0}

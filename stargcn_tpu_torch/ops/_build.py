@@ -20,6 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -38,8 +40,8 @@ SIGNATURES = {
     "ell_sddmm": ("ell_sddmm_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "ell_spmm_t": ("ell_spmm_t_launch", [_P, _P, _P, _P, _P, _I, _I, _P]),
     "probe_bitcast": ("probe_bitcast_launch", [_P, _P, _I, _I, _P]),
-    "probe_mma": ("probe_mma_launch",
-                  [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "probe_mma": ("probe_mma_launch", [_P, _P, _I, _P, _P, _P] + [_I] * 7
+                  + [_P]),
 }
 
 _lock = threading.Lock()
@@ -106,3 +108,31 @@ def load(name: str):
             fn.restype = ctypes.c_int
             _libs[name] = (lib, fn)
         return _libs[name][1]
+
+
+# The launch path of a wrapper whose kernel takes microseconds (the
+# probes): no Stream object and no device switch where none is needed.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_get_device = getattr(torch._C, "_cuda_getDevice", None)
+
+
+def raw_stream(device: torch.device) -> int:
+    """The handle of the current CUDA stream on ``device``, as an int; read
+    without building a ``torch.cuda.Stream`` where the installed torch
+    allows it."""
+    if _raw_stream is not None:
+        return _raw_stream(device.index if device.index is not None
+                           else torch.cuda.current_device())
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def call_on(device: torch.device, fn, *args):
+    """``fn(*args)`` with ``device`` the current CUDA device: called as it
+    is where it already is (or ``device`` names no index), inside
+    ``torch.cuda.device(device)`` otherwise."""
+    if device.index is None or device.index == (
+            _get_device() if _get_device is not None
+            else torch.cuda.current_device()):
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)

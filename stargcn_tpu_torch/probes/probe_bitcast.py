@@ -10,13 +10,13 @@ way, and ``pack_bits(row_interleave=bm)`` orders the rows for it.
 
 This probe fills the reference's block, ``v[m, s] = (8m + s // 32) % 251``,
 forms that row-pair view with ``row_pair_u16`` (the CUDA kernel
-``ops/csrc/probe_bitcast.cu`` for a tensor on the card, ``plain_row_pair_u16``
-for one on the CPU) and prints the reference's decode lines for it.  Then
-it prints the same lines for a plain u16 reading of the same bytes
-(``v.view(torch.int16)``): on this card that pairs two adjacent columns of
-one row, little-endian.  No row pairing exists here, which is why the
-Hopper kernels of the ``pallas16`` route honour the row order of its packs
-but never read them as u16.
+``ops/csrc/probe_bitcast.cu``, eight outputs a thread, for a tensor on the
+card; ``plain_row_pair_u16`` for one on the CPU) and prints the reference's
+decode lines for it.  Then it prints the same lines for a plain u16
+reading of the same bytes (``v.view(torch.int16)``): on this card that
+pairs two adjacent columns of one row, little-endian.  No row pairing
+exists here, which is why the Hopper kernels of the ``pallas16`` route
+honour the row order of its packs but never read them as u16.
 """
 
 from __future__ import annotations
@@ -26,12 +26,14 @@ import argparse
 import numpy as np
 import torch
 
+from stargcn_tpu_torch.ops import _build
 from stargcn_tpu_torch.utils.device import resolve_device
 
 M, S = 32, 256
 # Launches of the kernel wrapper on the card (the plain version is not
 # counted).
 LAUNCHES = {"probe_bitcast": 0}
+_KERNEL = None                     # the C function, held after its load
 
 
 def probe_input() -> np.ndarray:
@@ -41,13 +43,17 @@ def probe_input() -> np.ndarray:
     return v.astype(np.uint8)
 
 
-def row_pair_u16(v: torch.Tensor) -> torch.Tensor:
-    """``out[k, s] = v[2k, s] | v[2k + 1, s] << 8``: the ``(M/2, S)``
-    uint16 row-pair view of an ``(M, S)`` uint8 matrix, as the TPU's
-    bitcast forms it.  A CUDA tensor goes to ``ops/csrc/probe_bitcast.cu``,
-    a CPU tensor to ``plain_row_pair_u16``."""
-    if v.device.type == "cpu":
-        return plain_row_pair_u16(v)
+def _kernel():
+    global _KERNEL
+    if _KERNEL is None:
+        _KERNEL = _build.load("probe_bitcast")
+    return _KERNEL
+
+
+def check_input(v: torch.Tensor):
+    """``(M/2, S)`` for a ``v`` the kernel takes: a contiguous 2-D uint8
+    matrix with an even number of rows on a CUDA device; raises
+    otherwise."""
     if not v.is_cuda:
         raise ValueError(f"row_pair_u16: v must lie on the CPU or a CUDA "
                          f"device (got {v.device})")
@@ -59,17 +65,28 @@ def row_pair_u16(v: torch.Tensor) -> torch.Tensor:
         raise ValueError("row_pair_u16 takes a contiguous matrix")
     if v.numel() >= 2**31:
         raise ValueError("row_pair_u16: size exceeds int32")
-    out = torch.empty((v.shape[0] // 2, v.shape[1]), dtype=torch.uint16,
-                      device=v.device)
+    return v.shape[0] // 2, v.shape[1]
+
+
+def row_pair_u16(v: torch.Tensor) -> torch.Tensor:
+    """``out[k, s] = v[2k, s] | v[2k + 1, s] << 8``: the ``(M/2, S)``
+    uint16 row-pair view of an ``(M, S)`` uint8 matrix, as the TPU's
+    bitcast forms it.  A CUDA tensor goes to ``ops/csrc/probe_bitcast.cu``,
+    a CPU tensor to ``plain_row_pair_u16``.
+
+    The kernel takes microseconds, so the host path is kept short: the C
+    function is held after its first load, the device is switched only
+    where it is not the current one, and the stream is read as a raw
+    handle."""
+    if v.device.type == "cpu":
+        return plain_row_pair_u16(v)
+    half, cols = check_input(v)
+    out = torch.empty((half, cols), dtype=torch.uint16, device=v.device)
     if out.numel() == 0:
         return out
-    from stargcn_tpu_torch.ops import _build
-
-    fn = _build.load("probe_bitcast")
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        err = fn(v.data_ptr(), out.data_ptr(), out.shape[0], out.shape[1],
-                 stream)
+    err = _build.call_on(v.device, _KERNEL or _kernel(), v.data_ptr(),
+                         out.data_ptr(), half, cols,
+                         _build.raw_stream(v.device))
     if err != 0:
         raise RuntimeError(f"row_pair_u16: kernel launch failed with CUDA "
                            f"error {err}")
