@@ -60,16 +60,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    step through a twin on the plain versions (loss and every gradient
    compared); the step's time split into plan, pack, copy and device and
    the memory one step takes above what is held before it, beside the
-   ``xla`` backend's; ``fit`` for 10 steps with
+   ``xla`` backend's, and, in the ``pallas`` step's profiler trace, the
+   transpose's ``ell_t_*`` kernels and no sort, scan or search kernel of a
+   library; ``fit`` for 10 steps with
    one validation and one test evaluation, checkpoints,
    ``restore_checkpoint``, and the ``.pt`` loaded into the full-graph
    ``Trainer``;
-9. ELL kernel check, full size: each of the three kernels on one real plan
-   block per direction against its plain version, two launches giving the
-   same bits, the adjoint identity ``<spmm(v), g> = <v, spmm_t(g)>``, the
-   three results of ``ell_spmm`` forward + backward with a weight gradient
-   against plain autograd, and times per launch beside the bound and the
-   library call (``F.embedding_bag`` and its backward);
+9. ELL kernel check, full size: the transpose's ordering (``order_slots``)
+   equal to ``sort_slots`` on one real plan block per direction, with the
+   run lengths printed; each of the three kernels on those blocks against
+   its plain version, two launches giving the same bits, the adjoint
+   identity ``<spmm(v), g> = <v, spmm_t(g)>``, the three results of
+   ``ell_spmm`` forward + backward with a weight gradient against plain
+   autograd, and times per launch beside the bound and the library call
+   (``F.embedding_bag`` and its backward); the transpose's device time
+   split by kernel name into the ordering and the sum, and the ordering
+   alone at several switches between its two ways of ordering a run;
 10. probes: ``probe_bitcast`` and ``probe_int8_mma`` through their entry
    points (``run``), each with launch counts of its own, then each kernel
    against its plain version with ``torch.equal`` and two launches giving
@@ -85,7 +91,13 @@ Phases, in order; any failure exits non-zero and prints no result:
 Phase 3 also checks the three ELL kernels on small cases (K = 1, 8, 32;
 F = 1, 65, 250, 256; padded slots with in-range and out-of-range indices;
 rows that repeat a source; a single source row; matrices that start off a
-16-byte boundary).  Every time printed
+16-byte boundary), the transpose's ordering equal to ``sort_slots`` on
+each, and the ordering and the transpose on the cases that stress the
+ordering (a run of 100,000 slots; runs at the switch between its two ways
+of ordering a run and either side of it; 870,400 sources with 6 live
+slots; every slot dead; 1,120,000 slots), each ordering at the switch in
+use and at switches that send every run one way, and each transpose
+repeated bit for bit.  Every time printed
 carries the card's name and power limit.
 
 The line before the last is the card's name and power limit, the one
@@ -160,11 +172,10 @@ def host_s(fn):
     return out, time.perf_counter() - t0
 
 
-def device_busy_ms(fn, top=0):
-    """Device time of one call of ``fn`` (the kernels and copies of
-    ``torch.profiler``'s trace, summed), or None where the trace shows
-    none.  With ``top``, also the ``top`` largest entries by name:
-    ``(total, [(name, ms, calls), ...])``."""
+def device_events(fn):
+    """``[(name, ms, calls), ...]`` of the device-side entries (kernels,
+    copies, memsets) of ``torch.profiler``'s trace of one call of ``fn``,
+    largest first, names whole."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -176,15 +187,24 @@ def device_busy_ms(fn, top=0):
         torch.cuda.synchronize()
     # Device-side entries only: the host-side operator entries carry their
     # kernels' time a second time.
-    events = [e for e in prof.key_averages()
+    events = [(e.key, e.self_device_time_total / 1e3, e.count)
+              for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in events)
-    total = total_us / 1e3 if total_us > 0 else None
+    return sorted(events, key=lambda e: -e[1])
+
+
+def device_busy_ms(fn, top=0, events=None):
+    """Device time of one call of ``fn`` (the kernels and copies of
+    ``torch.profiler``'s trace, summed), or None where the trace shows
+    none.  With ``top``, also the ``top`` largest entries by name:
+    ``(total, [(name, ms, calls), ...])``.  ``events`` takes a trace
+    already made by ``device_events``."""
+    events = device_events(fn) if events is None else events
+    total_ms = sum(ms for _, ms, _ in events)
+    total = total_ms if total_ms > 0 else None
     if not top:
         return total
-    events.sort(key=lambda e: -e.self_device_time_total)
-    return total, [(e.key[:60], e.self_device_time_total / 1e3, e.count)
-                   for e in events[:top]]
+    return total, [(name[:60], ms, calls) for name, ms, calls in events[:top]]
 
 
 # ------------------------------ kernel check ------------------------------
@@ -1212,6 +1232,141 @@ def ell_errs(ek, values, idx, w, g):
     return out
 
 
+# The kernels of ops/csrc/ell_spmm_t.cu: the ordering, then the sum (the
+# output's memset and ell_t_sum).
+ORDER_KERNELS = ("ell_t_clear", "ell_t_count", "ell_t_scan_reduce",
+                 "ell_t_scan_apply", "ell_t_place", "ell_t_sort_short",
+                 "ell_t_sort_long")
+SUM_KERNEL = "ell_t_sum"
+
+
+def transpose_split(ek, g, idx, w, num_src, calls=10, tries=3):
+    """The profiler's device time of one ``ell_spmm_transpose`` call, split
+    by kernel name into the ordering (``ORDER_KERNELS``), the sum (the
+    memset and ``SUM_KERNEL``) and anything else (which should be nothing):
+    each entry's time over the records the trace holds of it, as
+    ``device_ms_per_call`` counts them.  None where no trace shows device
+    time."""
+    for _ in range(tries):
+        events = device_events(lambda: [
+            ek.ell_spmm_transpose(g, idx, w, num_src) for _ in range(calls)])
+        if not events:
+            continue
+        split = {"order": 0.0, "sum": 0.0, "other": 0.0, "other_names": []}
+        for name, ms, count in events:
+            part = ("sum" if SUM_KERNEL in name or "memset" in name.lower()
+                    else "order" if any(k in name for k in ORDER_KERNELS)
+                    else "other")
+            split[part] += ms / max(count, 1)
+            if part == "other":
+                split["other_names"].append(name)
+        return split
+    return None
+
+
+def order_check(ek, idx, w, num_src, what, short_run=None):
+    """``order_slots`` against ``sort_slots`` with ``torch.equal``:
+    ``seg_ptr`` whole, ``dst_sorted`` and ``w_sorted`` over the live slots
+    (the entries past ``seg_ptr[-1]`` are left unset by the kernels).
+    Returns the run lengths."""
+    import torch
+
+    kw = {} if short_run is None else {"short_run": short_run}
+    got = ek.order_slots(idx, w, num_src, **kw)
+    want = ek.sort_slots(idx, w, num_src)
+    torch.cuda.synchronize()
+    live = int(want[0][-1])
+    same = torch.equal(got[0], want[0]) and all(
+        torch.equal(a[:live], b[:live]) for a, b in zip(got[1:], want[1:]))
+    check(same, f"order_slots differs from sort_slots ({what}, short_run "
+                f"{kw.get('short_run', ek.SHORT_RUN)})")
+    return want[0][1:] - want[0][:-1]
+
+
+def transpose_check(ek, g, idx, w, num_src, what):
+    """The transpose against its plain version run in float64 (1e-5 of the
+    largest output: a run of 100,000 slots sums that many float32 terms,
+    and two float32 orders of it differ by more) and against a second
+    launch (the same bits).  Returns the error."""
+    import torch
+
+    got = ek.ell_spmm_transpose(g, idx, w, num_src)
+    again = ek.ell_spmm_transpose(g, idx, w, num_src)
+    want = ek.plain_ell_spmm_transpose(g.double(), idx, w.double(),
+                                       num_src).float()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    tol = 1e-5 * max(float(want.abs().max()) if want.numel() else 0.0, 1.0)
+    check(got.shape == want.shape and bool(torch.isfinite(got).all())
+          and err <= tol, f"ell_spmm_transpose disagrees ({what}): "
+                          f"{err:.3e} > {tol:.3e}")
+    check(torch.equal(got, again),
+          f"ell_spmm_transpose does not repeat bit for bit ({what})")
+    return err
+
+
+def small_order_checks(ek):
+    """The ordering on the card (``order_slots``) equal to ``sort_slots``,
+    at the switch between its two ways of ordering a run, at a switch that
+    sends every run of two or more slots to the block-wide way and one
+    that sends every run to the thread-wide way, and the transpose against
+    its plain version, on the cases that stress the ordering.  Returns the
+    transpose's worst error."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(SEED + 7)
+    S = ek.SHORT_RUN
+    dev = dict(device=DEVICE)
+    cases = []
+    # one source holding a run of 100,000 live slots
+    idx = rng.randint(0, 50, (12_500, 8))
+    idx[:, :] = 7
+    cases.append(("a run of 100,000 slots", idx, rng.randn(12_500, 8), 50,
+                  65))
+    # runs of S - 1, S and S + 1 live slots, beside short runs
+    for n in (S - 1, S, S + 1):
+        idx = rng.randint(0, 400, (600, 8))
+        idx[idx == 3] = 4
+        idx.reshape(-1)[rng.choice(4800, n, replace=False)] = 3
+        w = rng.randn(600, 8)
+        w[w == 0] = 1.0
+        cases.append((f"a run of {n} slots", idx, w, 400, 250))
+    # 870,400 sources, a handful of live slots
+    idx = rng.randint(0, 870_400, (40, 8))
+    w = np.zeros((40, 8))
+    w.reshape(-1)[rng.choice(320, 6, replace=False)] = rng.randn(6)
+    cases.append(("870,400 sources, 6 live slots", idx, w, 870_400, 65))
+    # every slot dead: weight 0 or index out of range
+    idx = rng.randint(-100, 200, (300, 8))
+    w = np.where((idx >= 0) & (idx < 100), 0.0, rng.randn(300, 8))
+    cases.append(("every slot dead", idx, w, 100, 250))
+    # 1,120,000 slots: the block-wide order's bitmap takes 9 windows
+    idx = rng.randint(0, 1000, (140_000, 8))
+    idx[rng.rand(140_000, 8) < 0.1] = 5
+    cases.append(("1,120,000 slots, 9 bitmap windows", idx,
+                  rng.randn(140_000, 8), 1000, 8))
+    worst = 0.0
+    for what, idx, w, ns, F in cases:
+        ti = torch.tensor(idx.astype(np.int32), **dev)
+        tw = torch.tensor(w.astype(np.float32), **dev)
+        runs = order_check(ek, ti, tw, ns, what)
+        longest = int(runs.max())
+        order_check(ek, ti, tw, ns, what, short_run=1)
+        if longest <= 20_000:   # the thread-wide way is O(n^2) a run
+            order_check(ek, ti, tw, ns, what, short_run=2**30)
+        g = torch.tensor(rng.randn(idx.shape[0], F).astype(np.float32),
+                         **dev)
+        err = transpose_check(ek, g, ti, tw, ns, what)
+        worst = max(worst, err)
+        log(f"  ELL ordering, {what}: nd={idx.shape[0]} K={idx.shape[1]} "
+            f"ns={ns}, {int(runs.sum())} live slots, longest run "
+            f"{longest}: order_slots equal to sort_slots (short_run "
+            f"{S}, 1 and {'2^30' if longest <= 20_000 else '-'}); "
+            f"transpose F={F} {err:.2e}, repeats bit for bit")
+    return worst
+
+
 def small_ell_checks(ek):
     """``{kernel name: worst max abs error}`` over the small cases."""
     import numpy as np
@@ -1248,8 +1403,12 @@ def small_ell_checks(ek):
             g = torch.cat([g[:1], g])[1:]
             check(values.data_ptr() % 16 != 0 and values.is_contiguous(),
                   "the case should start off a 16-byte boundary")
-        errs = ell_errs(ek, values, torch.tensor(idx.astype(np.int32), **dev),
-                        torch.tensor(w, **dev), g)
+        ti = torch.tensor(idx.astype(np.int32), **dev)
+        tw = torch.tensor(w, **dev)
+        errs = ell_errs(ek, values, ti, tw, g)
+        order_check(ek, ti, tw, ns, what)
+        order_check(ek, ti, tw, ns, what, short_run=1)
+        transpose_check(ek, g, ti, tw, ns, what)
         log(f"  ELL nd={nd} ns={ns} K={K} F={F} ({what}): "
             + ", ".join(f"{n} {e:.2e} (tol {t:.2e})"
                         for n, (e, t) in errs.items()))
@@ -1257,6 +1416,8 @@ def small_ell_checks(ek):
             check(err <= tol, f"{name} disagrees (nd={nd} ns={ns} K={K} "
                               f"F={F}, {what})")
             worst[name] = max(worst[name], err)
+    worst["ell_spmm_transpose"] = max(worst["ell_spmm_transpose"],
+                                      small_order_checks(ek))
     return worst
 
 
@@ -1285,6 +1446,20 @@ def full_ell_checks(ek, blocks, R, F, card):
         g = torch.randn(num_dst, F, device=DEVICE, generator=gen)
         what = (f"into {direction}: idx ({num_dst}, {K}), values "
                 f"({num_src}, {F})")
+        runs = order_check(ek, idx, w, num_src, what)
+        order_check(ek, idx, w, num_src, what, short_run=1)
+        lengths = runs[runs > 0]
+        edges = (1, 8, 32, 256, 1024, 4096)
+        hist = []
+        for lo, hi in zip((0,) + edges, edges + (2**31,)):
+            sel = lengths[(lengths > lo) & (lengths <= hi)]
+            hist.append(f"({lo}, {hi if hi < 2**31 else 'inf'}]: "
+                        f"{int(sel.numel())} runs, {int(sel.sum())} slots")
+        longest = int(lengths.max()) if lengths.numel() else 0
+        log(f"  ordering {what}: order_slots equal to sort_slots (short_run "
+            f"{ek.SHORT_RUN} and 1); {int(lengths.numel())} non-empty runs "
+            f"of {num_src}, longest {longest}; run lengths "
+            + "; ".join(hist))
         for name, (err, tol) in ell_errs(ek, values, idx, w, g).items():
             log(f"  full-size check {name} {what}: max_abs_err={err:.3e} "
                 f"tol={tol:.3e}")
@@ -1360,7 +1535,18 @@ def full_ell_checks(ek, blocks, R, F, card):
                 4 * F * num_dst + 4 * F * src_rows_all + 4 * slots
                 + 4 * slots, 2 * slots * F),
         }
-        sort_ms = cuda_ms(lambda: ek.sort_slots(idx, w, num_src), reps=20)
+        # The transpose's device time split by kernel name, and the
+        # ordering's device time at other switches between its two ways
+        # of ordering a run.
+        split = transpose_split(ek, g, idx, w, num_src)
+        check(split is not None and split["other"] == 0.0,
+              f"ell_spmm_transpose ran another kernel: {split}")
+        order_by_switch = {
+            sr: device_ms_per_call(lambda: ek.order_slots(
+                idx, w, num_src, short_run=sr), calls=10)
+            for sr in (64, 128, 256, 512, 1024)}
+        sort_slots_ms = cuda_ms(lambda: ek.sort_slots(idx, w, num_src),
+                                reps=20)
         kernel_ms = {
             "ell_spmm_fwd_only": cuda_ms(
                 lambda: ek.ell_spmm_fwd_only(values, idx, w), reps=20),
@@ -1407,9 +1593,16 @@ def full_ell_checks(ek, blocks, R, F, card):
                        library_ms=library_ms[name])
             extra = ""
             if name == "ell_spmm_transpose":
-                row["sort_ms"] = sort_ms
-                extra = (f" (of which ordering the slots, plain PyTorch, "
-                         f"{sort_ms:.4f} ms)")
+                row.update(order_ms=split["order"], sum_ms=split["sum"],
+                           longest_run=longest,
+                           order_slots_ms_by_short_run=order_by_switch,
+                           sort_slots_ms=sort_slots_ms)
+                extra = (f" (profiler, a call: ordering {split['order']:.4f} "
+                         f"ms, sum {split['sum']:.4f} ms; order_slots alone "
+                         f"by short_run (profiler) "
+                         + ", ".join(f"{k} {_ms_or_not(v)}"
+                                     for k, v in order_by_switch.items())
+                         + f"; the plain sort_slots {sort_slots_ms:.4f} ms)")
             shapes[name].append(row)
             log(f"  {name} {what}, {n_live} live slots over {src_rows} "
                 f"distinct source rows: kernel {kernel_ms[name]:.4f} "
@@ -1680,8 +1873,56 @@ def run_sampled_slice(bd, ek, cfg, it, model_cfg, full_trainer, save_dir,
         twin.train_iteration(b)
         torch.cuda.synchronize()
         step_peak = torch.cuda.max_memory_allocated() - held
-        busy, by_name = device_busy_ms(lambda: twin.train_iteration(b),
-                                       top=10)
+        events = device_events(lambda: twin.train_iteration(b))
+        busy, by_name = device_busy_ms(None, top=10, events=events)
+        if backend == "pallas":
+            # No library sort, scan or search: the one scan a step runs
+            # is the cumsum of the ordinal weights (models/sampled.py, as
+            # in the reference), PyTorch's tensor_kernel_scan_*.
+            library = [n for n, _, _ in events if "ell_t_" not in n and any(
+                word in n.lower() for word in
+                ("sort", "scan", "searchsorted", "radix", "cub::"))
+                and "tensor_kernel_scan" not in n]
+            sums = [c for n, _, c in events if SUM_KERNEL in n]
+            log(f"    ell_spmm_t kernels in the step's trace: "
+                + ", ".join(f"{c} x {n.split('::')[-1][:40]}"
+                            for n, _, c in events if "ell_t_" in n)
+                + "; other scans: "
+                + (", ".join(f"{c} x {n[:60]}" for n, _, c in events
+                             if "tensor_kernel_scan" in n) or "none")
+                + f"; sort, scan or search kernels of a library: "
+                  f"{library or 'none'}")
+            check(not library and sums == [4],
+                  "the step's transpose should run the port's ell_t_ "
+                  "kernels only, 4 sums")
+            # The step's 4 transposes again, on the step's own operands,
+            # each split by the profiler into its ordering and its sum.
+            calls, real_t = [], ek.ell_spmm_transpose
+
+            def recording_t(*args):
+                calls.append(args)
+                return real_t(*args)
+
+            ek.ell_spmm_transpose = recording_t
+            try:
+                twin.train_iteration(b)
+            finally:
+                ek.ell_spmm_transpose = real_t
+            splits = [transpose_split(ek, *args) for args in calls]
+            check(len(calls) == 4 and None not in splits,
+                  "the step's 4 transposes")
+            numbers["transpose_ms_by_call"] = [
+                {"idx": list(args[1].shape), "num_src": args[3],
+                 "order_ms": sp["order"], "sum_ms": sp["sum"]}
+                for args, sp in zip(calls, splits)]
+            log(f"    the step's 4 ell_spmm_transpose calls replayed on "
+                f"their operands (profiler, ordering + sum a call): "
+                + ", ".join(f"idx {tuple(a[1].shape)} -> {a[3]} rows: "
+                            f"{sp['order']:.4f} + {sp['sum']:.4f} ms"
+                            for a, sp in zip(calls, splits))
+                + f"; {sum(sp['order'] + sp['sum'] for sp in splits):.4f}"
+                  f" ms in all [{card}]")
+            del calls
         numbers[backend] = {**split, "device_busy_ms": busy,
                             "feed_bytes": feed_bytes,
                             "step_peak_gib": step_peak / 2**30,

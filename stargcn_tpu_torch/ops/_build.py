@@ -38,7 +38,8 @@ SIGNATURES = {
                    [_P, _P, _I, _L, _L, _P, _P, _P] + [_I] * 10 + [_P]),
     "ell_spmm": ("ell_spmm_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "ell_sddmm": ("ell_sddmm_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "ell_spmm_t": ("ell_spmm_t_launch", [_P, _P, _P, _P, _P, _I, _I, _P]),
+    "ell_spmm_t": ("ell_spmm_t_launch",
+                   [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P]),
     "probe_bitcast": ("probe_bitcast_launch", [_P, _P, _I, _I, _P]),
     "probe_mma": ("probe_mma_launch", [_P, _P, _I, _P, _P, _P] + [_I] * 7
                   + [_P]),

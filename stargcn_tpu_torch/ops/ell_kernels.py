@@ -11,7 +11,8 @@ index):
 * ``ell_sddmm``: ``out[i, k] = dot(q[i], values[idx[i, k]])``, every slot
   (``ops/csrc/ell_sddmm.cu``);
 * ``ell_spmm_transpose``: ``d_values[s] = sum_{(i, k): idx[i, k] == s}
-  w[i, k] * g[i]`` (``ops/csrc/ell_spmm_t.cu``);
+  w[i, k] * g[i]`` (``ops/csrc/ell_spmm_t.cu``, which also orders the slots
+  by source row on the card; ``order_slots`` stops after that ordering);
 * ``ell_spmm``: the differentiable pooling that wires the three as each
   other's adjoints.
 
@@ -126,16 +127,16 @@ def _check(name, rows, nbr_idx, nbr_weight, fits):
     return dev
 
 
-def _launch(lib, name, dev, *args):
+def _launch(lib, name, dev, *args, count=True):
     from stargcn_tpu_torch.ops import _build
 
-    fn = _build.load(lib)
-    with torch.cuda.device(dev):
-        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    err = _build.call_on(dev, _build.load(lib), *args,
+                         _build.raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
-    LAUNCHES[name] += 1
+    if count:
+        LAUNCHES[name] += 1
 
 
 def ell_spmm_fwd_only(values, nbr_idx, nbr_weight):
@@ -194,15 +195,14 @@ def ell_sddmm(queries, values, nbr_idx):
 
 def sort_slots(nbr_idx, nbr_weight, num_src):
     """Order the live slots of an ELL block by source index: ``(seg_ptr,
-    dst_sorted, w_sorted)``, the operands of the transpose kernel.
+    dst_sorted, w_sorted)``, the plain version of ``order_slots``.
 
     A slot is live when its weight is not 0 and its index lies in
     ``[0, num_src)``.  The sort is stable, so each source row's run lists
     its slots in ascending ``(i, k)`` order.  ``seg_ptr`` is ``(num_src +
     1,)`` int32, ``dst_sorted`` (int32) and ``w_sorted`` (float32) have one
     entry per slot; entries past ``seg_ptr[-1]`` belong to dead slots.  It
-    depends on the block only, not on the cotangent: preparation in plain
-    PyTorch, no host synchronisation.
+    depends on the block only, not on the cotangent.
     """
     k = nbr_idx.shape[1]
     flat_idx, flat_w = nbr_idx.reshape(-1), nbr_weight.reshape(-1)
@@ -216,6 +216,84 @@ def sort_slots(nbr_idx, nbr_weight, num_src):
     return seg_ptr, dst_sorted, flat_w[order]
 
 
+# Runs of at most this many live slots are put in order a thread a slot
+# (each counts the run's slot ids below its own); longer runs a block each
+# (a bitmap over the slot ids).  ``ops/csrc/ell_spmm_t.cu`` takes it as an
+# argument.
+SHORT_RUN = 512
+# Sorted slots a warp of the sum takes, and counts a block of the scan
+# takes: ell_spmm_t.cu's kChunk and kScanTile, which size the scratch.
+CHUNK = 32
+SCAN_TILE = 1024
+
+
+def _up64(n):
+    return (n + 63) // 64 * 64
+
+
+def _order_layout(n_slots, num_src, f, short_run):
+    """``(elements, dst offset, w offset)`` of the int32 scratch of
+    ``ops/csrc/ell_spmm_t.cu``, as its ``make_layout`` lays it out (the C
+    entry refuses a smaller scratch).  ``f`` is 0 for the ordering alone;
+    ``seg_ptr`` starts at 0."""
+    n_chunks = -(-n_slots // CHUNK)
+    n_tiles = -(-num_src // SCAN_TILE)
+    dst = _up64(num_src + 1)
+    w = dst + _up64(n_slots)
+    at = _up64(w + _up64(n_slots) + num_src + n_chunks + 2)
+    at += _up64(n_slots) + _up64(n_tiles)
+    at += _up64(n_slots // (short_run + 1) + 1) + 4 * _up64(n_slots)
+    return at + 2 * n_chunks * f, dst, w
+
+
+def _transpose_call(name, cotangent, nbr_idx, nbr_weight, num_src,
+                    short_run, out):
+    """Check the operands and launch ``ell_spmm_t.cu``: the ordering, and
+    the sum into ``out`` where ``out`` is given.  Returns the scratch and
+    the offsets of ``dst_sorted`` and ``w_sorted`` in it."""
+    rows = {} if out is None else {"cotangent": cotangent}
+    dev = _check(name, rows, nbr_idx, nbr_weight,
+                 nbr_idx.shape == nbr_weight.shape
+                 and (out is None or cotangent.shape[0] == nbr_idx.shape[0])
+                 and 0 <= num_src < 2**31 - 1 and 1 <= short_run <= 2**30)
+    f = 0 if out is None else out.shape[1]
+    total, dst, w = _order_layout(nbr_idx.numel(), num_src, f, short_run)
+    ws = torch.empty(total, dtype=torch.int32, device=dev)
+    _launch("ell_spmm_t", name, dev,
+            None if out is None else cotangent.data_ptr(),
+            nbr_idx.data_ptr(), nbr_weight.data_ptr(),
+            None if out is None else out.data_ptr(), ws.data_ptr(), total,
+            nbr_idx.shape[0], nbr_idx.shape[1], num_src, f, short_run,
+            count=out is not None)
+    return ws, dst, w
+
+
+def order_slots(nbr_idx, nbr_weight, num_src, short_run=SHORT_RUN):
+    """``sort_slots`` on the card: the ordering that ``ell_spmm_transpose``
+    runs before its sum, and nothing after it.
+
+    Returns ``(seg_ptr, dst_sorted, w_sorted)`` as ``sort_slots`` defines
+    them, except that entries past ``seg_ptr[-1]`` are left unset.  On the
+    card this launches the ordering kernels of ``ops/csrc/ell_spmm_t.cu``
+    (a counting sort; ``short_run`` is where a run's order passes from a
+    thread a slot to a block) and counts no launch: it checks the
+    ordering and lies on no path.  On the CPU it is ``sort_slots``.
+    """
+    if _on_cpu(nbr_idx, nbr_weight):
+        return sort_slots(nbr_idx, nbr_weight, num_src)
+    n = nbr_idx.numel()
+    if num_src == 0 or n == 0:
+        dev = _check("order_slots", {}, nbr_idx, nbr_weight,
+                     nbr_idx.shape == nbr_weight.shape and num_src >= 0)
+        return (torch.zeros(num_src + 1, dtype=torch.int32, device=dev),
+                torch.empty(n, dtype=torch.int32, device=dev),
+                torch.empty(n, dtype=torch.float32, device=dev))
+    ws, dst, w = _transpose_call("order_slots", None, nbr_idx, nbr_weight,
+                                 num_src, short_run, None)
+    return (ws[:num_src + 1], ws[dst:dst + n],
+            ws[w:w + n].view(torch.float32))
+
+
 def ell_spmm_transpose(cotangent, nbr_idx, nbr_weight, num_src):
     """``d_values[s] = sum_{(i, k): nbr_idx[i, k] == s} nbr_weight[i, k] *
     cotangent[i]``: the scatter adjoint of ``ell_spmm_fwd_only``.
@@ -225,27 +303,26 @@ def ell_spmm_transpose(cotangent, nbr_idx, nbr_weight, num_src):
       nbr_idx, nbr_weight: ``(num_dst, K)`` int32 / float32.
       num_src: rows of the result.
 
-    Returns ``(num_src, feat)`` float32.  On the card the slots are ordered
-    by source index (``sort_slots``) and ``ops/csrc/ell_spmm_t.cu`` sums
-    each source row's run in that fixed order, so two launches give the
-    same bits; on the CPU it is ``plain_ell_spmm_transpose``.
+    Returns ``(num_src, feat)`` float32.  On the card one call of
+    ``ops/csrc/ell_spmm_t.cu`` orders the slots by source row (what
+    ``order_slots`` does) and sums each row's run in that fixed order, so
+    two launches give the same bits; on the CPU it is
+    ``plain_ell_spmm_transpose``.
     """
     if _on_cpu(cotangent, nbr_idx, nbr_weight):
         return plain_ell_spmm_transpose(cotangent, nbr_idx, nbr_weight,
                                         num_src)
-    dev = _check("ell_spmm_transpose", {"cotangent": cotangent}, nbr_idx,
-                 nbr_weight,
-                 nbr_idx.shape == nbr_weight.shape
-                 and cotangent.shape[0] == nbr_idx.shape[0]
-                 and 0 <= num_src < 2**31 - 1)
-    f = cotangent.shape[1]
+    fits = (nbr_idx.shape == nbr_weight.shape
+            and cotangent.shape[0] == nbr_idx.shape[0] and num_src >= 0)
+    f = cotangent.shape[1] if cotangent.dim() == 2 else 0
     if num_src == 0 or f == 0 or nbr_idx.numel() == 0:
+        _check("ell_spmm_transpose", {"cotangent": cotangent}, nbr_idx,
+               nbr_weight, fits)
         return cotangent.new_zeros((num_src, f))
-    seg_ptr, dst_sorted, w_sorted = sort_slots(nbr_idx, nbr_weight, num_src)
-    out = torch.empty((num_src, f), dtype=torch.float32, device=dev)
-    _launch("ell_spmm_t", "ell_spmm_transpose", dev, cotangent.data_ptr(),
-            seg_ptr.data_ptr(), dst_sorted.data_ptr(), w_sorted.data_ptr(),
-            out.data_ptr(), num_src, f)
+    out = torch.empty((num_src, f), dtype=torch.float32,
+                      device=cotangent.device)
+    _transpose_call("ell_spmm_transpose", cotangent, nbr_idx, nbr_weight,
+                    num_src, SHORT_RUN, out)
     return out
 
 
