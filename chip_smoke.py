@@ -76,6 +76,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    (``F.embedding_bag`` and its backward); the transpose's device time
    split by kernel name into the ordering and the sum, and the ordering
    alone at several switches between its two ways of ordering a run;
+   ``ell_sddmm``'s share of its bound, its device time by the profiler
+   and the row gathers it makes on those blocks, and the kernel at
+   ``seg_take_k_corr_pallas``'s shapes (F = 64, K = 15);
 10. probes: ``probe_bitcast`` and ``probe_int8_mma`` through their entry
    points (``run``), each with launch counts of its own, then each kernel
    against its plain version with ``torch.equal`` and two launches giving
@@ -97,8 +100,12 @@ ordering (a run of 100,000 slots; runs at the switch between its two ways
 of ordering a run and either side of it; 870,400 sources with 6 live
 slots; every slot dead; 1,120,000 slots), each ordering at the switch in
 use and at switches that send every run one way, and each transpose
-repeated bit for bit.  Every time printed
-carries the card's name and power limit.
+repeated bit for bit; then ``ell_sddmm`` on the cases of its design (K =
+1, 3, 8, 15, 33 by F = 1, 64, 65, 250, 600; a row whose slots all name one
+index; negative and too-large indices; every slot padded), each within
+1e-5 of the largest output of ``plain_ell_sddmm``, repeated bit for bit,
+and slots that name one index bit-equal.  Every time printed carries the
+card's name and power limit.
 
 The line before the last is the card's name and power limit, the one
 before it ``{"kernels": [...]}`` (all nine kernels); the last is
@@ -111,6 +118,7 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1421,6 +1429,130 @@ def small_ell_checks(ek):
     return worst
 
 
+def sddmm_check(ek, q, values, idx, what):
+    """``ell_sddmm`` within 1e-5 of the largest output of
+    ``plain_ell_sddmm``, repeated bit for bit, and slots of a row that name
+    one index bit-equal.  Returns the error."""
+    import torch
+
+    got = ek.ell_sddmm(q, values, idx)
+    again = ek.ell_sddmm(q, values, idx)
+    want = ek.plain_ell_sddmm(q, values, idx)
+    torch.cuda.synchronize()
+    tol = 1e-5 * max(float(want.abs().max()) if want.numel() else 0.0, 1.0)
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    check(got.shape == want.shape and bool(torch.isfinite(got).all())
+          and err <= tol, f"ell_sddmm disagrees ({what}): {err:.3e} > "
+                          f"{tol:.3e}")
+    check(torch.equal(got, again),
+          f"ell_sddmm does not repeat bit for bit ({what})")
+    same = idx[:, :, None] == idx[:, None, :]
+    bit_equal = got[:, :, None] == got[:, None, :]
+    check(bool((bit_equal | ~same).all()),
+          f"ell_sddmm: slots naming one index differ ({what})")
+    return err
+
+
+def small_sddmm_checks(ek):
+    """``ell_sddmm`` on the cases of its design (K = 1, 3, 8, 15, 33 and F
+    = 1, 64, 65, 250, 600; rows that repeat indices; a row whose slots all
+    name one index; negative and too-large indices; every slot padded).
+    Returns the worst error."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(SEED + 8)
+    ns = 150
+    cases = [(200, K, F, "mixed") for K in (1, 3, 8, 15, 33)
+             for F in (1, 64, 65, 250, 600)]
+    cases += [(64, 8, 250, "a row's slots all name one index"),
+              (64, 33, 64, "a row's slots all name one index"),
+              (64, 15, 250, "negative and too-large indices"),
+              (64, 8, 250, "every slot padded (row 0)"),
+              (64, 15, 65, "every slot out of range")]
+    worst = 0.0
+    for nd, K, F, what in cases:
+        idx = rng.randint(0, ns, (nd, K))
+        if what == "mixed":
+            idx[rng.rand(nd, K) < 0.3] = 0          # the planner's padding
+            idx[::5] = rng.randint(0, 3, idx[::5].shape)  # repeats
+            out = rng.rand(nd, K) < 0.1
+            idx[out] = rng.choice([-1, 1], int(out.sum())) * rng.randint(
+                ns, 2**31 - 1, int(out.sum()))
+        elif what.startswith("a row's"):
+            idx[1::2] = idx[1::2, :1]
+        elif what.startswith("negative"):
+            idx[rng.rand(nd, K) < 0.5] = -1
+            idx[rng.rand(nd, K) < 0.3] = ns
+            idx[rng.rand(nd, K) < 0.1] = 2**31 - 1
+            idx[rng.rand(nd, K) < 0.1] = -2**31
+        elif what.startswith("every slot padded"):
+            idx[:] = 0
+        else:
+            idx = rng.randint(ns, 4 * ns, (nd, K)) * rng.choice([-1, 1],
+                                                               (nd, K))
+        dev = dict(device=DEVICE)
+        ti = torch.tensor(idx.astype(np.int32), **dev)
+        q = torch.tensor(rng.randn(nd, F).astype(np.float32), **dev)
+        values = torch.tensor(rng.randn(ns, F).astype(np.float32), **dev)
+        err = sddmm_check(ek, q, values, ti, what)
+        worst = max(worst, err)
+        log(f"  ell_sddmm nd={nd} ns={ns} K={K} F={F} ({what}), plan "
+            f"{ek.sddmm_plan(F)}: {err:.2e}, repeats bit for bit, repeated "
+            f"indices bit-equal")
+    return worst
+
+
+def sddmm_leaders(idx, num_src):
+    """The row gathers ``ell_sddmm`` makes on a block: each row's distinct
+    in-range indices (the kernel computes each once), in all and as a count
+    of rows by how many a row has."""
+    import torch
+
+    ok = (idx >= 0) & (idx < num_src)
+    key, _ = torch.sort(torch.where(ok, idx, -1), dim=1)
+    first = torch.ones_like(ok)
+    first[:, 1:] = key[:, 1:] != key[:, :-1]
+    per_row = (first & (key >= 0)).sum(dim=1)
+    counts = torch.bincount(per_row, minlength=idx.shape[1] + 1)
+    return dict(leaders=int(per_row.sum()),
+                rows_by_leaders={n: int(c) for n, c in
+                                 enumerate(counts.tolist()) if c})
+
+
+def sddmm_narrow_case(ek, card):
+    """``ell_sddmm`` at ``seg_take_k_corr_pallas``'s shapes (phase 8's
+    case, batch entry 0: 6000 segments of 0 to 15 neighbors, F = 64):
+    checked against its plain version and timed beside its bound."""
+    import torch
+
+    from stargcn_tpu_torch.ops.ell import ell_from_csr
+
+    e1, e2, nids, indptr = seg_take_k_corr_case(DEVICE)
+    ell = ell_from_csr(indptr)
+    idx = torch.from_numpy(nids[ell.slot_edge]).to(DEVICE)
+    q, values = e1[0].contiguous(), e2[0].contiguous()
+    err = sddmm_check(ek, q, values, idx, "seg_take_k_corr_pallas's case")
+    num_dst, K = idx.shape
+    F = values.shape[1]
+    rows = int(torch.unique(idx).numel())
+    bound, by = ell_bound(4 * F * (num_dst + rows) + 8 * num_dst * K,
+                          2 * num_dst * K * F)
+    ms = cuda_ms(lambda: ek.ell_sddmm(q, values, idx), reps=50)
+    device = device_ms_per_call(lambda: ek.ell_sddmm(q, values, idx))
+    plain = cuda_ms(lambda: ek.plain_ell_sddmm(q, values, idx), reps=5)
+    out = dict(idx=[num_dst, K], values=list(values.shape),
+               plan=list(ek.sddmm_plan(F)), max_abs_err=err, ms=ms,
+               device_ms=device, plain_ms=plain, bound_ms=bound,
+               bound_by=by)
+    log(f"  ell_sddmm at seg_take_k_corr_pallas's shapes, idx ({num_dst}, "
+        f"{K}), values {tuple(values.shape)}, plan {out['plan']}: "
+        f"{ms:.4f} ms a call back to back, device {_ms_or_not(device)} "
+        f"(profiler), bound {bound:.4f} ms ({by}), plain {plain:.3f} ms, "
+        f"max_abs_err {err:.2e} [{card}]")
+    return out
+
+
 def ell_bound(nbytes, flops):
     """Least time for one launch: the bytes it must move at the HBM rate,
     or its f32 operations at the f32 rate."""
@@ -1473,6 +1605,7 @@ def full_ell_checks(ek, blocks, R, F, card):
                 ("ell_sddmm", lambda: ek.ell_sddmm(g, values, idx))):
             check(torch.equal(call(), call()),
                   f"{name} does not repeat bit for bit ({what})")
+        sddmm_check(ek, g, values, idx, what)
 
         # <spmm(v), g> = <v, spmm_t(g)>, sums in float64.
         lhs = float((ek.ell_spmm_fwd_only(values, idx, w).double()
@@ -1547,6 +1680,11 @@ def full_ell_checks(ek, blocks, R, F, card):
             for sr in (64, 128, 256, 512, 1024)}
         sort_slots_ms = cuda_ms(lambda: ek.sort_slots(idx, w, num_src),
                                 reps=20)
+        sddmm_runs = [device_ms_per_call(
+            lambda: ek.ell_sddmm(g, values, idx)) for _ in range(3)]
+        sddmm_runs = [t for t in sddmm_runs if t is not None]
+        sddmm_device = median(sddmm_runs) if sddmm_runs else None
+        leaders = sddmm_leaders(idx, num_src)
         kernel_ms = {
             "ell_spmm_fwd_only": cuda_ms(
                 lambda: ek.ell_spmm_fwd_only(values, idx, w), reps=20),
@@ -1603,6 +1741,15 @@ def full_ell_checks(ek, blocks, R, F, card):
                          + ", ".join(f"{k} {_ms_or_not(v)}"
                                      for k, v in order_by_switch.items())
                          + f"; the plain sort_slots {sort_slots_ms:.4f} ms)")
+            if name == "ell_sddmm":
+                row.update(plan=list(ek.sddmm_plan(F)),
+                           device_ms=sddmm_device, **leaders)
+                extra = (f", {bms / kernel_ms[name]:.1%} of the bound, plan "
+                         f"{row['plan']}, {leaders['leaders']} row gathers "
+                         f"(distinct in-range indices of a row; rows by their "
+                         f"count {leaders['rows_by_leaders']}); device "
+                         f"{_ms_or_not(sddmm_device)} a call by the "
+                         f"profiler (median of three)")
             shapes[name].append(row)
             log(f"  {name} {what}, {n_live} live slots over {src_rows} "
                 f"distinct source rows: kernel {kernel_ms[name]:.4f} "
@@ -1948,6 +2095,7 @@ def run_sampled_slice(bd, ek, cfg, it, model_cfg, full_trainer, save_dir,
     # ---- phase 9: the kernels on the step's own blocks ----
     log("== 9. ELL kernel check (real plan blocks) and times")
     worst_full, shapes = full_ell_checks(ek, blocks, R, F, card)
+    numbers["sddmm_seg_take_k_corr"] = sddmm_narrow_case(ek, card)
     del feed, blocks
 
     # ---- fit: 10 steps, one validation, one test evaluation ----
@@ -2384,9 +2532,13 @@ def main():
     _, t_build = host_s(_build.build)
     log(f"  nvcc build of {sorted(_build.SIGNATURES)}: {t_build:.2f} s")
     for name, text in _build.build_logs.items():
-        # ptxas -v: registers, shared memory and spills of every instance.
+        # ptxas -v: registers, shared memory and spills of every instance,
+        # each after the (mangled) name of the instance it belongs to.
         for line in text.strip().splitlines():
-            if "registers" in line or "spill" in line or "rror" in line:
+            if "Compiling entry function" in line:
+                entry = re.search(r"entry function '([^']+)'", line)
+                log(f"  [{name}] {entry[1] if entry else line.strip()}:")
+            elif "registers" in line or "spill" in line or "rror" in line:
                 log(f"  [{name}] {line.strip()}")
 
     log("== 3. kernel check (small cases)")
@@ -2395,6 +2547,7 @@ def main():
     for name, err in small_design_checks(bd).items():
         worst[name] = max(worst[name], err)
     worst.update(small_ell_checks(ek))
+    worst["ell_sddmm"] = max(worst["ell_sddmm"], small_sddmm_checks(ek))
 
     log("== 4. set-up: ML-10M graph, iterator, trainer, bit packs")
     from stargcn_tpu_torch.train import Trainer, TrainSettings
@@ -2537,6 +2690,8 @@ def main():
             f"stargcn_tpu/ops/pallas_kernels.py:{replaces}",
             launches, max(ell_worst[name], worst[name]), ell_shapes[name]))
         rows[-1]["launches_by_path"] = by_path
+    rows[-1]["seg_take_k_corr_case"] = sampled_numbers[
+        "sddmm_seg_take_k_corr"]
     for name, source, replaces in (
             ("probe_bitcast", "probe_bitcast.cu", "scripts/probe_bitcast.py:37"),
             ("probe_mma", "probe_mma.cu", "scripts/probe_int8_mxu.py:26")):

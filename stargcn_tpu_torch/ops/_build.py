@@ -37,7 +37,7 @@ SIGNATURES = {
     "bit_reduce": ("bit_reduce_matmul_launch",
                    [_P, _P, _I, _L, _L, _P, _P, _P] + [_I] * 10 + [_P]),
     "ell_spmm": ("ell_spmm_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "ell_sddmm": ("ell_sddmm_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "ell_sddmm": ("ell_sddmm_launch", [_P, _P, _P, _P] + [_I] * 6 + [_P]),
     "ell_spmm_t": ("ell_spmm_t_launch",
                    [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P]),
     "probe_bitcast": ("probe_bitcast_launch", [_P, _P, _I, _I, _P]),

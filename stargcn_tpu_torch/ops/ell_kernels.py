@@ -165,6 +165,25 @@ def ell_spmm_fwd_only(values, nbr_idx, nbr_weight):
     return out
 
 
+def sddmm_plan(f):
+    """``(vec, width, gathers)`` of ``ops/csrc/ell_sddmm.cu`` at feature
+    width ``f``: floats a lane loads at once (the widest of 4, 2, 1 that
+    divides ``f``), lanes that share one slot's columns, and leader rows a
+    lane gathers before any sum.
+
+    ``width`` is 32 where a slot's columns fill a warp; at ``f / vec <=
+    16`` it is the least power of two of at least ``f / vec`` lanes, 4 at
+    the least, so that ``32 / width`` slots share a warp.  ``gathers`` is
+    the kernel's own (1 at width 32, where a warp's row gathers are enough
+    and fewer registers keep more rows in flight; ``min(width, 8)`` below
+    it): the launch passes ``vec`` and ``width``.
+    """
+    vec = 4 if f % 4 == 0 else 2 if f % 2 == 0 else 1
+    lanes = f // vec
+    width = 32 if lanes > 16 else max(4, 1 << (lanes - 1).bit_length())
+    return vec, width, 1 if width == 32 else min(width, 8)
+
+
 def ell_sddmm(queries, values, nbr_idx):
     """``out[i, k] = dot(queries[i], values[nbr_idx[i, k]])`` for every
     slot, padded ones too.
@@ -175,7 +194,8 @@ def ell_sddmm(queries, values, nbr_idx):
       nbr_idx: ``(num_dst, K)`` int32.
 
     Returns ``(num_dst, K)`` float32.  On the card this launches
-    ``ops/csrc/ell_sddmm.cu``; on the CPU it is ``plain_ell_sddmm``.
+    ``ops/csrc/ell_sddmm.cu`` with ``sddmm_plan(feat)``; on the CPU it is
+    ``plain_ell_sddmm``.
     """
     if _on_cpu(queries, values, nbr_idx):
         return plain_ell_sddmm(queries, values, nbr_idx)
@@ -187,9 +207,10 @@ def ell_sddmm(queries, values, nbr_idx):
     if num_dst == 0 or f == 0 or k == 0 or num_src == 0:
         return queries.new_zeros((num_dst, k))
     out = torch.empty((num_dst, k), dtype=torch.float32, device=dev)
+    vec, width, _ = sddmm_plan(f)
     _launch("ell_sddmm", "ell_sddmm", dev, queries.data_ptr(),
             values.data_ptr(), nbr_idx.data_ptr(), out.data_ptr(), num_dst,
-            k, num_src, f)
+            k, num_src, f, vec, width)
     return out
 
 
