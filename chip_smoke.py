@@ -89,7 +89,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    outputs allocated first (bf16 beside ``torch.einsum``, which sums A over
    the groups before its one product, and beside a call that does every
    product), the profiler's device time, the int8 : bf16 ratio, and
-   ``row_pair_u16``'s host cost part by part.
+   ``row_pair_u16``'s host cost part by part;
+11. full-graph ``dense`` and ``xla`` at ML-1M width:
+   ``configs/transductive_ml_1m.yml`` as published on a synthetic graph
+   of the real ML-1M size (6,040 x 3,706, 1,000,209 edges, seed 123, 10%
+   test and 10% valid; ``build_ml1m``, beside ``build_ml10m``), where
+   ``KERNEL.BACKEND: auto`` resolves to ``dense``: each variant's bf16
+   adjacency built on the card (time, bytes, the float32 scatter's peak;
+   the valid variant shares the train variant's); one ``train_iteration``
+   (no bit or ELL kernel launched: none lies on this path); the same batch
+   on the same parameters and dropout masks through the bf16 adjacency, a
+   float32 twin, the ``xla`` backend and ``xla`` in 65,536-edge chunks
+   (``KERNEL.XLA_MSG_BUDGET_MB`` 100), loss and every gradient compared;
+   ``scaled_dense_aggregate`` on the card against the float32 product of
+   the same bf16-rounded operands in both directions, forward and
+   gradient, and one ``torch.bmm`` (bf16 in, float32 out) timed beside its
+   bounds; step time, device busy with the top device operations, and
+   peak memory for ``dense`` and for ``xla``; ``fit`` for 20 steps with
+   two validations and checkpoints, ``restore_checkpoint``,
+   ``export_serving`` and queries; then ``python -m
+   stargcn_tpu_torch.train --cfg configs/transductive_ml_1m.yml`` on the
+   CLI's synthetic graph with no ``--backend``, 10 steps;
+11b. ``KERNEL.BACKEND: xla`` at ML-10M width, on phase 4's graph and the
+   trainer's parameters, in ``resolve_edge_chunk``'s 1,441,792-edge chunks
+   (7 over 10M edges): one ``train_iteration`` with its time and peak
+   memory, and its loss and gradients on one batch against the
+   ``bitdense`` trainer's (kernels) and its plain twin's.
 
 Phase 3 also checks the three ELL kernels on small cases (K = 1, 8, 32;
 F = 1, 65, 250, 256; padded slots with in-range and out-of-range indices;
@@ -107,9 +132,11 @@ index; negative and too-large indices; every slot padded), each within
 and slots that name one index bit-equal.  Every time printed carries the
 card's name and power limit.
 
-The line before the last is the card's name and power limit, the one
-before it ``{"kernels": [...]}`` (all nine kernels); the last is
-``{"ok": true, "device": {...}}``.  Needs one card; imports nothing of
+Phases 10, 11 and 11b run inside phase 4's temporary directory, after
+phase 8.  The line before the last is the card's name and power limit, the
+one before it ``{"kernels": [...]}`` (all nine kernels: the ``dense`` and
+``xla`` paths launch none of them); the last is ``{"ok": true, "device":
+{...}}``.  Needs one card; imports nothing of
 JAX and nothing of the JAX package.
 """
 
@@ -127,7 +154,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 on the tensor cores
 ML10M = dict(num_users=69_878, num_items=10_677, num_edges=10_000_000)
+ML1M = dict(num_users=6040, num_items=3706, num_edges=1_000_209)
 SEED = 123
 DEVICE = "cuda"
 
@@ -709,6 +738,36 @@ def build_ml10m():
     return cfg, it, model_cfg
 
 
+def build_ml1m():
+    """The ML-1M-shaped synthetic graph and its split (seed 123, 10% test,
+    10% valid), the config ``transductive_ml_1m.yml`` as published and its
+    model config (``KERNEL.BACKEND: auto``)."""
+    import numpy as np
+
+    from stargcn_tpu_torch.data import DataIterator
+    from stargcn_tpu_torch.data.synthetic import synthetic_graph
+    from stargcn_tpu_torch.models import build_model_config
+    from stargcn_tpu_torch.utils import cfg_from_file
+
+    cfg = cfg_from_file(os.path.join(ROOT, "configs",
+                                     "transductive_ml_1m.yml"))
+    cfg.DATASET.NAME = "synthetic"
+    g = synthetic_graph(**ML1M, rating_values=(1, 2, 3, 4, 5), seed=SEED)
+    csr = g["user", "movie"]
+    pairs = csr.node_pair_ids
+    perm = np.random.RandomState(SEED).permutation(pairs.shape[1])
+    n_test = pairs.shape[1] // 10
+    it = DataIterator(g, "user", "movie",
+                      test_node_pairs=pairs[:, perm[:n_test]],
+                      valid_node_pairs=pairs[:, perm[n_test:2 * n_test]],
+                      embed_P_mask=cfg.EMBED.MASK_PROP,
+                      embed_p_zero=cfg.EMBED.P_ZERO,
+                      embed_p_self=1.0 - cfg.EMBED.P_ZERO, seed=SEED)
+    model_cfg = build_model_config(cfg, csr.shape[0], csr.shape[1],
+                                   len(csr.multi_link), num_edges=csr.nnz)
+    return cfg, it, model_cfg
+
+
 def plain_twin(owner):
     """The same ``Trainer`` or ``ServingState`` (a shallow copy: same
     operands, same dropout stream) with the model on the plain versions."""
@@ -791,11 +850,11 @@ def check_queries(art, card, what):
         f"k=10 for 256 users: {t_rec * 1e3:.2f} ms [{card}]")
 
 
-def check_artifact(art):
+def check_artifact(art, graph=ML10M):
     import numpy as np
 
-    check(art.user_feats.shape == (ML10M["num_users"], 64)
-          and art.item_feats.shape == (ML10M["num_items"], 64),
+    check(art.user_feats.shape == (graph["num_users"], 64)
+          and art.item_feats.shape == (graph["num_items"], 64),
           "artifact shapes")
     check(np.isfinite(art.user_feats).all()
           and np.isfinite(art.item_feats).all(), "non-finite features")
@@ -952,7 +1011,9 @@ def run_training_slice(bd, trainer, card):
     zero_launches(bd)
     summary, t_fit = host_s(lambda: trainer.fit(max_iter=20,
                                                 log=lines.append))
-    trainer.train_iteration = real_step
+    # Back to the class's method: a copy of the trainer (the twins of
+    # phase 11b) must not carry this trainer's bound step.
+    del trainer.train_iteration
     fit_launches = dict(bd.LAUNCHES)
     for line in lines:
         log(f"  fit: {line}")
@@ -2120,7 +2181,7 @@ def run_sampled_slice(bd, ek, cfg, it, model_cfg, full_trainer, save_dir,
     zero_launches(bd, ek)
     summary, t_fit = host_s(lambda: strainer.fit(max_iter=10,
                                                  log=lines.append))
-    strainer.train_iteration, strainer.train_chunk = real_step, real_chunk
+    del strainer.train_iteration, strainer.train_chunk
     fit_launches = {**bd.LAUNCHES, **ek.LAUNCHES}
     for line in lines:
         log(f"  fit: {line}")
@@ -2214,6 +2275,444 @@ def run_serving_slice(bd, trainer, card):
     check(eu <= 1e-2 and ei <= 1e-2, "kernel export disagrees with plain")
     check_queries(art, card, "parameters from the seed")
     return launches
+
+
+# ------------------------ full-graph dense and xla ------------------------
+
+
+def backend_twin(trainer, **changes):
+    """The same ``Trainer`` (a shallow copy: same variants, batches and
+    dropout stream) with the model config changed by ``changes``, the
+    parameters copied into a new model and an optimiser of its own."""
+    from stargcn_tpu_torch.models import STARGCN
+    from stargcn_tpu_torch.train.loop import make_optimizer
+
+    twin = copy.copy(trainer)
+    twin.model_cfg = dataclasses.replace(trainer.model_cfg, **changes)
+    twin.model = STARGCN(twin.model_cfg)
+    twin.model.load_state_dict(trainer.model.state_dict())
+    twin.model.to(trainer.device)
+    twin.opt = make_optimizer(twin.s, twin.model.named_parameters())
+    return twin
+
+
+def no_kernel_launched(*modules):
+    return all(n == 0 for mod in modules for n in mod.LAUNCHES.values())
+
+
+def step_numbers(trainer, next_batch, card, what):
+    """Phase 11 (e): ``train_iteration`` 5 times after a first one, host
+    clock ending in a synchronise; the profiler's device time of one more
+    with its top device operations; the memory a step takes above what is
+    held before it."""
+    import torch
+
+    batch = next_batch()
+    trainer.train_iteration(*batch)
+    times = []
+    for _ in range(5):
+        b = next_batch()
+        _, t = host_s(lambda: trainer.train_iteration(*b))
+        times.append(t * 1e3)
+    step_ms = median(times)
+    b = next_batch()
+    busy, top = device_busy_ms(lambda: trainer.train_iteration(*b), top=6)
+    b = next_batch()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_iteration(*b)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {what}: train_iteration, 5 steps after the first: "
+        f"{', '.join(f'{x:.2f}' for x in times)} ms (median {step_ms:.2f} "
+        f"ms at batch {trainer.s.rating_batch_size}); peak device memory "
+        f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held before the step [{card}]")
+    numbers = dict(step_ms=step_ms, step_times_ms=times,
+                   peak_gib=peak / 2**30, step_gib=(peak - held) / 2**30)
+    numbers["device_busy_ms"] = busy
+    if busy is None:
+        log(f"  {what}: device busy time not measured (the profiler "
+            f"showed no device time)")
+        return numbers
+    log(f"  {what}: device busy {busy:.2f} ms of one step by the profiler "
+        f"(the card idles about {max(0.0, 1 - busy / step_ms):.0%} of the "
+        f"{step_ms:.2f} ms step); top device operations: "
+        + "; ".join(f"{n} {ms:.3f} ms x{c}" for n, ms, c in top)
+        + f" [{card}]")
+    numbers["top_device_ops"] = [[n, ms, c] for n, ms, c in top]
+    return numbers
+
+
+def dense_product_checks(adj, card):
+    """Phase 11 (d): ``scaled_dense_aggregate`` on the card, in both
+    directions at the main path's shapes (units 250), against the float32
+    product of the same bf16-rounded operands (TF32 off): the forward
+    within 1e-5 of its largest value (the bf16 products are exact in
+    float32; only the order of the float32 sums differs), the gradient
+    within one bf16 ulp (at most 2^-7 relative) of its largest value (both
+    round a float32 product to bf16; the card's from a split of the
+    cotangent in two bf16 parts).  Then one ``torch.bmm`` of the adjacency by the bf16 operand,
+    float32 out, timed beside its bounds."""
+    import torch
+
+    from stargcn_tpu_torch.ops.agg import scaled_dense_aggregate
+
+    R, nu, ni = adj.shape
+    U = 250
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    out = {}
+    for name, transposed, n_src, n_dst in (("into users", False, ni, nu),
+                                           ("into items", True, nu, ni)):
+        proj = torch.randn(R, n_src, U, device=DEVICE, generator=gen,
+                           requires_grad=True)
+        src = torch.rand(n_src, device=DEVICE, generator=gen)
+        dst = torch.rand(n_dst, device=DEVICE, generator=gen)
+        ct = torch.randn(n_dst, R, U, device=DEVICE, generator=gen)
+        got = scaled_dense_aggregate(proj, adj, dst, src,
+                                     transposed=transposed)
+        (g_got,) = torch.autograd.grad(got, proj, ct)
+        got = got.detach()
+        a32 = (adj.transpose(1, 2) if transposed else adj).float()
+        with torch.no_grad():
+            x = (proj * src[None, :, None]).bfloat16().float()
+            want = torch.bmm(a32, x).permute(1, 0, 2) * dst[:, None, None]
+            g_want = torch.bmm(a32.transpose(1, 2), (ct * dst[:, None, None])
+                               .permute(1, 0, 2)).bfloat16().float() \
+                * src[None, :, None]
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        g_err = float((g_got - g_want).abs().max())
+        g_scale = float(g_want.abs().max())
+        flips = float((g_got != g_want).float().mean())
+        log(f"  scaled_dense_aggregate {name} ({R} x {n_dst} x {n_src} "
+            f"adjacency, units {U}): forward max abs err {err:.3e} of "
+            f"{scale:.3e} (tol 1e-5 of it); gradient {g_err:.3e} of "
+            f"{g_scale:.3e} (tol 2^-7 of it), {flips:.2e} of its entries "
+            f"off the float32 product's rounding")
+        check(err <= 1e-5 * scale, f"dense product {name} disagrees with "
+              "the float32 product of the same bf16 operands")
+        check(g_err <= 2.0 ** -7 * g_scale,
+              f"dense product gradient {name} disagrees")
+        xb = x.bfloat16()
+        a_view = adj.transpose(1, 2) if transposed else adj
+        ms = cuda_ms(lambda: torch.bmm(a_view, xb,
+                                       out_dtype=torch.float32), 20)
+        flop = 2.0 * R * n_dst * n_src * U
+        nbytes = adj.numel() * 2 + xb.numel() * 2 + R * n_dst * U * 4
+        ops_ms = flop / BF16_OPS_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"  torch.bmm {name}, bf16 x bf16 -> float32: {ms:.4f} ms a "
+            f"call; {flop / 1e9:.2f} GFLOP ({ops_ms:.4f} ms at 989 TFLOP/s) "
+            f"and {nbytes / 1e6:.1f} MB ({bytes_ms:.4f} ms at 3.35 TB/s), "
+            f"so bound by {'bytes' if bytes_ms > ops_ms else 'operations'} "
+            f"at {max(ops_ms, bytes_ms):.4f} ms ({max(ops_ms, bytes_ms) / ms:.0%}"
+            f" of it) [{card}]")
+        out[name] = dict(forward_err=err, grad_err=g_err, grad_flips=flips,
+                         bmm_ms=ms, gflop=flop / 1e9, mbytes=nbytes / 1e6,
+                         ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms)
+    return out
+
+
+def run_dense_xla_slice(bd, ek, card, save_dir):
+    """Phase 11.  Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from stargcn_tpu_torch.models import build_model_config
+    from stargcn_tpu_torch.serve import export_serving
+    from stargcn_tpu_torch.train import Trainer, TrainSettings
+
+    (cfg, it, model_cfg), t_graph = host_s(build_ml1m)
+    R = model_cfg.num_links
+    entries = R * model_cfg.num_users * model_cfg.num_items
+    log(f"  host graph build ({ML1M['num_users']} x {ML1M['num_items']}, "
+        f"{it.all_graph['user', 'movie'].nnz} edges): {t_graph:.2f} s; "
+        f"R*Nu*Ni = {entries:,} [{card}]")
+    check(model_cfg.backend == "dense" and model_cfg.edge_chunk is None,
+          f"ML-1M resolved to {model_cfg.backend!r}, not 'dense'")
+    trainer, t_trainer = host_s(lambda: Trainer(
+        model_cfg, it, TrainSettings.from_cfg(cfg),
+        save_dir=os.path.join(save_dir, "ml1m"), device=DEVICE))
+    log(f"  trainer: {t_trainer:.2f} s [{card}]")
+    numbers = dict(entries=entries)
+
+    # (a) the adjacency of each variant: time, bytes, the scatter's peak.
+    adjs = {}
+    for variant in ("train", "test"):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        adjs[variant], t_adj = host_s(
+            lambda: trainer.variants.dense_adj(variant))
+        a = adjs[variant]
+        scatter = torch.cuda.max_memory_allocated() - before
+        log(f"  {variant}-variant adjacency {tuple(a.shape)} {a.dtype}: "
+            f"{t_adj * 1e3:.1f} ms, {a.numel() * a.element_size() / 1e6:.1f}"
+            f" MB kept, {scatter / 1e6:.1f} MB at the build's peak (the "
+            f"float32 scatter) [{card}]")
+        numbers[f"adj_{variant}_ms"] = t_adj * 1e3
+    numbers["adj_mb"] = adjs["train"].numel() * 2 / 1e6
+    check(trainer.variants.dense_adj("valid") is adjs["train"],
+          "the valid variant should share the train variant's adjacency")
+    check(adjs["test"] is not adjs["train"], "the test adjacency")
+
+    s = trainer.s
+    rating_sampler = it.rating_sampler(batch_size=s.rating_batch_size,
+                                       segment="train")
+    recon_sampler = it.recon_nodes_sampler(batch_size=s.recon_batch_size)
+    next_batch = lambda: next_batches(trainer, rating_sampler,  # noqa: E731
+                                      recon_sampler)
+    batch = next_batch()
+    check(trainer.do_remove and batch[0][1].size == 100_000,
+          "the step should remove a batch of 100,000 train edges")
+    params0 = copy.deepcopy(trainer.model.state_dict())
+    opt0 = copy.deepcopy(trainer.opt.state_dict())
+
+    # (b) one step through the entry point: no hand kernel launches.
+    trainer.seed_dropout(SEED)
+    zero_launches(bd, ek)
+    stats, t_first = host_s(lambda: trainer.train_iteration(*batch))
+    log(f"  first train_iteration (dense): {t_first * 1e3:.1f} ms (start-up "
+        f"included), loss {float(stats['loss']):.4f}, bit and ELL launches "
+        f"{dict(bd.LAUNCHES)} {dict(ek.LAUNCHES)} [{card}]")
+    check(no_kernel_launched(bd, ek), "a dense step launched a hand kernel")
+    check(bool(torch.isfinite(stats["loss"])), "non-finite dense loss")
+    trainer.model.load_state_dict(params0)
+    trainer.opt.load_state_dict(opt0)
+
+    # (c) the same batch on the same parameters and dropout masks: the
+    # bf16 adjacency, a float32 twin, the xla backend, and xla in chunks.
+    # KERNEL.XLA_MSG_BUDGET_MB = 100 holds 100,000 messages of 250 floats:
+    # the config's own translation gives 65,536-edge chunks.
+    chunked_cfg = copy.deepcopy(cfg)
+    chunked_cfg.KERNEL.BACKEND = "xla"
+    chunked_cfg.KERNEL.XLA_MSG_BUDGET_MB = 100
+    csr = it.all_graph["user", "movie"]
+    chunk = build_model_config(chunked_cfg, csr.shape[0], csr.shape[1], R,
+                               num_edges=csr.nnz).edge_chunk
+    check(chunk == 65_536, f"XLA_MSG_BUDGET_MB=100 gives {chunk}")
+    f32 = copy.copy(trainer)
+    f32._operands = lambda v: trainer.variants.dense_adj(v, torch.float32)
+    xla = backend_twin(trainer, backend="xla")
+    xla_chunked = backend_twin(trainer, backend="xla", edge_chunk=chunk)
+    runs = {}
+    for name, owner in (("dense", trainer), ("dense-f32", f32),
+                        ("xla", xla), ("xla-chunked", xla_chunked)):
+        trainer.seed_dropout(SEED)
+        zero_launches(bd, ek)
+        runs[name], t = host_s(lambda: owner.loss_and_grads(*batch))
+        check(no_kernel_launched(bd, ek), f"{name} launched a hand kernel")
+        log(f"  loss_and_grads {name}: loss "
+            f"{float(runs[name][0]['loss']):.6f}, {t * 1e3:.1f} ms")
+    comparisons = {}
+    for name, ref, other, tol in (
+            ("xla vs dense-f32", "dense-f32", "xla", (1e-4, 1e-4, 1e-4)),
+            ("xla-chunked vs xla", "xla", "xla-chunked", (1e-4, 1e-4, 1e-4)),
+            ("dense (bf16) vs dense-f32", "dense-f32", "dense",
+             (1e-2, 1e-1, None))):
+        loss_rel, worst, worst_name, glob = compare_grads(runs[ref],
+                                                          runs[other])
+        comparisons[name] = dict(loss_rel=loss_rel, worst=worst,
+                                 worst_name=worst_name, all=glob)
+        log(f"  {name}: loss rel diff {loss_rel:.3e} (tol {tol[0]:g}), all "
+            f"gradients together {glob:.3e} relative (tol {tol[1]:g}), "
+            f"worst single parameter {worst:.3e} of its largest entry "
+            f"({worst_name}"
+            + (f"; tol {tol[2]:g})" if tol[2] else "; printed only)"))
+        check(loss_rel <= tol[0] and glob <= tol[1]
+              and (tol[2] is None or worst <= tol[2]),
+              f"{name}: the step's loss or gradients disagree")
+    numbers["comparisons"] = comparisons
+    del runs, f32, xla_chunked
+    trainer.model.load_state_dict(params0)
+    trainer.opt.load_state_dict(opt0)
+
+    # (d) the bf16 product on the card against its float32 version.
+    numbers["dense_product"] = dense_product_checks(adjs["train"], card)
+
+    # (e) step times, device busy, peak memory: dense, then xla.
+    numbers["dense_step"] = step_numbers(trainer, next_batch, card,
+                                         "dense (bf16 adjacency)")
+    numbers["xla_step"] = step_numbers(xla, next_batch, card, "xla")
+    del xla
+    trainer.model.load_state_dict(params0)
+    trainer.opt.load_state_dict(opt0)
+    log(f"  one dense step takes 4 products forward and 8 backward (two "
+        f"bf16 parts of each cotangent), 12 x 55.96 GFLOP [{card}]")
+
+    # (f) fit: 20 steps with the config's intervals -> two validations.
+    trainer.seed_dropout(SEED)
+    losses = []
+    real_step = trainer.train_iteration
+
+    def recording_step(rb, cb):
+        st = real_step(rb, cb)
+        losses.append(st["loss"])
+        return st
+
+    trainer.train_iteration = recording_step
+    lines = []
+    zero_launches(bd, ek)
+    try:
+        summary, t_fit = host_s(lambda: trainer.fit(max_iter=20,
+                                                    log=lines.append))
+    finally:
+        del trainer.train_iteration
+    for line in lines:
+        log(f"  fit: {line}")
+    losses = [float(x) for x in losses]
+    log(f"  fit(max_iter=20): {t_fit:.2f} s; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)} [{card}]")
+    check(no_kernel_launched(bd, ek), "fit launched a hand kernel")
+    check(len(losses) == 20 and np.isfinite(losses).all()
+          and np.mean(losses[10:]) < losses[0],
+          "fit should take 20 steps with finite, falling losses")
+    check(sum("Val RMSE" in x for x in lines) == 2, "two validations")
+    rmses = [summary["best_valid_rmse"], *summary["best_test_rmse"]]
+    check(summary["best_iter"] in (10, 20) and np.isfinite(rmses).all()
+          and max(rmses) <= trainer.rating_max - trainer.rating_min,
+          f"fit summary {summary}")
+    numbers["fit_s"] = t_fit
+    best = os.path.join(trainer.save_dir, "ckpt_best_0.pt")
+    saved = torch.load(best, map_location="cpu", weights_only=True)
+    trainer.restore_checkpoint(best)
+    for name, tensor in trainer.model.state_dict().items():
+        check(torch.equal(tensor.cpu(), saved["params"][name]),
+              f"restored parameter {name} differs from the saved one")
+    check(trainer.opt.count == summary["best_iter"], "restored step count")
+    log(f"  restore_checkpoint: parameters equal the saved ones, optimizer "
+        f"at step {trainer.opt.count}")
+
+    # (g) export and serve.
+    zero_launches(bd, ek)
+    art, t_export = host_s(lambda: export_serving(trainer, segment="test"))
+    check(no_kernel_launched(bd, ek), "the export launched a hand kernel")
+    check_artifact(art, ML1M)
+    log(f"  export_serving(trainer): {t_export:.3f} s [{card}]")
+    check_queries(art, card, "ML-1M trained parameters")
+    numbers["export_s"] = t_export
+
+    # (h) the train CLI on its synthetic graph, with no --backend.
+    numbers["cli_s"] = run_ml1m_cli(bd, ek, card, save_dir)
+    return numbers
+
+
+def run_ml1m_cli(bd, ek, card, save_dir):
+    """Phase 11 (h): ``python -m stargcn_tpu_torch.train``'s entry point,
+    in this process, on ``transductive_ml_1m.yml`` and the CLI's synthetic
+    graph (943 x 1682 users x items), with no ``--backend``: ``auto``
+    resolves to ``dense`` there.  10 steps and one validation."""
+    import logging
+
+    import numpy as np
+
+    from stargcn_tpu_torch.predict import build_dataset
+    from stargcn_tpu_torch.train import __main__ as train_cli
+    from stargcn_tpu_torch.utils import cfg_from_file
+
+    cfg_path = os.path.join(ROOT, "configs", "transductive_ml_1m.yml")
+    cfg = cfg_from_file(cfg_path)
+    cfg.DATASET.NAME = "synthetic"
+    backend = build_dataset(cfg)[2].backend
+    check(backend == "dense", f"the CLI's graph resolves to {backend!r}")
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    zero_launches(bd, ek)
+    try:
+        result, t_cli = host_s(lambda: train_cli.main([
+            "--cfg", cfg_path,
+            "--dataset", "synthetic", "--save_dir",
+            os.path.join(save_dir, "cli1m"), "--max_iter", "10", "--silent",
+            "--device", DEVICE]))
+    finally:
+        for h in list(root.handlers):
+            if h not in handlers:
+                h.close()
+        root.handlers[:] = handlers
+        root.setLevel(level)
+    log(f"  python -m stargcn_tpu_torch.train --cfg "
+        f"configs/transductive_ml_1m.yml --dataset synthetic --max_iter 10: "
+        f"{t_cli:.2f} s, best valid RMSE {result['best_valid_rmse']:.4f}, "
+        f"no hand kernel launched: {no_kernel_launched(bd, ek)} [{card}]")
+    check(result["best_iter"] == 10
+          and np.isfinite(result["best_valid_rmse"]),
+          f"ML-1M CLI result {result}")
+    check(no_kernel_launched(bd, ek), "the ML-1M CLI launched a hand kernel")
+    return t_cli
+
+
+def run_ml10m_xla_step(bd, ek, trainer, card):
+    """Phase 11b: ``KERNEL.BACKEND: xla`` on phase 4's ML-10M graph and the
+    trainer's parameters, in ``resolve_edge_chunk``'s chunks: one
+    ``train_iteration`` timed with its peak memory, then its loss and
+    gradients on one batch against the ``bitdense`` trainer's (the kernels
+    round x and g to bf16, xla does not: phase 6's bound for a step against
+    unrounded inputs) and against the bitdense plain twin (float32, as
+    xla: phase 6's bound for a step fed the same inputs)."""
+    import torch
+
+    from stargcn_tpu_torch.models import resolve_edge_chunk
+
+    E = trainer.data_iter.all_graph["user", "movie"].nnz
+    chunk = resolve_edge_chunk("xla", E, trainer.model_cfg.agg_units)
+    n_chunks = -(-E // chunk) if chunk else 1
+    log(f"  resolve_edge_chunk: {chunk}-edge chunks, {n_chunks} over {E:,} "
+        f"edges")
+    if ML10M["num_edges"] == 10_000_000:
+        check(chunk == 1_441_792 and n_chunks == 7, "the ML-10M chunk")
+    xla = backend_twin(trainer, backend="xla", edge_chunk=chunk)
+    it, s = trainer.data_iter, trainer.s
+    rating_sampler = it.rating_sampler(batch_size=s.rating_batch_size,
+                                       segment="train")
+    recon_sampler = it.recon_nodes_sampler(batch_size=s.recon_batch_size)
+    batch = next_batches(trainer, rating_sampler, recon_sampler)
+    params0 = copy.deepcopy(xla.model.state_dict())
+
+    zero_launches(bd, ek)
+    xla.seed_dropout(SEED)
+    xla.train_iteration(*batch)                  # the first, start-up
+    xla.model.load_state_dict(params0)
+    check(no_kernel_launched(bd, ek), "an xla step launched a hand kernel")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    xla.seed_dropout(SEED)
+    stats, t_step = host_s(lambda: xla.train_iteration(*batch))
+    peak = torch.cuda.max_memory_allocated()
+    xla.model.load_state_dict(params0)
+    log(f"  xla train_iteration at ML-10M width: {t_step * 1e3:.1f} ms, "
+        f"loss {float(stats['loss']):.4f}; peak device memory "
+        f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held before the step [{card}]")
+
+    runs = {}
+    for name, owner in (("xla", xla), ("bitdense", trainer),
+                        ("bitdense-plain", plain_twin(trainer))):
+        owner.model.load_state_dict(params0)
+        trainer.seed_dropout(SEED)
+        runs[name] = owner.loss_and_grads(*batch)
+    comparisons = {}
+    for name, ref, tol in (("xla vs bitdense-plain", "bitdense-plain",
+                            (1e-3, 1e-3, 5e-2)),
+                           ("xla vs bitdense", "bitdense",
+                            (1e-2, 1e-1, None))):
+        loss_rel, worst, worst_name, glob = compare_grads(runs[ref],
+                                                          runs["xla"])
+        comparisons[name] = dict(loss_rel=loss_rel, worst=worst,
+                                 worst_name=worst_name, all=glob)
+        log(f"  {name}: loss rel diff {loss_rel:.3e} (tol {tol[0]:g}), all "
+            f"gradients together {glob:.3e} relative (tol {tol[1]:g}), "
+            f"worst single parameter {worst:.3e} of its largest entry "
+            f"({worst_name}"
+            + (f"; tol {tol[2]:g})" if tol[2] else "; printed only)"))
+        check(loss_rel <= tol[0] and glob <= tol[1]
+              and (tol[2] is None or worst <= tol[2]),
+              f"{name}: the step's loss or gradients disagree")
+    return dict(step_ms=t_step * 1e3, peak_gib=peak / 2**30,
+                step_gib=(peak - held) / 2**30, edge_chunk=chunk,
+                comparisons=comparisons)
 
 
 # --------------------------------- probes ---------------------------------
@@ -2627,8 +3126,17 @@ def main():
             run_sampled_slice(bd, ek, cfg, it, model_cfg, trainer, save_dir,
                               card)
 
-    log("== 10. probes: probe_bitcast and probe_int8_mma")
-    probe_launches, probe_worst, probe_shapes = run_probes(card)
+        log("== 10. probes: probe_bitcast and probe_int8_mma")
+        probe_launches, probe_worst, probe_shapes = run_probes(card)
+
+        log("== 11. slice: ML-1M full-graph training on KERNEL.BACKEND auto "
+            "(dense) and xla, serving, the train CLI")
+        torch.cuda.empty_cache()
+        dense_numbers = run_dense_xla_slice(bd, ek, card, save_dir)
+        torch.cuda.empty_cache()
+        log("== 11b. slice: one ML-10M training step on KERNEL.BACKEND xla")
+        dense_numbers["ml10m_xla"] = run_ml10m_xla_step(bd, ek, trainer,
+                                                        card)
 
     kernel_ms = sum(sum(s["ms"] for s in shapes) * 2
                     for shapes in (e_shapes, r_shapes))
@@ -2701,6 +3209,7 @@ def main():
             name, f"stargcn_tpu_torch/ops/csrc/{source}", replaces,
             sum(by_path.values()), probe_worst[name], probe_shapes[name]))
         rows[-1]["launches_by_path"] = by_path
+    log(json.dumps({"full_graph_dense_xla": dense_numbers}))
     log(json.dumps({"training": train_numbers}))
     log(json.dumps({"sampled_training": sampled_numbers}))
     log(json.dumps({"kernels": rows}))

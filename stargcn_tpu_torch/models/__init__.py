@@ -5,7 +5,8 @@ from stargcn_tpu_torch.models.stargcn import (
     STARGCNConfig,
     build_model_config,
     resolve_backend,
+    resolve_edge_chunk,
 )
 
 __all__ = ["STARGCN", "STARGCNConfig", "build_model_config",
-           "resolve_backend"]
+           "resolve_backend", "resolve_edge_chunk"]

@@ -1,22 +1,25 @@
-"""Per-rating-level GCN aggregator.
+"""Per-rating-level GCN aggregators.
 
-The port of ``MultiLinkGCNAggregator`` from
-``stargcn_tpu/models/aggregators.py``, on the ``bitdense`` backend:
+The port of ``MultiLinkGCNAggregator`` and ``GCNAggregator`` from
+``stargcn_tpu/models/aggregators.py``, on the ``bitdense``, ``dense`` and
+``xla`` backends:
 
 * 'stack' accumulation splits ``units`` across links (``units //
   num_links`` each, concatenated); 'sum' gives every link ``units`` and
   adds;
 * optional ordinal weight sharing ``W_i = sum_{j<=i} w_j``;
-* the per-link bias rides through the degree-normalised pooling on a ones
-  column;
-* in training, dropout falls on the source features before that column is
-  appended, so the bias is never dropped.
+* the per-link bias rides through the degree-normalised pooling (on a
+  ones column on ``bitdense``; through the projection elsewhere);
+* in training, dropout falls on the source features before the
+  projection, so the bias is never dropped.
 
 Parameters: ``weight`` ``(num_links, in_units, link_units)`` and ``bias``
 ``(num_links, link_units)``, the flax layout.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -26,17 +29,26 @@ from stargcn_tpu_torch.models.common import (
     get_activation,
     xavier_in_,
 )
+from stargcn_tpu_torch.ops.agg import (
+    multi_link_aggregate,
+    multi_link_project,
+    removed_edges_correction,
+    scaled_dense_aggregate,
+)
 from stargcn_tpu_torch.ops.bitdense import bit_multi_link_aggregate
 
 
 class MultiLinkGCNAggregator(nn.Module):
     """Multi-link graph-conv aggregator; ``dropout_rate`` applies to the
-    source features when ``forward`` is called with ``train``."""
+    source features when ``forward`` is called with ``train``.
+    ``backend`` and ``edge_chunk`` are ``multi_link_aggregate``'s, read
+    when the relation carries no static operands."""
 
     def __init__(self, in_units: int, units: int, num_links: int,
                  act=None, dropout_rate: float = 0.0,
                  ordinal_sharing: bool = False,
-                 accum: str = "stack", generator=None):
+                 accum: str = "stack", backend: str = "xla",
+                 edge_chunk: Optional[int] = None, generator=None):
         super().__init__()
         if accum == "stack":
             assert units % num_links == 0, (
@@ -50,20 +62,70 @@ class MultiLinkGCNAggregator(nn.Module):
         self.dropout_rate = dropout_rate
         self.ordinal_sharing = ordinal_sharing
         self.accum = accum
+        self.backend = backend
+        self.edge_chunk = edge_chunk
         self.weight = nn.Parameter(xavier_in_(
             torch.empty(num_links, in_units, link_units),
             num_links * in_units, generator))
         self.bias = nn.Parameter(torch.zeros(num_links, link_units))
 
-    def forward(self, x_src, bit_static=None, *, train: bool = False,
-                generator=None):
-        if bit_static is None:
-            raise NotImplementedError(
-                "only the bitdense backend is ported; the flat-edge (xla), "
-                "dense and ell backends come with the slice that ports "
-                "ops/agg.py and ops/chunked_ell.py")
+    def forward(self, x_src, rel, num_dst: Optional[int] = None,
+                *, train: bool = False, generator=None):
+        """Aggregate ``x_src`` ``(num_src, in_units)`` into ``num_dst``
+        target nodes through ``rel``, a ``models.layers.Relation``."""
         x = dropout(x_src, self.dropout_rate, train, generator)
-        out = bit_multi_link_aggregate(
-            x, bit_static, self.weight, self.bias,
-            ordinal_sharing=self.ordinal_sharing, accum=self.accum)
-        return get_activation(self.act)(out)
+        act = get_activation(self.act)
+        if rel.bit_static is not None:
+            return act(bit_multi_link_aggregate(
+                x, rel.bit_static, self.weight, self.bias,
+                ordinal_sharing=self.ordinal_sharing, accum=self.accum))
+        proj = multi_link_project(x, self.weight, self.bias,
+                                  ordinal_sharing=self.ordinal_sharing)
+        if rel.dense_static is not None:
+            # Static adjacency: degree scalings folded around the product,
+            # removal (when the arrays are set) as a batch-sized
+            # correction.
+            ds = rel.dense_static
+            pooled = scaled_dense_aggregate(proj, ds.adj, ds.dst_scale,
+                                            ds.src_scale,
+                                            transposed=ds.transposed)
+            if ds.rem_src is not None:
+                pooled = pooled - removed_edges_correction(
+                    proj, ds.rem_src, ds.rem_dst, ds.rem_rating,
+                    ds.rem_weight, pooled.shape[0])
+            out = (pooled.reshape(pooled.shape[0], -1)
+                   if self.accum == "stack" else pooled.sum(dim=1))
+        else:
+            out = multi_link_aggregate(
+                proj, rel.edge_src, rel.edge_dst, rel.edge_rating,
+                rel.support, num_dst, accum=self.accum,
+                backend=self.backend, dense_support=rel.dense_support,
+                dense_transposed=rel.dense_transposed,
+                edge_chunk=self.edge_chunk)
+        return act(out)
+
+
+class GCNAggregator(nn.Module):
+    """Single-link aggregator: ``MultiLinkGCNAggregator`` with one link
+    (every edge at rating level 0).  The submodule's name is flax's
+    automatic one, so the JAX package's parameters map one to one."""
+
+    def __init__(self, in_units: int, units: int, act=None,
+                 dropout_rate: float = 0.0, backend: str = "xla",
+                 generator=None):
+        super().__init__()
+        self.MultiLinkGCNAggregator_0 = MultiLinkGCNAggregator(
+            in_units, units, 1, act=act, dropout_rate=dropout_rate,
+            backend=backend, generator=generator)
+
+    def forward(self, x_src, edge_src, edge_dst, support, num_dst, *,
+                train: bool = False, generator=None):
+        # layers.py imports this module, so Relation is imported here.
+        from stargcn_tpu_torch.models.layers import Relation
+
+        rel = Relation(num_links=1, edge_src=edge_src, edge_dst=edge_dst,
+                       edge_rating=torch.zeros_like(edge_src),
+                       support=support)
+        return self.MultiLinkGCNAggregator_0(x_src, rel, num_dst,
+                                             train=train,
+                                             generator=generator)

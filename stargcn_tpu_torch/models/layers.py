@@ -2,7 +2,11 @@
 
 The port of ``stargcn_tpu/models/layers.py``: a layer aggregates each
 (target <- neighbor) relation with a multi-link aggregator, concatenates
-across relations, and applies a per-type output Dense + activation.
+across relations, and applies a per-type output Dense + activation.  A
+``Relation`` carries what the aggregation reads, whichever backend filled
+it: edge arrays and a per-edge support (``xla``), a dense support
+(``dense`` without an adjacency), a ``DenseStatic`` (``dense``) or a
+``BitStatic`` (``bitdense``).
 Module names match the flax tree (``agg_{t}_{s}``, ``out_fc_{t}``,
 ``l{i}``), so ``convert.params_from_flax`` maps parameters one to one.
 """
@@ -17,6 +21,23 @@ from torch import nn
 
 from stargcn_tpu_torch.models.aggregators import MultiLinkGCNAggregator
 from stargcn_tpu_torch.models.common import dense, dropout, get_activation
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseStatic:
+    """Static-adjacency aggregation operands for one direction: the 0/1
+    per-rating adjacency of the graph variant (never rebuilt per step),
+    the separable degree-scale vectors, and the optional arrays of batch
+    edges to correct for (see ``ops.agg.scaled_dense_aggregate``)."""
+
+    adj: torch.Tensor                   # (R, D, S), or (R, S, D) transposed
+    dst_scale: torch.Tensor             # (num_dst,)
+    src_scale: torch.Tensor             # (num_src,)
+    rem_src: Optional[torch.Tensor] = None     # (B,) removed edges
+    rem_dst: Optional[torch.Tensor] = None
+    rem_rating: Optional[torch.Tensor] = None
+    rem_weight: Optional[torch.Tensor] = None
+    transposed: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +61,29 @@ class BitStatic:
     impl: str = "kernel"                # 'kernel' | 'kernel16' | 'plain'
 
 
+@dataclasses.dataclass(frozen=True)
+class Relation:
+    """What one (target <- neighbor) aggregation reads.
+
+    ``edge_src`` indexes the neighbor type's nodes, ``edge_dst`` the
+    target type's; ``support`` carries mask x degree normalisation (0 on
+    removed and padded edges).  ``dense_support`` is a prebuilt ``(R,
+    num_dst, num_src)`` support, or ``(R, num_src, num_dst)`` with
+    ``dense_transposed``.  Where ``dense_static`` or ``bit_static`` is
+    set, the aggregation reads only that.
+    """
+
+    num_links: int
+    edge_src: Optional[torch.Tensor] = None
+    edge_dst: Optional[torch.Tensor] = None
+    edge_rating: Optional[torch.Tensor] = None
+    support: Optional[torch.Tensor] = None
+    dense_support: Optional[torch.Tensor] = None
+    dense_transposed: bool = False
+    dense_static: Optional[DenseStatic] = None
+    bit_static: Optional[BitStatic] = None
+
+
 class HeterGCNLayer(nn.Module):
     """One heterogeneous GCN layer.
 
@@ -49,13 +93,15 @@ class HeterGCNLayer(nn.Module):
       agg_units / out_units: aggregator and output widths (every target).
       dropout_rate: in training, on each aggregator's source features and
         on its output.
+      backend / edge_chunk: the aggregators' (``MultiLinkGCNAggregator``).
     """
 
     def __init__(self, meta: Dict[str, Sequence[str]], in_units: int,
                  agg_units: int, out_units: int, num_links: int,
                  dropout_rate: float = 0.0,
                  agg_ordinal_sharing: bool = False, agg_accum: str = "stack",
-                 agg_act="relu", out_act=None, generator=None):
+                 agg_act="relu", out_act=None, backend: str = "xla",
+                 edge_chunk: Optional[int] = None, generator=None):
         super().__init__()
         self.meta = {t: list(s) for t, s in meta.items()}
         self.out_act = out_act
@@ -66,21 +112,22 @@ class HeterGCNLayer(nn.Module):
                     in_units, agg_units, num_links, act=agg_act,
                     dropout_rate=dropout_rate,
                     ordinal_sharing=agg_ordinal_sharing, accum=agg_accum,
+                    backend=backend, edge_chunk=edge_chunk,
                     generator=generator))
             self.add_module(f"out_fc_{t}", dense(
                 agg_units * len(sources), out_units, generator))
 
     def forward(self, features, relations, *, train: bool = False,
                 generator=None):
-        """``relations[(t, s)]`` is the ``BitStatic`` of aggregation into
+        """``relations[(t, s)]`` is the ``Relation`` of aggregation into
         ``t`` from ``s``."""
         act = get_activation(self.out_act)
         out = {}
         for t, sources in self.meta.items():
             pooled = [dropout(getattr(self, f"agg_{t}_{s}")(
-                features[s], relations[(t, s)], train=train,
-                generator=generator), self.dropout_rate, train, generator)
-                for s in sources]
+                features[s], relations[(t, s)], features[t].shape[0],
+                train=train, generator=generator), self.dropout_rate, train,
+                generator) for s in sources]
             acc = pooled[0] if len(pooled) == 1 else torch.cat(pooled, -1)
             out[t] = act(getattr(self, f"out_fc_{t}")(acc))
         return out

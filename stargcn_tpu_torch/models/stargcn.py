@@ -1,35 +1,50 @@
 """STAR-GCN: stacked & reconstructed GCN for rating prediction (PyTorch).
 
-The port of ``stargcn_tpu/models/stargcn.py`` on the ``bitdense`` backend:
-embeddings with noise masking -> per block [encoder -> rating head ->
-decoder], with the static per-variant bit packs and degree vectors built
-outside the forward.  In training the batch's own edges leave the graph as
-a batch-sized correction of the degrees and of each aggregation, and
-dropout draws from the caller's generator.  Module names match the flax tree
+The port of ``stargcn_tpu/models/stargcn.py`` on the full-graph backends
+``bitdense``, ``dense`` and ``xla``: embeddings with noise masking -> per
+block [encoder -> rating head -> decoder].  Each backend aggregates
+through its own operands, which ``train.loop.GraphVariants`` builds per
+graph variant: the static bit packs (``bitdense``), the static 0/1 dense
+adjacency (``dense``), or the edge arrays under an edge mask (``xla``).
+In training the batch's own edges leave the graph: as a batch-sized
+correction of the degrees and of the static operands (``bitdense``,
+``dense``), or through the step's edge mask (``xla``).  Dropout draws from
+the caller's generator.  Module names match the flax tree
 (``embed_user``, ``enc_b{p}``, ``rating_user_proj_b{p}``,
 ``embed_map_b{p}_{key}_l{0,1}``), so ``convert.params_from_flax`` maps
 parameters one to one.
 
-``build_model_config`` and ``resolve_backend`` are the port of
-``stargcn_tpu/train/loop.py:40-115``.
+``build_model_config``, ``resolve_backend`` and ``resolve_edge_chunk`` are
+the port of ``stargcn_tpu/train/loop.py:40-115``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+from typing import Optional
 
 import torch
 from torch import nn
 
+from stargcn_tpu_torch.graph.device import EdgeSet
 from stargcn_tpu_torch.models.common import dense, get_activation
 from stargcn_tpu_torch.models.layers import (
     BitStatic,
+    DenseStatic,
     InnerProductLayer,
+    Relation,
     StackedHeterGCNLayers,
+)
+from stargcn_tpu_torch.ops.agg import (
+    build_dense_support,
+    edge_support,
+    masked_degrees,
 )
 from stargcn_tpu_torch.ops.bitdense import pack_row_interleave, resolve_impl
 from stargcn_tpu_torch.ops.gather import onehot_segment_sum, take_rows
+
+BACKENDS = ("bitdense", "dense", "xla")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +73,9 @@ class STARGCNConfig:
     out_units: tuple = (75,)
     gen_rating_mid_map: int = 64
     backend: str = "bitdense"
+    # xla backend: edges per chunk of the aggregation's gather/scatter
+    # (bounds its (E, units) message buffer on big graphs); None = all.
+    edge_chunk: Optional[int] = None
     bit_impl: str = "auto"
     dropout_per_edge: bool = False
     compute_dtype: str = "float32"
@@ -72,7 +90,8 @@ class STARGCNConfig:
 
 def _check_supported(cfg: STARGCNConfig):
     unsupported = {
-        "backend other than 'bitdense'": cfg.backend != "bitdense",
+        f"backend {cfg.backend!r} (ported: {', '.join(BACKENDS)})":
+            cfg.backend not in BACKENDS,
         "MODEL.USE_FEA_PROJ": cfg.use_fea_proj,
         "MODEL.USE_EMBED false": not cfg.use_embed,
         "GCN.USE_RECURRENT": cfg.gcn_use_recurrent,
@@ -84,11 +103,10 @@ def _check_supported(cfg: STARGCNConfig):
     if bad:
         raise NotImplementedError(
             f"not ported yet ({', '.join(bad)}): the port trains and "
-            "serves the bitdense backend in float32 with learned "
-            "embeddings; the other backends come with the slice that "
-            "ports ops/agg.py and ops/chunked_ell.py, bfloat16 compute, "
-            "per-edge dropout and feature projection with the slices "
-            "that port them")
+            "serves the bitdense, dense and xla backends in float32 with "
+            "learned embeddings; the ell backend comes with the slice that "
+            "ports ops/chunked_ell.py, bfloat16 compute, per-edge dropout "
+            "and feature projection with the slices that port them")
 
 
 class STARGCN(nn.Module):
@@ -124,7 +142,8 @@ class STARGCN(nn.Module):
                     dropout_rate=cfg.gcn_dropout,
                     agg_ordinal_sharing=cfg.agg_ordinal_sharing,
                     agg_accum=cfg.agg_accum, agg_act=cfg.activation,
-                    out_act=cfg.activation))
+                    out_act=cfg.activation, backend=cfg.backend,
+                    edge_chunk=cfg.edge_chunk))
                 in_units = ou
             self.add_module(f"enc_b{p}",
                             StackedHeterGCNLayers(layer_cfgs, generator=g))
@@ -140,8 +159,8 @@ class STARGCN(nn.Module):
         self.gen_ratings = InnerProductLayer()
 
     def forward(self, noise_user, noise_item, pairs_user, pairs_item,
-                variant_degrees, bit_pack, removed_pairs=None, *,
-                train: bool = False, generator=None,
+                variant_degrees, operands, removed_pairs=None, *,
+                graph=None, train: bool = False, generator=None,
                 return_rating_feats: bool = False):
         """Forward over one graph variant.
 
@@ -150,12 +169,25 @@ class STARGCN(nn.Module):
             the embedding to zero, else the node's own id), or ``None``.
           pairs_user / pairs_item: ``(B,)`` rating-pair node indices.
           variant_degrees: ``(deg_user, deg_item)`` float degree vectors
-            of the variant.
-          bit_pack: the variant's ``ops.bitdense.build_bit_pack`` dict.
-          removed_pairs: ``(pu, pi, hit, rating)`` of the batch edges to
-            take out of the graph for this step: int64 node ids and
-            rating levels, ``hit`` float, 1 where the pair is an edge of
-            the variant (the lookup is done on the host).
+            of the variant, read by ``bitdense`` and by ``dense`` with an
+            adjacency; elsewhere the degrees come from the edge mask.
+          operands: what the backend aggregates through
+            (``train.loop.GraphVariants.operands``): the variant's
+            ``ops.bitdense.build_bit_pack`` dict (``bitdense``); its
+            ``(R, Nu, Ni)`` 0/1 adjacency (``dense``); or a
+            ``graph.device.EdgeSet`` of the edge arrays and the step's
+            edge mask (``xla``, and ``dense`` without an adjacency, which
+            then scatters a dense support every call).
+          removed_pairs: the batch edges to take out of the graph for this
+            step, read by ``bitdense`` and by ``dense`` with an adjacency:
+            ``(pu, pi, hit, rating)`` from the host lookup (int64 node ids
+            and rating levels, ``hit`` float, 1 where the pair is an edge
+            of the variant), or ``(pu, pi, valid)``, looked up on the
+            device through the pair keys of ``graph``.  With an
+            ``EdgeSet`` the removal is in its mask
+            (``BipartiteGraphData.edge_mask_from_pairs``), as in the JAX
+            package, and ``removed_pairs`` is not read.
+          graph: the ``BipartiteGraphData``, for the 3-tuple lookup.
           train: apply dropout (``GCN.DROPOUT``), drawn from
             ``generator``, a ``torch.Generator`` on the model's device.
 
@@ -167,20 +199,40 @@ class STARGCN(nn.Module):
         """
         cfg = self.cfg
         act = get_activation(cfg.activation)
-        if removed_pairs is not None and len(removed_pairs) != 4:
-            raise NotImplementedError(
-                "removed_pairs takes the host-computed (pu, pi, hit, "
-                "rating) tuple; the 3-tuple form with the lookup on the "
-                "device comes with the pair-lookup keys of graph/device.py")
-        deg_u, deg_i = variant_degrees
-        if removed_pairs is not None:
-            # Static variant degrees corrected for the removed batch edges.
-            pu, pi, hit, _ = removed_pairs
-            deg_u = deg_u - onehot_segment_sum(hit, pu, cfg.num_users)
-            deg_i = deg_i - onehot_segment_sum(hit, pi, cfg.num_items)
-        bit_u, bit_i = _build_bit_static_operands(cfg, bit_pack, deg_u,
-                                                  deg_i, removed_pairs)
-        relations = {("user", "item"): bit_u, ("item", "user"): bit_i}
+        edges = operands if isinstance(operands, EdgeSet) else None
+        if edges is not None and cfg.backend == "bitdense":
+            raise ValueError("the bitdense backend reads a bit pack, not "
+                             "an EdgeSet")
+        if edges is None and cfg.backend == "xla":
+            raise ValueError("the xla backend reads an EdgeSet (the edge "
+                             "arrays and the step's edge mask)")
+        if edges is not None:
+            relations = _edge_relations(cfg, edges)
+        else:
+            removed = _removed_info(removed_pairs, graph)
+            deg_u, deg_i = variant_degrees
+            if removed is not None:
+                # Static variant degrees corrected for the removed batch
+                # edges.
+                pu, pi, hit, _ = removed
+                deg_u = deg_u - onehot_segment_sum(hit, pu, cfg.num_users)
+                deg_i = deg_i - onehot_segment_sum(hit, pi, cfg.num_items)
+            if cfg.backend == "bitdense":
+                static_u, static_i = _build_bit_static_operands(
+                    cfg, operands, deg_u, deg_i, removed)
+                relations = {
+                    ("user", "item"): Relation(cfg.num_links,
+                                               bit_static=static_u),
+                    ("item", "user"): Relation(cfg.num_links,
+                                               bit_static=static_i)}
+            else:
+                static_u, static_i = _build_dense_static_operands(
+                    cfg, operands, deg_u, deg_i, removed)
+                relations = {
+                    ("user", "item"): Relation(cfg.num_links,
+                                               dense_static=static_u),
+                    ("item", "user"): Relation(cfg.num_links,
+                                               dense_static=static_i)}
 
         gt_embed = {"user": self.embed_user.weight,
                     "item": self.embed_item.weight}
@@ -236,6 +288,90 @@ def _norm_scales(cfg, deg_u, deg_i):
     inv_i = torch.where(deg_i > 0, 1.0 / deg_i.clamp_min(1e-12), zero)
     return {"user": (inv_u, torch.ones_like(deg_i)),
             "item": (inv_i, torch.ones_like(deg_u))}
+
+
+def _removed_info(removed_pairs, graph):
+    """``removed_pairs`` as the 4-tuple ``(pu, pi, hit, rating)``: a
+    3-tuple ``(pu, pi, valid)`` is looked up through ``graph``'s sorted
+    pair keys."""
+    if removed_pairs is None or len(removed_pairs) == 4:
+        return removed_pairs
+    if graph is None:
+        raise ValueError(
+            "the 3-tuple removed_pairs (pu, pi, valid) is looked up "
+            "through the graph's pair keys: pass graph=, or the "
+            "host-computed (pu, pi, hit, rating) tuple")
+    pu, pi, valid = removed_pairs
+    pos, found = graph.lookup_pairs(pu, pi)
+    hit = (found & (valid > 0)).to(torch.float32)
+    rating = graph.edge_rating.index_select(
+        0, graph.lookup_perm[pos].long()).long()
+    return pu, pi, hit, rating
+
+
+def _edge_relations(cfg, edges: EdgeSet):
+    """Relations over the edge arrays: degrees and per-edge support of the
+    masked graph, and for ``dense`` the per-step dense support (one tensor,
+    shared transposed between the two directions under the symmetric
+    norm)."""
+    g = edges.graph
+    mask = edges.mask * g.edge_pad_mask
+    deg_u, deg_i = masked_degrees(g.edge_user, g.edge_item, mask,
+                                  g.num_users, g.num_items)
+    if cfg.agg_norm_symm:
+        sup_u = sup_i = edge_support(deg_u, deg_i, g.edge_user, g.edge_item,
+                                     mask, symm=True)
+    else:
+        # target user <- item: the support is 1/d_user.
+        sup_u = edge_support(deg_u, deg_i, g.edge_user, g.edge_item, mask,
+                             symm=False)
+        sup_i = edge_support(deg_i, deg_u, g.edge_item, g.edge_user, mask,
+                             symm=False)
+    dense_u = dense_i = None
+    transposed = False
+    if cfg.backend == "dense":
+        # The support depends on the mask only, so no gradient flows
+        # through the scatter.
+        dense_u = build_dense_support(
+            g.edge_item, g.edge_user, g.edge_rating, sup_u, g.num_links,
+            g.num_users, g.num_items).detach()
+        if cfg.agg_norm_symm:
+            dense_i, transposed = dense_u, True
+        else:
+            dense_i = build_dense_support(
+                g.edge_user, g.edge_item, g.edge_rating, sup_i, g.num_links,
+                g.num_items, g.num_users).detach()
+    return {
+        ("user", "item"): Relation(
+            g.num_links, edge_src=g.edge_item, edge_dst=g.edge_user,
+            edge_rating=g.edge_rating, support=sup_u,
+            dense_support=dense_u),
+        ("item", "user"): Relation(
+            g.num_links, edge_src=g.edge_user, edge_dst=g.edge_item,
+            edge_rating=g.edge_rating, support=sup_i,
+            dense_support=dense_i, dense_transposed=transposed),
+    }
+
+
+def _build_dense_static_operands(cfg, dense_adj, deg_u, deg_i,
+                                 removed_info=None):
+    """``DenseStatic`` operands for both directions over the ``(R, Nu,
+    Ni)`` variant adjacency; the item direction reads it transposed.  A
+    removal is folded into the adjacency as one scalar scatter,
+    ``adj - delta``, 0/1-exact in bf16, so every aggregation and its
+    gradient stay one product."""
+    scales = _norm_scales(cfg, deg_u, deg_i)
+    adj = dense_adj.detach()
+    if removed_info is not None:
+        pu, pi, hit, r = removed_info
+        R, nu, ni = adj.shape
+        idx = (r.long() * nu + pu.long()) * ni + pi.long()
+        adj = adj.clone()
+        adj.view(-1).index_add_(0, idx, -hit.to(adj.dtype))
+    return (DenseStatic(adj=adj, dst_scale=scales["user"][0],
+                        src_scale=scales["user"][1], transposed=False),
+            DenseStatic(adj=adj, dst_scale=scales["item"][0],
+                        src_scale=scales["item"][1], transposed=True))
 
 
 def _build_bit_static_operands(cfg, bit_pack, deg_u, deg_i,
@@ -299,9 +435,27 @@ def resolve_backend(backend: str, num_links, num_users, num_items) -> str:
     return "dense" if entries <= 150_000_000 else "bitdense"
 
 
-def build_model_config(cfg, num_users, num_items,
-                       num_links) -> STARGCNConfig:
-    """Translate the experiment config tree into a STARGCNConfig."""
+def resolve_edge_chunk(backend, num_edges, agg_units,
+                       budget_mb: int = 1500):
+    """Edges per chunk of the ``xla`` aggregation, so that its ``(chunk,
+    units)`` float32 message buffer stays within ``budget_mb``
+    (``KERNEL.XLA_MSG_BUDGET_MB``); None where all edges fit, on other
+    backends, or without an edge count.  Chunks are multiples of 65,536
+    edges."""
+    if backend != "xla" or not num_edges:
+        return None
+    units = max(agg_units)
+    budget = int(budget_mb) * 10**6
+    if num_edges * units * 4 <= budget:
+        return None
+    chunk = max(budget // (units * 4), 65536)
+    return (chunk // 65536) * 65536
+
+
+def build_model_config(cfg, num_users, num_items, num_links,
+                       num_edges=None) -> STARGCNConfig:
+    """Translate the experiment config tree into a STARGCNConfig;
+    ``num_edges`` sizes the ``xla`` backend's edge chunks."""
     backend = resolve_backend(cfg.KERNEL.BACKEND, num_links,
                               num_users, num_items)
     dropout_per_edge = cfg.GCN.get("DROPOUT_PER_EDGE", False)
@@ -328,6 +482,9 @@ def build_model_config(cfg, num_users, num_items,
         out_units=tuple(cfg.GCN.OUT.UNITS),
         gen_rating_mid_map=cfg.GEN_RATING.MID_MAP,
         backend=backend,
+        edge_chunk=resolve_edge_chunk(
+            backend, num_edges, tuple(cfg.GCN.AGG.UNITS),
+            budget_mb=cfg.KERNEL.get("XLA_MSG_BUDGET_MB", 1500)),
         bit_impl=cfg.KERNEL.get("BIT_IMPL", "auto"),
         dropout_per_edge=dropout_per_edge,
         self_noise_only=cfg.MODEL.get("SELF_NOISE_ONLY", True),

@@ -57,7 +57,7 @@ def build_dataset(cfg):
         embed_p_self=1.0 - cfg.EMBED.P_ZERO, seed=cfg.SEED)
     model_cfg = build_model_config(
         cfg, num_users=csr.shape[0], num_items=csr.shape[1],
-        num_links=len(csr.multi_link))
+        num_links=len(csr.multi_link), num_edges=csr.nnz)
     return graph, data_iter, model_cfg
 
 
@@ -77,7 +77,9 @@ def main(argv=None):
                              "instead of building one")
     parser.add_argument("--save_artifact", default=None, type=str,
                         help="write the exported artifact to this path")
-    parser.add_argument("--backend", default=None, type=str)
+    parser.add_argument("--backend", default=None, type=str,
+                        help="full-graph aggregation backend: auto | dense "
+                             "| xla | bitdense (pallas reads as xla)")
     parser.add_argument("--device", default="cuda", type=str,
                         help="cuda (default) or cpu")
     parser.add_argument("--users", default=None, type=str,

@@ -103,7 +103,8 @@ class ServingState:
     optimiser and the training tables.
 
     Args:
-      model_cfg: a ``STARGCNConfig`` on the ``bitdense`` backend.
+      model_cfg: a ``STARGCNConfig`` on the ``bitdense``, ``dense`` or
+        ``xla`` backend.
       data_iter: the ``DataIterator`` over the rating graph.
       device: where the model and its operands live (default the card).
       seed: seeds the ``torch.Generator`` that initialises the parameters
@@ -111,8 +112,8 @@ class ServingState:
       state_dict: parameters to load (e.g. ``convert.params_from_flax``
         of a JAX ``Trainer.params``, or a checkpoint's).
       variants: the ``GraphVariants`` of a ``Trainer`` over the same
-        graph on the same device, to share its packs instead of building
-        them again.
+        graph on the same device, to share its packs or adjacencies
+        instead of building them again.
     """
 
     def __init__(self, model_cfg, data_iter, device="cuda", seed: int = 123,
@@ -152,7 +153,8 @@ def export_serving(state, segment: str = "test",
     with torch.no_grad():
         out = state.model(noise_u, noise_i, dummy, dummy,
                           state.variants.degrees(seg),
-                          state.variants.bit_pack(seg),
+                          state.variants.operands(
+                              seg, state.model_cfg.backend),
                           return_rating_feats=True)
         feats = out["rating_feats"]
         cfg = state.model_cfg

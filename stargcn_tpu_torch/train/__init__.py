@@ -3,6 +3,7 @@
 from stargcn_tpu_torch.models.stargcn import (
     build_model_config,
     resolve_backend,
+    resolve_edge_chunk,
 )
 from stargcn_tpu_torch.train.loop import Trainer, TrainSettings
 from stargcn_tpu_torch.train.sampled_loop import (
@@ -12,4 +13,4 @@ from stargcn_tpu_torch.train.sampled_loop import (
 
 __all__ = ["Trainer", "TrainSettings", "SampledTrainer",
            "build_model_config", "resolve_backend",
-           "resolve_sampled_backend"]
+           "resolve_edge_chunk", "resolve_sampled_backend"]

@@ -1,7 +1,10 @@
 """STAR-GCN training CLI (PyTorch).  The port of ``experiments/train.py``
-for full-graph transductive training on the ``bitdense`` backend::
+for full-graph transductive training on the ``dense``, ``xla`` and
+``bitdense`` backends (``--backend auto``, the config's default, picks
+``dense`` for graphs of at most 150M rating x user x item entries, such as
+the default synthetic graph, and ``bitdense`` beyond)::
 
-    python -m stargcn_tpu_torch.train --cfg configs/transductive_ml_10m.yml \\
+    python -m stargcn_tpu_torch.train --cfg configs/transductive_ml_1m.yml \\
         --dataset synthetic --save_dir runs --max_iter 200
 
 and, with ``--num_neighbors K`` (``GRAPH_SAMPLER.NUM_NEIGHBORS`` > 0), for
@@ -37,7 +40,8 @@ def main(argv=None):
     parser.add_argument("--silent", action="store_true")
     parser.add_argument("--max_iter", default=None, type=int)
     parser.add_argument("--backend", default=None, type=str,
-                        help="aggregation kernel backend: auto | bitdense; "
+                        help="full-graph aggregation backend: auto | "
+                             "dense | xla | bitdense (pallas reads as xla); "
                              "in sampled mode pallas | xla | auto")
     parser.add_argument("--num_neighbors", default=None, type=int,
                         help="sampled mini-batch mode with this fanout "

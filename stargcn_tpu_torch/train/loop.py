@@ -1,28 +1,34 @@
 """Full-graph training/evaluation engine for STAR-GCN (PyTorch).
 
-The port of ``stargcn_tpu/train/loop.py`` on the ``bitdense`` backend:
+The port of ``stargcn_tpu/train/loop.py`` on the full-graph backends
+``bitdense``, ``dense`` and ``xla``:
 
 * graph variants (train/valid/test) are edge masks over one static edge
-  array; their degrees and bit packs are built once (``GraphVariants``),
-  packs on first use and shared between variants with identical masks;
+  array; their degrees, and the bit packs (``bitdense``) or 0/1 dense
+  adjacencies (``dense``), are built once (``GraphVariants``), the static
+  operands on first use and shared between variants with identical masks;
 * per-iteration batch-edge removal (``REMOVE_RATING``) is a host lookup of
-  the batch pairs plus a batch-sized correction inside the model;
+  the batch pairs plus a batch-sized correction inside the model
+  (``bitdense``, ``dense``), or the variant's mask with the batch's edges
+  zeroed on the device by ``edge_mask_from_pairs`` (``xla``);
 * loss = sum over blocks of 0.5 * mean (pred - (r - mean) / std)^2 +
   RECON_LAMBDA * sum over blocks/types of mean-over-masked-nodes
   ||e_hat - e||^2;
 * gradient global-norm clipping, Adam, and the patience-driven LR decay
   to MIN_LR with early stopping.
 
-A step is eager PyTorch: forward, ``backward`` (through
+A step is eager PyTorch: forward, ``backward`` (on ``bitdense`` through
 ``ops.bitdense.bit_pool_rated``, whose backward is the
-``bit_reduce_matmul`` kernel on the card), clip, Adam.  ``index_add_`` and
-the gradient of a row gather use atomics on the card, so a step is not
+``bit_reduce_matmul`` kernel on the card; on ``dense`` and ``xla``
+through cuBLAS products and ``index_add_``), clip, Adam.  ``index_add_``
+and the gradient of a row gather use atomics on the card, so a step is not
 bit-reproducible from run to run there, although both bit kernels are.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import logging
 import os
@@ -32,45 +38,41 @@ from typing import Optional
 import numpy as np
 import torch
 
-from stargcn_tpu_torch.graph.device import BipartiteGraphData
+from stargcn_tpu_torch.graph.device import BipartiteGraphData, EdgeSet
 from stargcn_tpu_torch.models.stargcn import STARGCN, STARGCNConfig
+from stargcn_tpu_torch.ops.agg import build_dense_adjacency
 from stargcn_tpu_torch.ops.bitdense import (build_bit_pack,
                                            pack_row_interleave, resolve_impl)
 from stargcn_tpu_torch.utils.device import resolve_device
 from stargcn_tpu_torch.utils.logging import MetricLogger
 
 
-class _LazyBitPacks:
-    """Per-variant bit-packed dense adjacencies (``ops/bitdense.py``),
-    built (and cached) on first use: a pack takes seconds of host time and
-    about 2 GB of device memory at ML-10M scale, so the valid/test
-    variants wait for the first evaluation, and identical masks share one
-    pack (transductively the valid graph is the train graph)."""
+class _ByMask:
+    """Static operands of a graph variant, built (and cached) on first
+    use by ``build(mask)``, where ``mask`` is the variant's edge mask
+    times the pad mask: the valid and test variants wait for the first
+    evaluation, and identical masks share one build (transductively the
+    valid graph is the train graph).  A bit pack takes seconds of host time
+    and about 2 GB of device memory at ML-10M scale; a bf16 dense
+    adjacency 224 MB at ML-1M scale."""
 
-    def __init__(self, edges, model_cfg, device):
-        self._edges = edges        # numpy (user, item, rating, pad mask)
-        self._cfg = model_cfg
-        self._device = device
-        self._cache = {}           # mask-bytes digest -> pack
+    def __init__(self, pad, build):
+        self._pad = pad
+        self._build = build
+        self._cache = {}           # mask-bytes digest -> operands
         self._by_variant = {}
 
     def get(self, variant, mask):
         if variant not in self._by_variant:
-            eu, ei, er, pad = self._edges
-            m = np.ascontiguousarray(np.asarray(mask) * pad, np.float32)
+            m = np.ascontiguousarray(np.asarray(mask) * self._pad,
+                                     np.float32)
             key = hashlib.sha1(m.tobytes()).hexdigest()
             if key not in self._cache:
-                cfg = self._cfg
-                # The pack layout follows the kernels the model resolves
-                # to: the 16-bit route reads row-interleaved packs.
-                ril = pack_row_interleave(resolve_impl(cfg.bit_impl))
-                # Packs outlive the call that first asks for them, so they
-                # are ordinary tensors even when that call runs under
+                # Operands outlive the call that first asks for them, so
+                # they are ordinary tensors even when that call runs under
                 # ``torch.inference_mode()``.
                 with torch.inference_mode(False):
-                    self._cache[key] = build_bit_pack(
-                        eu, ei, er, m, cfg.num_users, cfg.num_items,
-                        cfg.num_links, self._device, row_interleave=ril)
+                    self._cache[key] = self._build(m)
             self._by_variant[variant] = self._cache[key]
         return self._by_variant[variant]
 
@@ -78,9 +80,9 @@ class _LazyBitPacks:
 class GraphVariants:
     """The static operands of the three graph variants of one rating
     graph, on ``device``: the padded edge arrays, and per variant
-    (``'test'``, ``'valid'``, ``'train'``) its edge mask, degree vectors
-    and bit packs.  ``Trainer`` and ``serve.ServingState`` read them from
-    here."""
+    (``'test'``, ``'valid'``, ``'train'``) its edge mask, degree vectors,
+    and bit packs or dense adjacencies, each built on first use.
+    ``Trainer`` and ``serve.ServingState`` read them from here."""
 
     def __init__(self, model_cfg, data_iter, device):
         self.model_cfg = model_cfg
@@ -92,8 +94,30 @@ class GraphVariants:
         g = self.graph_data
         self._edges = tuple(t.cpu().numpy() for t in (
             g.edge_user, g.edge_item, g.edge_rating, g.edge_pad_mask))
-        self._masks, self._degrees = {}, {}
-        self._packs = _LazyBitPacks(self._edges, model_cfg, device)
+        self._masks, self._degrees, self._device_masks = {}, {}, {}
+        pad = self._edges[3]
+        self._packs = _ByMask(pad, self._build_pack)
+        self._adjs = {dtype: _ByMask(pad, functools.partial(
+            self._build_adj, dtype=dtype))
+            for dtype in (torch.bfloat16, torch.float32)}
+
+    def _build_pack(self, mask):
+        cfg = self.model_cfg
+        eu, ei, er, _ = self._edges
+        # The pack layout follows the kernels the model resolves to: the
+        # 16-bit route reads row-interleaved packs.
+        ril = pack_row_interleave(resolve_impl(cfg.bit_impl))
+        return build_bit_pack(eu, ei, er, mask, cfg.num_users, cfg.num_items,
+                              cfg.num_links, self.device, row_interleave=ril)
+
+    def _build_adj(self, mask, dtype):
+        g, cfg = self.graph_data, self.model_cfg
+        # User orientation (dst = user); the item direction reads it
+        # transposed.
+        return build_dense_adjacency(
+            g.edge_item, g.edge_user, g.edge_rating,
+            torch.from_numpy(mask).to(self.device), cfg.num_links,
+            cfg.num_users, cfg.num_items, dtype=dtype)
 
     def edge_mask(self, variant: str) -> np.ndarray:
         """Float mask over the padded edge arrays selecting the edges of
@@ -130,6 +154,31 @@ class GraphVariants:
     def bit_pack(self, variant: str):
         """The variant's bit packs on the device, built on first use."""
         return self._packs.get(variant, self.edge_mask(variant))
+
+    def dense_adj(self, variant: str, dtype=torch.bfloat16):
+        """The variant's ``(R, Nu, Ni)`` 0/1 adjacency on the device in
+        ``dtype`` (bf16 or float32), built on first use."""
+        return self._adjs[dtype].get(variant, self.edge_mask(variant))
+
+    def device_mask(self, variant: str) -> torch.Tensor:
+        """The variant's edge mask as a float32 tensor on the device."""
+        if variant not in self._device_masks:
+            with torch.inference_mode(False):
+                self._device_masks[variant] = torch.from_numpy(
+                    self.edge_mask(variant)).to(self.device)
+        return self._device_masks[variant]
+
+    def operands(self, variant: str, backend: str):
+        """What ``STARGCN.forward`` aggregates through on ``backend``: the
+        bit packs (``bitdense``), the bf16 dense adjacency (``dense``) or
+        the edge arrays under the variant's mask (``xla``)."""
+        if backend == "bitdense":
+            return self.bit_pack(variant)
+        if backend == "dense":
+            return self.dense_adj(variant)
+        if backend == "xla":
+            return EdgeSet(self.graph_data, self.device_mask(variant))
+        raise ValueError(f"unknown backend: {backend!r}")
 
 
 @dataclasses.dataclass
@@ -290,7 +339,8 @@ class Trainer:
     """Owns the model, its optimiser and the host-side schedule.
 
     Args:
-      model_cfg: a ``STARGCNConfig`` on the ``bitdense`` backend.
+      model_cfg: a ``STARGCNConfig`` on the ``bitdense``, ``dense`` or
+        ``xla`` backend.
       data_iter: the ``DataIterator`` over the rating graph.
       settings: ``TrainSettings``.
       save_dir / save_id: where the CSVs and checkpoints go (none without
@@ -372,6 +422,10 @@ class Trainer:
         """Change the learning rate; the Adam moments stay."""
         self.lr = lr
         self.opt.lr = float(lr)
+
+    def _operands(self, variant: str):
+        """The model's aggregation operands of a graph variant."""
+        return self.variants.operands(variant, self.model_cfg.backend)
 
     def seed_dropout(self, seed: int):
         """Restart the dropout stream from ``seed``."""
@@ -461,12 +515,18 @@ class Trainer:
                        "item": rmask[cfg.num_users:]}
         removed_pairs = ((pairs_u, pairs_i, rem_hit, rem_rating)
                          if self.do_remove else None)
+        operands = self._operands("train")
+        if removed_pairs is not None and isinstance(operands, EdgeSet):
+            # xla: the batch's edges leave the step's edge mask.
+            operands = EdgeSet(operands.graph,
+                               operands.graph.edge_mask_from_pairs(
+                                   pairs_u, pairs_i, rem_hit, operands.mask))
         n_valid = pairs_valid.sum().clamp_min(1.0)
 
         out = self.model(
             noise_u, noise_i, pairs_u, pairs_i,
-            self.variants.degrees("train"), self.variants.bit_pack("train"),
-            removed_pairs, train=True, generator=self._dropout_gen)
+            self.variants.degrees("train"), operands, removed_pairs,
+            train=True, generator=self._dropout_gen)
         target = (gt_ratings - mean) / std
         # 0.5 * mean squared error per block; padded batch slots carry
         # zero weight.
@@ -505,7 +565,7 @@ class Trainer:
         noise_u, noise_i = self._eval_noise
         out = self.model(noise_u, noise_i, pu, pi,
                          self.variants.degrees(seg_key),
-                         self.variants.bit_pack(seg_key), train=False)
+                         self._operands(seg_key), train=False)
         denorm = out["pred_ratings"] * self.rating_std + self.rating_mean
         return denorm.clamp(self.rating_min, self.rating_max)
 

@@ -134,9 +134,7 @@ def test_seeded_init_follows_flax_scheme(pair_sum):
 
 def test_unported_paths_raise(pair_sum):
     _, state = pair_sum
-    with pytest.raises(NotImplementedError):
-        STARGCN(dataclasses.replace(state.model_cfg, backend="dense"))
-    for field, value in (("backend", "xla"), ("backend", "ell"),
+    for field, value in (("backend", "ell"), ("backend", "pallas"),
                          ("compute_dtype", "bfloat16"),
                          ("dropout_per_edge", True),
                          ("use_fea_proj", True)):
@@ -146,3 +144,18 @@ def test_unported_paths_raise(pair_sum):
             pu = torch.zeros(1, dtype=torch.long)
             model(None, None, pu, pu, state.variants.degrees("test"),
                   state.variants.bit_pack("test"))
+
+
+@pytest.mark.parametrize("field,value,match", [
+    ("backend", "ell", "ell"),
+    ("dropout_per_edge", True, "DROPOUT_PER_EDGE"),
+])
+def test_ell_and_per_edge_dropout_still_refused(pair_sum, field, value,
+                                                match):
+    """The ``dense`` and ``xla`` backends build; the ``ell`` backend and
+    ``GCN.DROPOUT_PER_EDGE`` are still refused, by name."""
+    _, state = pair_sum
+    for backend in ("dense", "xla"):
+        STARGCN(dataclasses.replace(state.model_cfg, backend=backend))
+    with pytest.raises(NotImplementedError, match=match):
+        STARGCN(dataclasses.replace(state.model_cfg, **{field: value}))

@@ -140,8 +140,16 @@ def test_removed_pairs_change_the_step_graph():
     np.testing.assert_allclose(with_removal.numpy(),
                                run(deg, pack, None).numpy(),
                                rtol=2e-4, atol=2e-4)
-    with pytest.raises(NotImplementedError, match="3-tuple"):
-        run(v.degrees("train"), v.bit_pack("train"), (pu, pi, t(flts[2])))
+    # The 3-tuple form is looked up through the graph's pair keys, and
+    # needs the graph for it.
+    with pytest.raises(ValueError, match="3-tuple"):
+        run(v.degrees("train"), v.bit_pack("train"), (pu, pi, t(flts[1])))
+    with torch.no_grad():
+        looked_up = ttrainer.model(
+            t(noise[:nu]), t(noise[nu:]), pu, pi, v.degrees("train"),
+            v.bit_pack("train"), (pu, pi, t(flts[1])),
+            graph=v.graph_data)["pred_ratings"]
+    np.testing.assert_array_equal(looked_up.numpy(), with_removal.numpy())
 
 
 def test_dropout_function():
@@ -167,11 +175,13 @@ def test_aggregator_never_drops_the_bias_column():
     pooling on the ones column: dropout on the source features, at any
     rate, leaves it as it is."""
     _, ttrainer = build_trainers("sum")
+    from stargcn_tpu_torch.models.layers import Relation
     from stargcn_tpu_torch.models.stargcn import _build_bit_static_operands
 
     v = ttrainer.variants
     bit_u, _ = _build_bit_static_operands(
         ttrainer.model_cfg, v.bit_pack("train"), *v.degrees("train"))
+    bit_u = Relation(num_links=10, bit_static=bit_u)
     agg = MultiLinkGCNAggregator(8, 16, 10, dropout_rate=0.9, accum="sum")
     with torch.no_grad():
         agg.weight.zero_()
