@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (``stargcn_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 11,12   # phases 1, 2 and these alone
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -115,6 +116,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    (7 over 10M edges): one ``train_iteration`` with its time and peak
    memory, and its loss and gradients on one batch against the
    ``bitdense`` trainer's (kernels) and its plain twin's.
+12. inductive ML-1M from an archive on disk: an ML-1M-format archive at
+   the real size written by ``write_ml1m_format`` (6,040 users, 3,706
+   items, 1,000,209 ratings requested, seed 123; write and ``LoadData``
+   parse times, parsed counts beside the published ones), then
+   ``configs/inductive_ml_1m_item_10.yml`` as published through
+   ``predict.build_dataset`` (20% of the items held out, 90% of their
+   edges; train / valid / test node and edge counts).  ``auto`` resolves
+   to ``dense``: the three variants' adjacencies (distinct, none shared);
+   one ``train_iteration`` (no bit or ELL launch), step time, device busy
+   and peak memory with the three adjacencies held; the same batch and
+   parameters on ``bitdense`` (4 ``bit_expand_matmul`` + 4
+   ``bit_reduce_matmul`` on the inductive masks), its loss and every
+   gradient against its plain versions fed bf16-rounded inputs (phase 6's
+   tolerance) and against the ``dense`` step (phase 11's tolerance between
+   ``dense`` and its float32 twin); ``fit`` for 20 steps with two
+   validations and checkpoints, ``export_serving``, queries, and
+   predictions on pairs of held-out test items (evaluation noise -1)
+   equal to ``Trainer.predict``'s; ``SampledTrainer`` on ``pallas`` with
+   phase 8's settings (one step: 4 ``ell_spmm_fwd_only`` + 4
+   ``ell_spmm_transpose``; its loss and every gradient on one batch
+   against the plain twin's, phase 8's tolerance; the step split into plan, pack, copy and
+   device; ``fit`` for 10 steps with one validation); then ``python -m
+   stargcn_tpu_torch.train --cfg configs/inductive_ml_1m_user_10.yml
+   --data_root <dir> --max_iter 10``, the user-keyed config.
 
 Phase 3 also checks the three ELL kernels on small cases (K = 1, 8, 32;
 F = 1, 65, 250, 256; padded slots with in-range and out-of-range indices;
@@ -132,7 +157,7 @@ index; negative and too-large indices; every slot padded), each within
 and slots that name one index bit-equal.  Every time printed carries the
 card's name and power limit.
 
-Phases 10, 11 and 11b run inside phase 4's temporary directory, after
+Phases 10, 11, 11b and 12 run inside phase 4's temporary directory, after
 phase 8.  The line before the last is the card's name and power limit, the
 one before it ``{"kernels": [...]}`` (all nine kernels: the ``dense`` and
 ``xla`` paths launch none of them); the last is ``{"ok": true, "device":
@@ -2300,23 +2325,57 @@ def no_kernel_launched(*modules):
     return all(n == 0 for mod in modules for n in mod.LAUNCHES.values())
 
 
+@contextlib.contextmanager
+def gc_pauses():
+    """While open, the host milliseconds and the number of Python's
+    cyclic garbage collections, by generation: ``{"ms": t, "runs": [n0,
+    n1, n2]}``."""
+    import gc
+
+    out, started = {"ms": 0.0, "runs": [0, 0, 0]}, []
+
+    def callback(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            out["ms"] += (time.perf_counter() - started.pop()) * 1e3
+            out["runs"][info["generation"]] += 1
+
+    gc.callbacks.append(callback)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(callback)
+
+
 def step_numbers(trainer, next_batch, card, what):
     """Phase 11 (e): ``train_iteration`` 5 times after a first one, host
     clock ending in a synchronise; the profiler's device time of one more
-    with its top device operations; the memory a step takes above what is
-    held before it."""
+    with its top device operations; 5 more steps on the host clock after
+    that profiler session; the Python garbage collector's pauses in the
+    first 5 and the objects it tracks; the memory a step takes above what
+    is held before it."""
+    import gc
+
     import torch
+
+    def five_steps():
+        times = []
+        for _ in range(5):
+            b = next_batch()
+            _, t = host_s(lambda: trainer.train_iteration(*b))
+            times.append(t * 1e3)
+        return times
 
     batch = next_batch()
     trainer.train_iteration(*batch)
-    times = []
-    for _ in range(5):
-        b = next_batch()
-        _, t = host_s(lambda: trainer.train_iteration(*b))
-        times.append(t * 1e3)
+    tracked = len(gc.get_objects())
+    with gc_pauses() as pauses:
+        times = five_steps()
     step_ms = median(times)
     b = next_batch()
     busy, top = device_busy_ms(lambda: trainer.train_iteration(*b), top=6)
+    after = five_steps()
     b = next_batch()
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
@@ -2326,10 +2385,19 @@ def step_numbers(trainer, next_batch, card, what):
     peak = torch.cuda.max_memory_allocated()
     log(f"  {what}: train_iteration, 5 steps after the first: "
         f"{', '.join(f'{x:.2f}' for x in times)} ms (median {step_ms:.2f} "
-        f"ms at batch {trainer.s.rating_batch_size}); peak device memory "
+        f"ms at batch {trainer.s.rating_batch_size}); after one profiler "
+        f"session, 5 more: {', '.join(f'{x:.2f}' for x in after)} ms "
+        f"(median {median(after):.2f} ms); in the first 5, Python's "
+        f"garbage collector ran {pauses['runs']} times (by generation) for "
+        f"{pauses['ms']:.2f} ms, {tracked:,} objects tracked; peak device "
+        f"memory "
         f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB above the "
         f"{held / 2**30:.3f} GiB held before the step [{card}]")
     numbers = dict(step_ms=step_ms, step_times_ms=times,
+                   step_ms_after_profiler=median(after),
+                   step_times_after_profiler_ms=after,
+                   gc_ms=pauses["ms"], gc_runs=pauses["runs"],
+                   gc_tracked=tracked,
                    peak_gib=peak / 2**30, step_gib=(peak - held) / 2**30)
     numbers["device_busy_ms"] = busy
     if busy is None:
@@ -2715,6 +2783,351 @@ def run_ml10m_xla_step(bd, ek, trainer, card):
                 comparisons=comparisons)
 
 
+# ---------------------------- inductive ML-1M ----------------------------
+
+
+def build_inductive_ml1m(cfg, data_root, card):
+    """Phase 12 (a): an ML-1M-format archive at the real size, written by
+    the port's ``write_ml1m_format`` (``ML1M`` users x items, as many
+    ratings requested as the published set has, seed 123), then read once
+    by ``build_dataset`` with the config's inductive split: the times (the
+    ``LoadData`` parse and split alone, and the whole call), and the parsed
+    counts beside the published ones.  Returns ``(build_dataset's result,
+    numbers)``."""
+    import stargcn_tpu_torch.data as data_pkg
+    from stargcn_tpu_torch.data.invariants import PUBLISHED
+    from stargcn_tpu_torch.data.synthetic import write_ml1m_format
+    from stargcn_tpu_torch.predict import build_dataset
+
+    _, t_write = host_s(lambda: write_ml1m_format(
+        os.path.join(data_root, "ml-1m"), num_users=ML1M["num_users"],
+        num_items=ML1M["num_items"], num_edges=ML1M["num_edges"],
+        seed=SEED))
+    # build_dataset takes LoadData from the package at call time: time
+    # that one call inside it, so the archive is parsed once.
+    real, parse = data_pkg.LoadData, []
+
+    def timed_load(*args, **kwargs):
+        loaded, t = host_s(lambda: real(*args, **kwargs))
+        parse.append(t)
+        return loaded
+
+    data_pkg.LoadData = timed_load
+    try:
+        built, t_build = host_s(lambda: build_dataset(cfg, data_root))
+    finally:
+        data_pkg.LoadData = real
+    csr = built[1].all_graph["user", "movie"]
+    parsed = {"ratings": csr.nnz, "users": csr.shape[0],
+              "items": csr.shape[1], "levels": len(csr.multi_link)}
+    published = {k: PUBLISHED["ml-1m"][k] for k in parsed}
+    log(f"  write_ml1m_format ({ML1M['num_users']} users, "
+        f"{ML1M['num_items']} items, {ML1M['num_edges']:,} ratings "
+        f"requested, seed {SEED}): {t_write:.2f} s; LoadData parse and "
+        f"inductive split: {parse[0]:.2f} s of build_dataset's "
+        f"{t_build:.2f} s; parsed {parsed}, published {published} (the "
+        f"writer adds an edge for every user and item it would leave "
+        f"unrated) [{card}]")
+    check(len(parse) == 1, "build_dataset should parse the archive once")
+    check(parsed["users"] == ML1M["num_users"]
+          and parsed["items"] == ML1M["num_items"]
+          and parsed["ratings"] >= ML1M["num_edges"]
+          and parsed["levels"] == 5, f"parsed ML-1M counts {parsed}")
+    return built, dict(write_s=t_write, parse_s=parse[0], build_s=t_build,
+                       parsed=parsed, published=published)
+
+
+def run_inductive_slice(bd, ek, card, save_dir):
+    """Phase 12.  Returns its numbers and the launch counts of its bit and
+    ELL paths."""
+    import numpy as np
+    import torch
+
+    from stargcn_tpu_torch.serve import Predictor, export_serving
+    from stargcn_tpu_torch.train import (SampledTrainer, Trainer,
+                                         TrainSettings, sampled_loop)
+    from stargcn_tpu_torch.utils import cfg_from_file
+
+    # Every archive is written here first: nothing is ever downloaded.
+    os.environ["STARGCN_AUTO_DOWNLOAD"] = "0"
+    data_root = os.path.join(save_dir, "movielens")
+    # (a) the config as published, through build_dataset.
+    cfg = cfg_from_file(os.path.join(ROOT, "configs",
+                                     "inductive_ml_1m_item_10.yml"))
+    (_, it, model_cfg), numbers = build_inductive_ml1m(cfg, data_root, card)
+    counts = {}
+    for name, g in (("all", it.all_graph), ("train", it.train_graph),
+                    ("valid", it.val_graph), ("test", it.test_graph)):
+        csr = g["user", "movie"]
+        counts[name] = dict(users=int(csr.shape[0]), items=int(csr.shape[1]),
+                            edges=int(csr.nnz))
+    counts["valid_pairs"] = int(it.valid_node_pairs.shape[1])
+    counts["test_pairs"] = int(it.test_node_pairs.shape[1])
+    log(f"  build_dataset(configs/inductive_ml_1m_item_10.yml, data_root): "
+        f"nodes and edges by graph {counts} [{card}]")
+    check(it.is_inductive and model_cfg.backend == "dense",
+          f"the inductive ML-1M config resolved to {model_cfg.backend!r}")
+    check(counts["train"]["items"] < counts["valid"]["items"]
+          < counts["all"]["items"]
+          and counts["train"]["users"] == counts["all"]["users"],
+          "the held-out items should leave the train and valid graphs")
+    numbers["counts"] = counts
+    held_out = np.setdiff1d(np.arange(model_cfg.num_items),
+                            it.val_graph.node_ids["movie"])
+    noise_i = it.evaluate_embed_noise_dict["movie"]
+    check(held_out.size > 0 and (noise_i[held_out] == -1).all(),
+          "held-out test items must be masked at evaluation")
+
+    # (b) the full-graph trainer on auto (dense): three distinct variants.
+    trainer, t_trainer = host_s(lambda: Trainer(
+        model_cfg, it, TrainSettings.from_cfg(cfg),
+        save_dir=os.path.join(save_dir, "ind1m"), device=DEVICE))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    adjs, t_adj = host_s(lambda: [trainer.variants.dense_adj(v)
+                                  for v in ("train", "valid", "test")])
+    kept = torch.cuda.memory_allocated() - before
+    scatter = torch.cuda.max_memory_allocated() - before
+    check(adjs[0] is not adjs[1] and adjs[1] is not adjs[2]
+          and adjs[0] is not adjs[2],
+          "inductive variants must not share an adjacency")
+    log(f"  trainer {t_trainer:.2f} s; the three variants' bf16 "
+        f"adjacencies {tuple(adjs[0].shape)}: {t_adj * 1e3:.1f} ms, "
+        f"{kept / 1e6:.1f} MB kept, {scatter / 1e6:.1f} MB at the builds' "
+        f"peak [{card}]")
+    numbers.update(adj_ms=t_adj * 1e3, adj_kept_mb=kept / 1e6,
+                   adj_peak_mb=scatter / 1e6)
+    s = trainer.s
+    rating_sampler = it.rating_sampler(batch_size=s.rating_batch_size,
+                                       segment="train")
+    recon_sampler = it.recon_nodes_sampler(batch_size=s.recon_batch_size)
+    next_batch = lambda: next_batches(trainer, rating_sampler,  # noqa: E731
+                                      recon_sampler)
+    batch = next_batch()
+    check(trainer.do_remove and batch[0][1].size == 100_000,
+          "the step should remove a batch of 100,000 train edges")
+    check(np.isin(batch[0][0][1], it.train_graph.node_ids["movie"]).all(),
+          "a train batch named a held-out item")
+    params0 = copy.deepcopy(trainer.model.state_dict())
+    opt0 = copy.deepcopy(trainer.opt.state_dict())
+
+    trainer.seed_dropout(SEED)
+    zero_launches(bd, ek)
+    stats, t_first = host_s(lambda: trainer.train_iteration(*batch))
+    log(f"  first train_iteration (dense): {t_first * 1e3:.1f} ms, loss "
+        f"{float(stats['loss']):.4f}, bit and ELL launches "
+        f"{dict(bd.LAUNCHES)} {dict(ek.LAUNCHES)} [{card}]")
+    check(no_kernel_launched(bd, ek), "a dense step launched a hand kernel")
+    check(bool(torch.isfinite(stats["loss"])), "non-finite dense loss")
+    trainer.model.load_state_dict(params0)
+    trainer.opt.load_state_dict(opt0)
+    numbers["dense_step"] = step_numbers(trainer, next_batch, card,
+                                         "inductive dense (three bf16 "
+                                         "adjacencies held)")
+    trainer.model.load_state_dict(params0)
+    trainer.opt.load_state_dict(opt0)
+
+    # (c) the same batch and parameters on bitdense: the bit kernels on
+    # the inductive train mask, against the dense step and against their
+    # plain versions fed the same bf16-rounded inputs.
+    bit = backend_twin(trainer, backend="bitdense")
+    trainer.seed_dropout(SEED)
+    zero_launches(bd, ek)
+    b_stats, t_bit = host_s(lambda: bit.train_iteration(*batch))
+    bit_launches = {**bd.LAUNCHES, **ek.LAUNCHES}
+    log(f"  bitdense train_iteration on the inductive train mask (packs "
+        f"built in the call): {t_bit * 1e3:.1f} ms, loss "
+        f"{float(b_stats['loss']):.4f}, launches {bit_launches} [{card}]")
+    check(bit_launches == {**bit_counts(4, 4, 0, 0), "ell_spmm_fwd_only": 0,
+                           "ell_spmm_transpose": 0, "ell_sddmm": 0},
+          f"expected 4 + 4 bit launches, got {bit_launches}")
+    bit.model.load_state_dict(params0)
+    runs = {}
+    for name, owner in (("dense", trainer), ("bitdense", bit)):
+        trainer.seed_dropout(SEED)
+        runs[name] = owner.loss_and_grads(*batch)
+    twin = plain_twin(bit)
+    trainer.seed_dropout(SEED)
+    with bf16_fed_plain_versions(bd):
+        runs["bitdense-plain"] = twin.loss_and_grads(*batch)
+    del twin
+    comparisons = {}
+    for name, ref, other, tol in (
+            ("bitdense vs its plain versions fed bf16-rounded x and g",
+             "bitdense-plain", "bitdense", (1e-3, 1e-3, 5e-2)),
+            ("bitdense vs dense (bf16)", "dense", "bitdense",
+             (1e-2, 1e-1, None))):
+        loss_rel, worst, worst_name, glob = compare_grads(runs[ref],
+                                                          runs[other])
+        comparisons[name] = dict(loss_rel=loss_rel, worst=worst,
+                                 worst_name=worst_name, all=glob)
+        log(f"  {name}: loss rel diff {loss_rel:.3e} (tol {tol[0]:g}), all "
+            f"gradients together {glob:.3e} relative (tol {tol[1]:g}), "
+            f"worst single parameter {worst:.3e} of its largest entry "
+            f"({worst_name}"
+            + (f"; tol {tol[2]:g})" if tol[2] else "; printed only)"))
+        check(loss_rel <= tol[0] and glob <= tol[1]
+              and (tol[2] is None or worst <= tol[2]),
+              f"{name}: the step's loss or gradients disagree")
+    numbers["bitdense_comparisons"] = comparisons
+    numbers["bitdense_step_ms"] = t_bit * 1e3
+    del runs, bit
+    trainer.model.load_state_dict(params0)
+    trainer.opt.load_state_dict(opt0)
+
+    # (d) fit: 20 steps with the config's intervals -> two validations.
+    trainer.seed_dropout(SEED)
+    lines = []
+    zero_launches(bd, ek)
+    summary, t_fit = host_s(lambda: trainer.fit(max_iter=20,
+                                                log=lines.append))
+    for line in lines:
+        log(f"  fit: {line}")
+    log(f"  fit(max_iter=20): {t_fit:.2f} s; {summary} [{card}]")
+    check(no_kernel_launched(bd, ek), "fit launched a hand kernel")
+    check(sum("Val RMSE" in x for x in lines) == 2, "two validations")
+    rmses = [summary["best_valid_rmse"], *summary["best_test_rmse"]]
+    check(summary["best_iter"] in (10, 20) and np.isfinite(rmses).all()
+          and max(rmses) <= trainer.rating_max - trainer.rating_min,
+          f"fit summary {summary}")
+    numbers["fit_s"] = t_fit
+    numbers["fit"] = summary
+    best = os.path.join(trainer.save_dir, "ckpt_best_0.pt")
+    trainer.restore_checkpoint(best)
+    check(trainer.opt.count == summary["best_iter"], "restored step count")
+
+    # (e) export and cold-start queries on the held-out test items.
+    zero_launches(bd, ek)
+    art, t_export = host_s(lambda: export_serving(trainer, segment="test"))
+    check(no_kernel_launched(bd, ek), "the export launched a hand kernel")
+    check_artifact(art, ML1M)
+    check_queries(art, card, "inductive ML-1M trained parameters")
+    pairs = it.test_node_pairs[:, :4096]
+    check(np.isin(pairs[1], held_out).all(),
+          "test pairs should name held-out items")
+    served = Predictor(art, device=DEVICE).predict(pairs[0], pairs[1])
+    direct = trainer.predict(pairs[0], pairs[1], segment="test")
+    err = float(np.abs(served - direct).max())
+    log(f"  export_serving {t_export:.3f} s; predict on {pairs.shape[1]} "
+        f"pairs of held-out test items (their evaluation noise -1): "
+        f"ratings in [{served.min():.3f}, {served.max():.3f}], max abs "
+        f"diff to Trainer.predict {err:.3e} (tol 1e-4) [{card}]")
+    check(np.isfinite(served).all() and err <= 1e-4,
+          "cold-start predictions through the export")
+    numbers["export_s"] = t_export
+    del trainer, adjs, art
+    torch.cuda.empty_cache()
+
+    # (f) sampled mode on pallas, phase 8's settings, on the inductive
+    # train graph (the planner's id sets are subsets there).
+    settings = TrainSettings.from_cfg(cfg)
+    settings.rating_batch_size = 4096
+    settings.recon_batch_size = 1024
+    strainer, t_make = host_s(lambda: SampledTrainer(
+        model_cfg, it, settings, fanout=8, backend="pallas", device=DEVICE,
+        save_dir=os.path.join(save_dir, "ind1m"), save_id=1))
+    log(f"  SampledTrainer on the inductive split: {t_make:.2f} s; caps "
+        f"{strainer.caps}, recon caps {strainer.recon_cap} [{card}]")
+    rs = it.rating_sampler(batch_size=strainer.train_batch, segment="train")
+    recon = it.recon_nodes_sampler(batch_size=settings.recon_batch_size)
+    sbatch = strainer._build_batch_safe(rs, recon)
+    sparams0 = copy.deepcopy(strainer.model.state_dict())
+    strainer.seed_dropout(SEED)
+    zero_launches(bd, ek)
+    s_stats, t_sfirst = host_s(lambda: strainer.train_iteration(sbatch))
+    sampled_launches = {**bd.LAUNCHES, **ek.LAUNCHES}
+    log(f"  first sampled train_iteration: {t_sfirst * 1e3:.1f} ms, loss "
+        f"{float(s_stats['loss']):.4f}, launches {sampled_launches} "
+        f"[{card}]")
+    check(sampled_launches == {"ell_spmm_fwd_only": 4,
+                               "ell_spmm_transpose": 4, "ell_sddmm": 0,
+                               **bit_counts(0, 0, 0, 0)},
+          f"expected 4 + 4 ELL launches, got {sampled_launches}")
+    check(bool(torch.isfinite(s_stats["loss"])), "non-finite sampled loss")
+
+    # The same batch, parameters and dropout seed through the ELL kernels
+    # and through their plain versions: the kernels on the inductive
+    # masks, whose held-out rows keep part of their slots or none.
+    stepped = copy.deepcopy(strainer.model.state_dict())
+
+    def fixed_sbatch():
+        strainer.model.load_state_dict(sparams0)
+        strainer.seed_dropout(SEED)
+        return sampled_loop._loss_and_grads(
+            strainer, strainer._feed(strainer._pack_batch(sbatch)))
+
+    k_run = fixed_sbatch()
+    with plain_ell_versions(ek):
+        before = dict(ek.LAUNCHES)
+        p_run = fixed_sbatch()
+        check(ek.LAUNCHES == before, "the plain twin launched a kernel")
+    strainer.model.load_state_dict(stepped)
+    loss_rel, worst, worst_name, glob = compare_grads(p_run, k_run)
+    log(f"  sampled step on the inductive masks, kernels against the plain "
+        f"twin (f32 on both sides): loss rel diff {loss_rel:.3e} (tol "
+        f"1e-5), all gradients together {glob:.3e} relative (tol 1e-4), "
+        f"worst single parameter {worst:.3e} of its largest entry "
+        f"({worst_name}; {len(p_run[1])} parameters; tol 1e-3)")
+    check(loss_rel <= 1e-5 and glob <= 1e-4 and worst <= 1e-3,
+          "the inductive sampled step through the kernels disagrees with "
+          "the plain twin")
+    numbers["sampled_vs_plain"] = dict(loss_rel=loss_rel, worst=worst,
+                                       worst_name=worst_name, all=glob)
+    del k_run, p_run, stepped, sparams0
+    split, _ = time_sampled_steps(strainer, rs, recon, 5)
+    log(f"  sampled step split (median of 5): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + f" [{card}]")
+    numbers["sampled_step"] = split
+    lines = []
+    summary, t_sfit = host_s(lambda: strainer.fit(max_iter=10,
+                                                  log=lines.append))
+    for line in lines:
+        log(f"  sampled fit: {line}")
+    log(f"  sampled fit(max_iter=10): {t_sfit:.2f} s; {summary} [{card}]")
+    check(sum("Val RMSE" in x for x in lines) == 1, "one validation")
+    check(np.isfinite(summary["best_valid_rmse"]),
+          f"sampled fit summary {summary}")
+    numbers["sampled_fit_s"] = t_sfit
+    del strainer
+    torch.cuda.empty_cache()
+
+    # (g) the train CLI on the user-keyed config and the same archive.
+    import logging
+
+    from stargcn_tpu_torch.train import __main__ as train_cli
+
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    zero_launches(bd, ek)
+    try:
+        result, t_cli = host_s(lambda: train_cli.main([
+            "--cfg", os.path.join(ROOT, "configs",
+                                  "inductive_ml_1m_user_10.yml"),
+            "--data_root", data_root, "--save_dir",
+            os.path.join(save_dir, "cli_ind1m"), "--max_iter", "10",
+            "--silent", "--device", DEVICE]))
+    finally:
+        for h in list(root.handlers):
+            if h not in handlers:
+                h.close()
+        root.handlers[:] = handlers
+        root.setLevel(level)
+    log(f"  python -m stargcn_tpu_torch.train --cfg "
+        f"configs/inductive_ml_1m_user_10.yml --data_root <dir> --max_iter "
+        f"10: {t_cli:.2f} s (parse included), best valid RMSE "
+        f"{result['best_valid_rmse']:.4f}, no hand kernel launched: "
+        f"{no_kernel_launched(bd, ek)} [{card}]")
+    check(result["best_iter"] == 10
+          and np.isfinite(result["best_valid_rmse"]),
+          f"inductive CLI result {result}")
+    check(no_kernel_launched(bd, ek), "the CLI launched a hand kernel")
+    numbers["cli_s"] = t_cli
+    launches = {"inductive bitdense train_iteration": bit_launches,
+                "inductive sampled train_iteration": sampled_launches}
+    return numbers, launches
+
+
 # --------------------------------- probes ---------------------------------
 
 
@@ -3005,7 +3418,47 @@ def kernel_row(name, source, replaces, launches, worst, shapes):
         shapes=shapes)
 
 
-def main():
+def parse_args(argv):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument(
+        "--phases", default=None,
+        help="comma-separated phases out of 11 and 12 (those that build "
+             "their own data) to run alone after phases 1 and 2, each in a "
+             "process that ran no other phase; default: every phase")
+    args = ap.parse_args(argv)
+    if args.phases is None:
+        return None
+    phases = {p.strip() for p in args.phases.split(",")}
+    if not phases or not phases <= {"11", "12"}:
+        ap.error("--phases takes 11, 12 or 11,12")
+    return {int(p) for p in phases}
+
+
+def run_phases_alone(bd, ek, card, phases):
+    """``--phases``: phases 11 and 12 without the phases before them; their
+    numbers on one line."""
+    import torch
+
+    numbers = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as save_dir:
+        if 11 in phases:
+            log("== 11. slice: ML-1M full-graph training on KERNEL.BACKEND "
+                "auto (dense) and xla, serving, the train CLI")
+            numbers["full_graph_dense_xla"] = run_dense_xla_slice(
+                bd, ek, card, save_dir)
+            torch.cuda.empty_cache()
+        if 12 in phases:
+            log("== 12. slice: inductive ML-1M (items held out) from an "
+                "archive on disk")
+            numbers["inductive_ml1m"], _ = run_inductive_slice(
+                bd, ek, card, save_dir)
+    log(json.dumps(numbers))
+
+
+def main(argv=None):
+    phases = parse_args(sys.argv[1:] if argv is None else argv)
     if not os.path.isdir(os.path.join(ROOT, "stargcn_tpu_torch")):
         fail("stargcn_tpu_torch/ is not beside chip_smoke.py: run it from "
              "a checkout of the repository")
@@ -3039,6 +3492,9 @@ def main():
                 log(f"  [{name}] {entry[1] if entry else line.strip()}:")
             elif "registers" in line or "spill" in line or "rror" in line:
                 log(f"  [{name}] {line.strip()}")
+    if phases:
+        run_phases_alone(bd, ek, card, phases)
+        return finish(card)
 
     log("== 3. kernel check (small cases)")
     worst = small_kernel_checks(bd)
@@ -3137,6 +3593,13 @@ def main():
         log("== 11b. slice: one ML-10M training step on KERNEL.BACKEND xla")
         dense_numbers["ml10m_xla"] = run_ml10m_xla_step(bd, ek, trainer,
                                                         card)
+        del trainer
+        torch.cuda.empty_cache()
+        log("== 12. slice: inductive ML-1M (items held out) from an archive "
+            "on disk: dense, bitdense and sampled pallas training, serving, "
+            "the train CLI")
+        inductive_numbers, inductive_launches = run_inductive_slice(
+            bd, ek, card, save_dir)
 
     kernel_ms = sum(sum(s["ms"] for s in shapes) * 2
                     for shapes in (e_shapes, r_shapes))
@@ -3166,6 +3629,8 @@ def main():
     ]
     rows[0]["launches_by_path"] = {"train_iteration": train_launches[
         "bit_expand_matmul"], "export": export_launches["bit_expand_matmul"]}
+    rows[1]["launches_by_path"] = {"train_iteration": train_launches[
+        "bit_reduce_matmul"]}
     # The 16-bit pair: the launches of one pallas16 step; its export and
     # the train CLI, each counted from 0, under launches_by_path.
     for name, source, replaces, shapes, worst16 in (
@@ -3209,10 +3674,24 @@ def main():
             name, f"stargcn_tpu_torch/ops/csrc/{source}", replaces,
             sum(by_path.values()), probe_worst[name], probe_shapes[name]))
         rows[-1]["launches_by_path"] = by_path
+    # Phase 12 drives the bit pair and the ELL pair on inductive masks,
+    # each path with the counts set to 0 just before it.
+    for row in rows:
+        for path, counts in inductive_launches.items():
+            if counts.get(row["name"]):
+                row.setdefault("launches_by_path", {})[path] = counts[
+                    row["name"]]
+    log(json.dumps({"inductive_ml1m": inductive_numbers}))
     log(json.dumps({"full_graph_dense_xla": dense_numbers}))
     log(json.dumps({"training": train_numbers}))
     log(json.dumps({"sampled_training": sampled_numbers}))
     log(json.dumps({"kernels": rows}))
+    finish(card)
+
+
+def finish(card):
+    import torch
+
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,11 +10,13 @@ The port imports ``torch``, numpy and PyYAML only — never ``jax``,
 under ``ops/csrc/``, built with ``nvcc`` at first use; each has a plain
 PyTorch version beside it that runs whenever its input lies on the CPU.
 
-Covered so far: full-graph transductive training and serving on the
-``bitdense`` backend (config -> synthetic graph -> ``DataIterator`` -> bit
-packs -> ``train.Trainer`` -> ``serve.export_serving`` ->
-``ServingArtifact`` -> ``Predictor``), with ``bit_expand_matmul`` and its
-backward ``bit_reduce_matmul`` as CUDA kernels; and sampled mini-batch
+Covered so far: full-graph training and serving, transductive or
+inductive, on a synthetic graph or a MovieLens archive already on disk
+(config -> ``data.LoadData`` or a synthetic graph -> ``DataIterator`` ->
+dense adjacencies or bit packs -> ``train.Trainer`` ->
+``serve.export_serving`` -> ``ServingArtifact`` -> ``Predictor``), with
+``bit_expand_matmul`` and its backward ``bit_reduce_matmul`` as CUDA kernels
+on the ``bitdense`` backend; and sampled mini-batch
 training (``graph.sampling.BlockSampler`` -> ``models.sampled.StackedPlan``
 -> ``train.SampledTrainer``), whose ``pallas`` backend pools every frontier
 through the three ELL kernels of ``ops.ell_kernels`` (``ell_spmm_fwd_only``,

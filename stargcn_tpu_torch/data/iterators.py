@@ -1,10 +1,13 @@
 """Training/evaluation samplers and graph-variant bookkeeping.
 
-The port's copy of ``DataIterator`` from ``stargcn_tpu/data/iterators.py``,
-on the transductive graph hierarchy:
+The port's copy of ``stargcn_tpu/data/iterators.py``: ``DataIterator``,
+``NegEdgeGenerator`` and its ``_RankSpaceSampler``.
 
-* ``test_graph = all - test edges``; ``val_graph = train_graph =
-  test_graph - valid edges``;
+* graph hierarchy: ``test_graph = all - test edges``; transductively
+  ``val_graph = train_graph = test_graph - valid edges``; inductively
+  ``val_graph = subgraph(train + valid nodes) - valid edges`` and
+  ``train_graph = subgraph(train nodes)``, the held-out type's node set
+  shrinking in both;
 * ``rating_sampler``: infinite epoch-shuffled batches for training,
   sequential batches for evaluation;
 * ``recon_nodes_sampler``: per epoch a ``P_mask`` fraction of each node
@@ -12,12 +15,13 @@ on the transductive graph hierarchy:
   (its own id) by ``(p_zero, p_self)``, in a full-size ``embed_noise``
   array;
 * ``evaluate_embed_noise_dict``: at evaluation, nodes unseen in the train
-  graph are masked to zero (-1), every other node keeps its own id.
+  graph are masked to zero (-1), every other node keeps its own id: the
+  inductive cold-start mechanism.
 
 One ``np.random.RandomState(seed)`` is consumed in the JAX class's order,
 so the same seed gives the same batches, noise arrays and recon ids in both
-packages.  The inductive split comes with the slice that ports
-``data/movielens.py``.
+packages; ``NegEdgeGenerator`` likewise draws what the JAX class draws from
+the same generator.
 """
 
 from __future__ import annotations
@@ -25,28 +29,162 @@ from __future__ import annotations
 import numpy as np
 
 
+class _RankSpaceSampler:
+    """Uniform draws from the complement of a sparse row set by rank-space
+    inversion.
+
+    For one row with sorted positive columns ``P`` over ``[0, ncols)``,
+    the k-th (0-based) NON-neighbor is ``k + i*`` where ``i* =
+    searchsorted(P - arange(|P|), k, 'right')``: ``P[i] - i`` counts the
+    non-neighbors below ``P[i]``, so one binary search inverts the rank.
+    Exact (rejection-free), O(log deg) per draw, no per-edge state.
+    """
+
+    def __init__(self, indptr, indices, width):
+        self.indptr = np.asarray(indptr, np.int64)
+        self.width = int(width)
+        deg = np.diff(self.indptr)
+        # Each row's columns sorted (CSRMat does not guarantee the order).
+        cols = np.asarray(indices, np.int64)
+        rows = np.repeat(np.arange(deg.size), deg)
+        self.sorted_cols = cols[np.lexsort((cols, rows))]
+        self.free = (self.width - deg).astype(np.int64)  # non-neighbors/row
+
+    def draw(self, rows, rng):
+        """One uniform non-neighbor per row (rows must have free > 0).
+
+        The rank ``k`` of each draw takes one uniform, in request order;
+        then all draws are inverted together by one batched binary search
+        over each row's CSR window (``i = #{j : p[j] - j <= k}`` on the
+        non-decreasing rank-deficit sequence): ``log2(max_deg)`` numpy
+        passes for the whole batch, no Python loop over rows."""
+        rows = np.asarray(rows, np.int64)
+        k = (rng.random_sample(rows.size) * self.free[rows]).astype(np.int64)
+        s = self.indptr[rows]
+        deg = self.indptr[rows + 1] - s
+        lo = np.zeros(rows.size, np.int64)
+        hi = deg.copy()
+        active = lo < hi
+        while active.any():
+            mid = (lo + hi) >> 1
+            # p[mid] - mid <= k: the answer lies above mid.  The index
+            # clamp only fires on inactive lanes (rows of degree 0).
+            idx = np.minimum(s + mid, self.sorted_cols.size - 1)
+            v = self.sorted_cols[idx]
+            up = active & (v - mid <= k)
+            lo = np.where(up, mid + 1, lo)
+            hi = np.where(active & ~up, mid, hi)
+            active = lo < hi
+        return k + lo
+
+
+class NegEdgeGenerator:
+    """Uniform negative (non-edge) sampling over a bipartite rating graph,
+    by rank-space inversion per endpoint (``_RankSpaceSampler``): exact
+    uniformity, O(log deg) per draw, no per-edge tables.  The ranking
+    evaluation draws its negatives from it."""
+
+    def __init__(self, rng, csr_mat):
+        self._rng = rng
+        self._csr = csr_mat
+        nrows, ncols = csr_mat.shape
+        rows_of = np.repeat(np.arange(nrows, dtype=np.int64),
+                            np.diff(csr_mat.ind_ptr))
+        self._by_row = _RankSpaceSampler(csr_mat.ind_ptr,
+                                         csr_mat.end_points, ncols)
+        # column-major view for sampling rows given a column
+        order = np.argsort(csr_mat.end_points, kind="stable")
+        col_indptr = np.zeros(ncols + 1, np.int64)
+        np.cumsum(np.bincount(csr_mat.end_points, minlength=ncols),
+                  out=col_indptr[1:])
+        self._by_col = _RankSpaceSampler(col_indptr, rows_of[order], nrows)
+        w = self._by_row.free.astype(np.float64)
+        self._row_weights = w / w.sum()
+
+    def sample_pairs(self, n):
+        """n uniform non-edges: rows weighted by their non-edge count
+        (= uniform over the global non-edge set), then one uniform
+        non-neighbor column each."""
+        rows = self._rng.choice(self._by_row.free.size, n, replace=True,
+                                p=self._row_weights).astype(np.int64)
+        return rows, self._by_row.draw(rows, self._rng)
+
+    def sample_cols_for_rows(self, rows, rng=None):
+        """One uniform non-neighbor column per row.  ``rng`` overrides
+        the construction-time generator, so a caller can pin the draws
+        independently of how far the shared generator has advanced."""
+        return self._by_row.draw(rows, rng if rng is not None else self._rng)
+
+    def sample_rows_for_cols(self, cols):
+        return self._by_col.draw(cols, self._rng)
+
+    def gen(self, pos_edges, neg_sample_type="all", neg_ratio=1.0):
+        """Negative edges for the given positives.  ``'same_node'`` keeps
+        one endpoint of each positive (coin flip, falling back to the
+        other side or a fresh pair when an endpoint is saturated);
+        ``'all'`` draws ``neg_ratio * npos`` fresh non-edges."""
+        csr = self._csr
+        pos_r = np.asarray(csr.row_id_to_ind(pos_edges[0]), np.int64)
+        pos_c = np.asarray(csr.col_id_to_ind(pos_edges[1]), np.int64)
+        if neg_sample_type == "all":
+            rows, cols = self.sample_pairs(
+                int(np.round(neg_ratio * pos_r.size)))
+        elif neg_sample_type == "same_node":
+            keep_row = self._rng.randint(2, size=pos_r.size).astype(bool)
+            # a saturated endpoint (no non-neighbors) flips to the other
+            # side; both saturated -> fresh pair
+            keep_row &= self._by_row.free[pos_r] > 0
+            use_col = ~keep_row & (self._by_col.free[pos_c] > 0)
+            fresh = ~keep_row & ~use_col
+            rows = pos_r.copy()
+            cols = pos_c.copy()
+            cols[keep_row] = self._by_row.draw(pos_r[keep_row], self._rng)
+            rows[use_col] = self._by_col.draw(pos_c[use_col], self._rng)
+            if fresh.any():
+                rows[fresh], cols[fresh] = self.sample_pairs(
+                    int(fresh.sum()))
+        else:
+            raise NotImplementedError(neg_sample_type)
+        return np.stack([csr.row_ids[rows], csr.col_ids[cols]])
+
+
 class DataIterator:
-    """Transductive graph hierarchy over one user-item rating graph, with
-    the rating and reconstruction samplers."""
+    """Graph hierarchy over one user-item rating graph, transductive or
+    inductive, with the rating and reconstruction samplers.
+
+    Inductive (``is_inductive``): ``inductive_key`` names the held-out node
+    type; ``inductive_train_ids`` / ``inductive_valid_ids`` are its train
+    and valid nodes (the rest are test nodes).  ``embed_p_zero`` /
+    ``embed_p_self`` may then be ``{node_type: p}`` dicts.
+    """
 
     def __init__(self, all_graph, name_user, name_item, is_inductive=False,
                  test_node_pairs=None, valid_node_pairs=None,
-                 embed_P_mask=0.1, embed_p_zero=1.0, embed_p_self=0.0,
-                 seed=100):
-        if is_inductive:
-            raise NotImplementedError(
-                "the inductive split comes with the port of "
-                "data/movielens.py; the port runs transductive graphs")
+                 inductive_key=None, inductive_valid_ids=None,
+                 inductive_train_ids=None, embed_P_mask=0.1,
+                 embed_p_zero=1.0, embed_p_self=0.0, seed=100):
         self._rng = np.random.RandomState(seed=seed)
         self._all_graph = all_graph
         self._name_user = name_user
         self._name_item = name_item
+        self._is_inductive = bool(is_inductive)
 
         self._test_graph = all_graph.remove_edges_by_id(
             name_user, name_item, test_node_pairs)
-        self._val_graph = self._test_graph.remove_edges_by_id(
-            name_user, name_item, valid_node_pairs)
-        self._train_graph = self._val_graph
+        if not is_inductive:
+            self._val_graph = self._test_graph.remove_edges_by_id(
+                name_user, name_item, valid_node_pairs)
+            self._train_graph = self._val_graph
+        else:
+            if inductive_key is None:
+                raise ValueError("an inductive split needs inductive_key")
+            train_val = np.concatenate(
+                [inductive_train_ids, inductive_valid_ids]).astype(np.int32)
+            self._val_graph = all_graph.sel_subgraph_by_id(
+                inductive_key, train_val).remove_edges_by_id(
+                    name_user, name_item, valid_node_pairs)
+            self._train_graph = all_graph.sel_subgraph_by_id(
+                inductive_key, inductive_train_ids)
 
         self._test_node_pairs = np.asarray(test_node_pairs, np.int32)
         self._valid_node_pairs = np.asarray(valid_node_pairs, np.int32)
@@ -98,7 +236,7 @@ class DataIterator:
 
     @property
     def is_inductive(self):
-        return False
+        return self._is_inductive
 
     @property
     def all_graph(self):
@@ -231,3 +369,7 @@ class DataIterator:
                 if len(batch_ids) != len(recon_ids_dict):
                     break
                 yield embed_noise_dict, batch_ids, recon_ids_dict
+
+    def __repr__(self):
+        return ("DataIterator(\nAll=" + repr(self._all_graph)
+                + "\nTrain=" + repr(self._train_graph) + "\n)")

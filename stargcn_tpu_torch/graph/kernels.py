@@ -74,6 +74,38 @@ def get_support(row_degrees, col_degrees, ind_ptr, end_points, symm=True):
     return out
 
 
+def csr_submat(ind_ptr, end_points, row_indices, col_indices, num_cols):
+    """Row/column submatrix: the rows ``row_indices`` (in that order), each
+    keeping, in CSR order, the edges whose column is in ``col_indices``.
+
+    Columns are renumbered by their position in ``col_indices`` (not
+    sorted).  Returns ``(new_ind_ptr, new_end_points, edge_idx)``, where
+    ``edge_idx`` (int64) indexes the original edge arrays.  The JAX
+    package's NumPy path walks the rows in a Python loop; this is the same
+    result for all rows at once."""
+    ind_ptr = np.ascontiguousarray(ind_ptr, dtype=np.int32)
+    end_points = np.ascontiguousarray(end_points, dtype=np.int32)
+    row_indices = np.ascontiguousarray(row_indices, dtype=np.int32)
+    col_indices = np.ascontiguousarray(col_indices, dtype=np.int32)
+    col_map = np.full(num_cols, -1, dtype=np.int32)
+    col_map[col_indices] = np.arange(col_indices.size, dtype=np.int32)
+    starts = ind_ptr[row_indices].astype(np.int64)
+    degs = (ind_ptr[row_indices + 1] - ind_ptr[row_indices]).astype(np.int64)
+    total = int(degs.sum())
+    # Every candidate edge position, row by row in the given order.
+    first = np.cumsum(degs) - degs
+    pos = (np.arange(total, dtype=np.int64)
+           + np.repeat(starts - first, degs))
+    cols = col_map[end_points[pos]]
+    keep = cols >= 0
+    counts = np.bincount(np.repeat(np.arange(row_indices.size), degs)[keep],
+                         minlength=row_indices.size)
+    new_ind_ptr = np.zeros(row_indices.size + 1, dtype=np.int32)
+    np.cumsum(counts, out=new_ind_ptr[1:])
+    return (new_ind_ptr, cols[keep].astype(np.int32),
+            pos[keep].astype(np.int64))
+
+
 def _take_counts(ind_ptr, sel_indices, num_neighbors):
     degs = ind_ptr[sel_indices + 1] - ind_ptr[sel_indices]
     take = degs if num_neighbors < 0 else np.minimum(degs, num_neighbors)

@@ -84,7 +84,10 @@ class SampledBlocks:
 class BlockSampler:
     """Samples fixed-shape L-layer blocks from a ``HeterGraph``.
 
-    ``frontier_caps`` (optional ``{'user': n, 'item': n}``) pads EVERY
+    The graph's row and column id sets may be subsets of the node ids (an
+    inductive train or valid graph): neighborhoods are planned in its own
+    index space and named by global id, and a target that is not a node of
+    the graph raises ``ValueError``.  ``frontier_caps`` (optional ``{'user': n, 'item': n}``) pads EVERY
     frontier to exactly those sizes, so repeated sampling produces
     identical shapes (raises ``FrontierCapError`` if a frontier exceeds
     its cap).
@@ -127,11 +130,9 @@ class BlockSampler:
         every sampled neighborhood AND the degree normalisation is
         recomputed as if those edges were removed, as
         ``remove_edges_by_id`` + ``get_support`` on the reduced graph
-        would give it."""
-        bu = self._csr["user"].row_id_to_ind(
-            np.asarray(batch_user_ids, np.int32))
-        bi = self._csr["item"].row_id_to_ind(
-            np.asarray(batch_item_ids, np.int32))
+        would give it.  Every batch id must be a node of the graph."""
+        bu = self._csr["user"].rows_of(batch_user_ids)
+        bi = self._csr["item"].rows_of(batch_item_ids)
         keys = np.sort(bu.astype(np.int64) * self._num_items_global + bi)
         rem = {"user": np.bincount(bu, minlength=self._row_deg["user"].size)
                .astype(np.int64),
@@ -157,7 +158,9 @@ class BlockSampler:
             blocks = {}
             for t, other in (("user", "item"), ("item", "user")):
                 csr = self._csr[t]
-                sel = csr.row_id_to_ind(levels[-1][t])
+                # Every frontier id must be a node of this graph: on an
+                # inductive train graph, a held-out node has no row.
+                sel = csr.rows_of(levels[-1][t])
                 # sample K neighbors per frontier node; the merged array
                 # is the other type's next frontier contribution
                 sampled_idx, ptr = draw(

@@ -9,6 +9,13 @@ untrained parameters made from the config's seed)::
         --dataset synthetic --resume runs/ckpt_best_0.pt \\
         --save_artifact art.npz --users 1,2,3 --topk 10
 
+or on a MovieLens archive already extracted under ``--data_root`` (an
+inductive config masks its held-out nodes as evaluation does)::
+
+    python -m stargcn_tpu_torch.predict \\
+        --cfg configs/inductive_ml_1m_item_10.yml --data_root datasets \\
+        --resume runs/ckpt_best_0.pt --pairs 1:10,2:33
+
 Artifact-only serving (an ``.npz`` written by either package)::
 
     python -m stargcn_tpu_torch.predict --artifact art.npz --pairs 1:10,2:33
@@ -26,35 +33,70 @@ import logging
 import numpy as np
 
 
-def build_dataset(cfg):
+def build_dataset(cfg, data_root=None):
     """``(graph, data_iter, model_cfg)`` from a merged config, as
-    ``experiments/common.py:build_dataset`` builds them for
-    ``DATASET.NAME == 'synthetic'``."""
-    from stargcn_tpu_torch.data import DataIterator
+    ``experiments/common.py:build_dataset`` builds them.
+
+    ``DATASET.NAME == 'synthetic'`` generates an in-memory MovieLens-like
+    graph with a transductive split; ``ml-100k`` / ``ml-1m`` / ``ml-10m``
+    go through ``LoadData`` on the archive extracted under ``data_root``
+    (``DATASET.IS_INDUCTIVE`` selects its inductive node split).
+    """
+    from stargcn_tpu_torch.data import DataIterator, LoadData
     from stargcn_tpu_torch.data.synthetic import synthetic_graph
     from stargcn_tpu_torch.models import build_model_config
 
-    if cfg.DATASET.NAME != "synthetic":
-        raise NotImplementedError(
-            "only DATASET.NAME 'synthetic' is ported; MovieLens loading "
-            "comes with the port of data/movielens.py")
-    if cfg.DATASET.IS_INDUCTIVE:
-        raise NotImplementedError("synthetic runs are transductive")
     name_user, name_item = "user", "movie"
-    graph = synthetic_graph(seed=cfg.SEED)
-    csr = graph[name_user, name_item]
-    rng = np.random.RandomState(cfg.SEED)
-    pairs = csr.node_pair_ids
-    perm = rng.permutation(pairs.shape[1])
-    n_test = int(np.ceil(pairs.shape[1] * cfg.DATASET.TEST_RATIO))
-    n_valid = int(np.ceil((pairs.shape[1] - n_test)
-                          * cfg.DATASET.VALID_RATIO))
+    inductive_kwargs = {}
+    if cfg.DATASET.NAME == "synthetic":
+        if cfg.DATASET.IS_INDUCTIVE:
+            raise ValueError("synthetic runs are transductive")
+        graph = synthetic_graph(seed=cfg.SEED)
+        csr = graph[name_user, name_item]
+        rng = np.random.RandomState(cfg.SEED)
+        pairs = csr.node_pair_ids
+        perm = rng.permutation(pairs.shape[1])
+        n_test = int(np.ceil(pairs.shape[1] * cfg.DATASET.TEST_RATIO))
+        n_valid = int(np.ceil((pairs.shape[1] - n_test)
+                              * cfg.DATASET.VALID_RATIO))
+        test_pairs = pairs[:, perm[:n_test]]
+        valid_pairs = pairs[:, perm[n_test:n_test + n_valid]]
+    else:
+        data = LoadData(
+            cfg.DATASET.NAME, root=data_root,
+            use_inductive=cfg.DATASET.IS_INDUCTIVE,
+            test_ratio=cfg.DATASET.TEST_RATIO,
+            val_ratio=cfg.DATASET.VALID_RATIO,
+            inductive_key=cfg.DATASET.INDUCTIVE_KEY,
+            inductive_node_frac=cfg.DATASET.INDUCTIVE_NODE_FRAC,
+            inductive_edge_frac=cfg.DATASET.INDUCTIVE_EDGE_FRAC,
+            seed=cfg.SEED)
+        logging.info(data)
+        graph = data.graph
+        graph.check_continous_node_ids()
+        test_pairs, _ = data.test_data
+        valid_pairs, _ = data.valid_data
+        if cfg.DATASET.IS_INDUCTIVE:
+            key = (name_item if cfg.DATASET.INDUCTIVE_KEY == "item"
+                   else name_user)
+            other = name_user if key == name_item else name_item
+            # Only the held-out type is masked to zero (P_ZERO); the
+            # other type's reconstruction targets keep their own ids.
+            inductive_kwargs = dict(
+                is_inductive=True, inductive_key=key,
+                inductive_train_ids=data.inductive_train_ids,
+                inductive_valid_ids=data.inductive_valid_ids,
+                embed_p_zero={key: cfg.EMBED.P_ZERO, other: 0.0},
+                embed_p_self={key: 1.0 - cfg.EMBED.P_ZERO, other: 1.0})
+    if not inductive_kwargs:
+        inductive_kwargs = dict(embed_p_zero=cfg.EMBED.P_ZERO,
+                                embed_p_self=1.0 - cfg.EMBED.P_ZERO)
     data_iter = DataIterator(
         graph, name_user, name_item,
-        test_node_pairs=pairs[:, perm[:n_test]],
-        valid_node_pairs=pairs[:, perm[n_test:n_test + n_valid]],
-        embed_P_mask=cfg.EMBED.MASK_PROP, embed_p_zero=cfg.EMBED.P_ZERO,
-        embed_p_self=1.0 - cfg.EMBED.P_ZERO, seed=cfg.SEED)
+        test_node_pairs=test_pairs, valid_node_pairs=valid_pairs,
+        embed_P_mask=cfg.EMBED.MASK_PROP, seed=cfg.SEED,
+        **inductive_kwargs)
+    csr = graph[name_user, name_item]
     model_cfg = build_model_config(
         cfg, num_users=csr.shape[0], num_items=csr.shape[1],
         num_links=len(csr.multi_link), num_edges=csr.nnz)
@@ -64,7 +106,13 @@ def build_dataset(cfg):
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Serve STAR-GCN (PyTorch).")
     parser.add_argument("--cfg", dest="cfg_file", default=None, type=str)
-    parser.add_argument("--dataset", type=str, default=None)
+    parser.add_argument("--dataset", type=str, default=None,
+                        help="ml-100k | ml-1m | ml-10m | synthetic "
+                             "(overrides cfg)")
+    parser.add_argument("--data_root", type=str, default=None,
+                        help="directory holding the extracted MovieLens "
+                             "archive (default $STARGCN_DATA_ROOT or "
+                             "<repo>/datasets)")
     parser.add_argument("--seed", default=None, type=int)
     parser.add_argument("--resume", default=None, type=str,
                         help="checkpoint (.pt) with trained parameters, as "
@@ -118,7 +166,7 @@ def main(argv=None):
             cfg.SEED = args.seed
         if args.backend is not None:
             cfg.KERNEL.BACKEND = args.backend
-        _, data_iter, model_cfg = build_dataset(cfg)
+        _, data_iter, model_cfg = build_dataset(cfg, args.data_root)
         state_dict = None
         if args.resume:
             import torch

@@ -1,11 +1,18 @@
 """STAR-GCN training CLI (PyTorch).  The port of ``experiments/train.py``
-for full-graph transductive training on the ``dense``, ``xla`` and
-``bitdense`` backends (``--backend auto``, the config's default, picks
-``dense`` for graphs of at most 150M rating x user x item entries, such as
-the default synthetic graph, and ``bitdense`` beyond)::
+for full-graph training on the ``dense``, ``xla`` and ``bitdense``
+backends (``--backend auto``, the config's default, picks ``dense`` for
+graphs of at most 150M rating x user x item entries, such as ML-1M and the
+default synthetic graph, and ``bitdense`` beyond)::
 
     python -m stargcn_tpu_torch.train --cfg configs/transductive_ml_1m.yml \\
         --dataset synthetic --save_dir runs --max_iter 200
+
+On a MovieLens archive already extracted under ``--data_root`` (nothing is
+downloaded when the directory is there), transductive or inductive as the
+config says (``--inductive`` forces the inductive split)::
+
+    python -m stargcn_tpu_torch.train \\
+        --cfg configs/inductive_ml_1m_item_10.yml --data_root datasets
 
 and, with ``--num_neighbors K`` (``GRAPH_SAMPLER.NUM_NEIGHBORS`` > 0), for
 sampled mini-batch training (``train/sampled_loop.py:SampledTrainer``),
@@ -35,7 +42,15 @@ def main(argv=None):
     parser.add_argument("--cfg", dest="cfg_file", default=None, type=str)
     parser.add_argument("--save_dir", type=str, default=None)
     parser.add_argument("--dataset", type=str, default=None,
-                        help="synthetic (overrides cfg)")
+                        help="ml-100k | ml-1m | ml-10m | synthetic "
+                             "(overrides cfg)")
+    parser.add_argument("--data_root", type=str, default=None,
+                        help="directory holding the extracted MovieLens "
+                             "archive (default $STARGCN_DATA_ROOT or "
+                             "<repo>/datasets)")
+    parser.add_argument("--inductive", action="store_true",
+                        help="the inductive node split "
+                             "(DATASET.IS_INDUCTIVE)")
     parser.add_argument("--seed", default=None, type=int)
     parser.add_argument("--silent", action="store_true")
     parser.add_argument("--max_iter", default=None, type=int)
@@ -65,6 +80,8 @@ def main(argv=None):
         cfg_from_file(args.cfg_file, cfg)
     if args.dataset:
         cfg.DATASET.NAME = args.dataset
+    if args.inductive:
+        cfg.DATASET.IS_INDUCTIVE = True
     if args.seed is not None:
         cfg.SEED = args.seed
     if args.max_iter is not None:
@@ -88,7 +105,7 @@ def main(argv=None):
     logging.info(cfg)
 
     graph_kernels.set_seed(cfg.SEED)
-    _, data_iter, model_cfg = build_dataset(cfg)
+    _, data_iter, model_cfg = build_dataset(cfg, args.data_root)
     if fanout > 0:
         # Sampled mode reads KERNEL.BACKEND itself; the full-graph backend
         # of the model config is not used there.

@@ -4,9 +4,11 @@ The port of ``stargcn_tpu/train/loop.py`` on the full-graph backends
 ``bitdense``, ``dense`` and ``xla``:
 
 * graph variants (train/valid/test) are edge masks over one static edge
-  array; their degrees, and the bit packs (``bitdense``) or 0/1 dense
-  adjacencies (``dense``), are built once (``GraphVariants``), the static
-  operands on first use and shared between variants with identical masks;
+  array (inductively the train and valid variants also lack the held-out
+  nodes' edges, and at evaluation those nodes keep a zero embedding); their
+  degrees, and the bit packs (``bitdense``) or 0/1 dense adjacencies
+  (``dense``), are built once (``GraphVariants``), the static operands on
+  first use and shared between variants with identical masks;
 * per-iteration batch-edge removal (``REMOVE_RATING``) is a host lookup of
   the batch pairs plus a batch-sized correction inside the model
   (``bitdense``, ``dense``), or the variant's mask with the batch's edges
@@ -52,7 +54,8 @@ class _ByMask:
     use by ``build(mask)``, where ``mask`` is the variant's edge mask
     times the pad mask: the valid and test variants wait for the first
     evaluation, and identical masks share one build (transductively the
-    valid graph is the train graph).  A bit pack takes seconds of host time
+    valid graph is the train graph; inductively the three differ and
+    nothing is shared).  A bit pack takes seconds of host time
     and about 2 GB of device memory at ML-10M scale; a bf16 dense
     adjacency 224 MB at ML-1M scale."""
 
@@ -359,9 +362,6 @@ class Trainer:
             raise NotImplementedError(
                 "TRAIN.DEVICE_SAMPLER (train_chunk_dev) comes with the "
                 "slice that moves batch sampling onto the card")
-        if data_iter.is_inductive:
-            raise NotImplementedError(
-                "inductive splits come with the port of data/movielens.py")
         self.model_cfg = model_cfg
         self.data_iter = data_iter
         self.s = settings

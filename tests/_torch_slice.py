@@ -2,8 +2,10 @@
 package: one small ML-10M-shaped configuration (10 rating levels, 2 blocks,
 ``leaky``, the ``bitdense`` backend, narrow widths), one synthetic graph
 split the same way in both packages, a JAX ``Trainer`` and the port's
-``ServingState`` or ``Trainer`` on the same parameters; and, for sampled
-mode, a 30 x 22 graph with both packages' ``SampledTrainer``."""
+``ServingState`` or ``Trainer`` on the same parameters; for sampled
+mode, a 30 x 22 graph with both packages' ``SampledTrainer``; and, for
+inductive splits, an ml-100k-format fixture archive that both packages'
+``build_dataset`` read into the same graph and split."""
 
 import contextlib
 import os
@@ -12,6 +14,7 @@ from unittest import mock
 import jax.numpy as jnp
 import numpy as np
 
+from experiments import common as jcommon
 from stargcn_tpu.data import DataIterator as JDataIterator
 from stargcn_tpu.data import synthetic as jsyn
 from stargcn_tpu.graph import kernels as jkernels
@@ -23,6 +26,7 @@ from stargcn_tpu.train.loop import TrainSettings
 from stargcn_tpu.train.sampled_loop import SampledTrainer
 from stargcn_tpu.utils import cfg_from_file as j_cfg_from_file
 from stargcn_tpu_torch import convert
+from stargcn_tpu_torch import predict as tpredict
 from stargcn_tpu_torch.data import DataIterator
 from stargcn_tpu_torch.data import synthetic as tsyn
 from stargcn_tpu_torch.graph import kernels as tkernels
@@ -54,6 +58,11 @@ def small_ml10m_cfg(load, accum="sum", **overrides):
     cfg.GEN_RATING.MID_MAP = 8
     cfg.TRAIN.RATING_BATCH_SIZE = 64
     cfg.TRAIN.RECON_BATCH_SIZE = 64
+    return set_keys(cfg, overrides)
+
+
+def set_keys(cfg, overrides):
+    """Set dotted keys of a config, e.g. ``{"GCN.DROPOUT": 0.0}``."""
     for dotted, value in overrides.items():
         node = cfg
         *path, leaf = dotted.split(".")
@@ -249,3 +258,91 @@ def sampled_batches(trainer, n):
     rs = it.rating_sampler(batch_size=trainer.train_batch, segment="train")
     recon = it.recon_nodes_sampler(batch_size=trainer.s.recon_batch_size)
     return [trainer._make_batch(rs, recon) for _ in range(n)]
+
+
+# ----------------------------- inductive splits -----------------------------
+
+ML100K_FIXTURE = dict(num_users=50, num_items=30, num_edges=1200, seed=0)
+
+
+def write_ml100k_fixture(root):
+    """An ml-100k-format archive, extracted under ``root``: 50 users, 30
+    items, every one rated."""
+    tsyn.write_ml100k_format(os.path.join(root, "ml-100k"), **ML100K_FIXTURE)
+    return root
+
+
+def use_float32_adjacency(jtrainer, ttrainer):
+    """Both trainers on float32 dense adjacencies (the JAX trainer's built
+    as it builds its own), for the "dense-f32" route."""
+    import torch
+
+    from stargcn_tpu.ops.agg import build_dense_adjacency as j_build
+
+    g = jtrainer.graph_data
+    jtrainer.dense_adj = {
+        k: j_build(g.edge_item, g.edge_user, g.edge_rating,
+                   m * g.edge_pad_mask, g.num_links, g.num_users,
+                   g.num_items, dtype=jnp.float32)
+        for k, m in jtrainer.edge_masks.items()}
+    ttrainer._operands = lambda variant: ttrainer.variants.dense_adj(
+        variant, torch.float32)
+
+
+def build_inductive_trainers(cfg_name, data_root, route="dense",
+                             **overrides):
+    """``(jax_trainer, torch_trainer)``: both packages' ``Trainer`` over
+    what their ``build_dataset`` reads from the ml-100k fixture under
+    ``data_root`` with ``configs/<cfg_name>`` (an inductive config at its
+    published widths, read as ml-100k; batch 64 so the step removes its
+    edges; dropout 0), on the same
+    parameters (``random_params``), the port's on the CPU.  ``route`` is
+    ``dense``, ``dense-f32`` or ``xla``."""
+    overrides = {"DATASET.NAME": "ml-100k", "GCN.DROPOUT": 0.0,
+                 "TRAIN.RATING_BATCH_SIZE": 64,
+                 "KERNEL.BACKEND": route.split("-")[0], **overrides}
+    path = os.path.join(ROOT, "configs", cfg_name)
+    jcfg = set_keys(j_cfg_from_file(path), overrides)
+    _, jit_, jmodel_cfg = jcommon.build_dataset(jcfg, data_root)
+    settings = TrainSettings.from_cfg(jcfg)
+    settings.hang_timeout_s = 0.0
+    jtrainer = Trainer(jmodel_cfg, jit_, settings)
+    jtrainer.params = random_params(jtrainer.params)
+    jtrainer.opt_state = jtrainer.opt.init(jtrainer.params)
+
+    tcfg = set_keys(cfg_from_file(path), overrides)
+    _, tit, tmodel_cfg = tpredict.build_dataset(tcfg, data_root)
+    ttrainer = TTrainer(tmodel_cfg, tit, TTrainSettings.from_cfg(tcfg),
+                        device="cpu")
+    ttrainer.model.load_state_dict(convert.params_from_flax(jtrainer.params))
+    if route == "dense-f32":
+        use_float32_adjacency(jtrainer, ttrainer)
+    return jtrainer, ttrainer
+
+
+def build_inductive_sampled_trainers(cfg_name, data_root, backend="xla",
+                                     fanout=4, **overrides):
+    """``(jax_trainer, torch_trainer)``: both packages' ``SampledTrainer``
+    over the inductive split ``build_dataset`` reads from the fixture, with
+    the same sampler seeds, caps and parameters, the port's on the CPU with
+    the loop planner.  Call inside ``reference_on_cpu()``."""
+    overrides = {"DATASET.NAME": "ml-100k", "GCN.DROPOUT": 0.0,
+                 "TRAIN.RATING_BATCH_SIZE": 64, "TRAIN.RECON_BATCH_SIZE": 16,
+                 **overrides}
+    path = os.path.join(ROOT, "configs", cfg_name)
+    jcfg = set_keys(j_cfg_from_file(path), overrides)
+    tcfg = set_keys(cfg_from_file(path), overrides)
+    _, jit_, jmodel_cfg = jcommon.build_dataset(jcfg, data_root)
+    _, tit, tmodel_cfg = tpredict.build_dataset(tcfg, data_root)
+    seed_planners(5)
+    jtrainer = SampledTrainer(jmodel_cfg, jit_, TrainSettings.from_cfg(jcfg),
+                              fanout=fanout, backend=backend)
+    jtrainer.params = random_params(jtrainer.params)
+    jtrainer.opt_state = jtrainer.opt.init(jtrainer.params)
+    seed_planners(5)
+    ttrainer = TSampledTrainer(tmodel_cfg, tit, TTrainSettings.from_cfg(tcfg),
+                               fanout=fanout, backend=backend,
+                               planner="loop", device="cpu")
+    ttrainer.model.load_state_dict(convert.params_from_flax(jtrainer.params))
+    seed_planners(7)
+    return jtrainer, ttrainer

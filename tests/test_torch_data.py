@@ -136,9 +136,11 @@ def test_data_iterator_identical():
 
 
 def test_data_iterator_rejects_inductive():
+    """An inductive split needs the held-out node type; the split itself
+    is held against the JAX package in ``tests/test_torch_inductive.py``."""
     g = tsyn.synthetic_graph(num_users=20, num_items=10, num_edges=80)
     test_pairs, valid_pairs = _split(g)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="inductive_key"):
         DataIterator(g, "user", "movie", is_inductive=True,
                      test_node_pairs=test_pairs, valid_node_pairs=valid_pairs)
 
