@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 11,12   # phases 1, 2 and these alone
+    python3 chip_smoke.py --phases 13      # phase 13 on its own ML-10M set-up
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -141,6 +142,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    stargcn_tpu_torch.train --cfg configs/inductive_ml_1m_user_10.yml
    --data_root <dir> --max_iter 10``, the user-keyed config.
 
+13. batch sampling and plan building on the card, and the prefetch threads
+   (after phase 8, on phase 4's trainer): (a) ``TRAIN.DEVICE_SAMPLER`` at
+   ML-10M on ``bitdense``: ``train_chunk_dev(10)`` (40 + 40 bit launches),
+   a second chunk under the profiler with no host-to-device copy, one draw
+   under ``torch.cuda.set_sync_debug_mode("error")`` checked on the host
+   (every pair a train edge with its rating, the recon fraction within 5
+   standard deviations of ``P_MASK``), the same drawn inputs through the
+   host-fed step (loss and every gradient within twice the spread of
+   repeating that step), step time, busy and idle beside the host-fed
+   step, ``fit(max_iter=20)`` with the sampler on; (b) the same at ML-1M on
+   ``dense`` in a fresh process (``--phases 13b``), with ``fit`` host-fed
+   (the prefetch thread) and drawn on the card; (c)
+   ``SampledTrainer(plan_device=True)`` at ML-10M (batch 4096, recon 1024,
+   fanout 8, ``xla``): the probed caps above both node counts (the identity
+   path), one step (no bit or ELL launch), its plan built under sync debug
+   mode ``"error"`` and equal, array for array, to the same planner on the
+   CPU fed the same uniforms, the step through ``identity_frontiers``
+   against the gather path (phase 8's tolerances), device time of the plan
+   and of the update, step time, idle share and memory above what is held
+   beside phase 8's host-planned ``xla`` step, ``fit(max_iter=10)`` with
+   one validation (valid and test cut to 8,192 pairs each), and a forced
+   overflow: caps cut below what a batch needs, the update rejected with
+   parameters and optimiser bit-equal, ``fit`` growing the caps and going
+   on; (d) the dedup path: the largest batch out of 512 down to 16 whose
+   probed user cap falls below the user count, its plan on the card equal
+   to the CPU's, one step, and the exclusion's keep-mask equal to set
+   membership of the batch pairs; (e) ``SampledTrainer.fit(max_iter=10)``
+   on ``pallas`` serial and with ``prefetch=True`` (no validation inside:
+   4 + 4 ELL launches a step), both timed beside phase 8's ``fit``.
+
 Phase 3 also checks the three ELL kernels on small cases (K = 1, 8, 32;
 F = 1, 65, 250, 256; padded slots with in-range and out-of-range indices;
 rows that repeat a source; a single source row; matrices that start off a
@@ -157,10 +188,15 @@ index; negative and too-large indices; every slot padded), each within
 and slots that name one index bit-equal.  Every time printed carries the
 card's name and power limit.
 
-Phases 10, 11, 11b and 12 run inside phase 4's temporary directory, after
-phase 8.  The line before the last is the card's name and power limit, the
-one before it ``{"kernels": [...]}`` (all nine kernels: the ``dense`` and
-``xla`` paths launch none of them); the last is ``{"ok": true, "device":
+Phases 13, 10, 11, 11b and 12 run inside phase 4's temporary directory,
+after phase 8, in that order.  The line before the last is the card's name
+and power limit, the one before it ``{"kernels": [...]}`` (all nine
+kernels: the ``dense``, ``xla`` and ``plan_device`` paths launch none of
+them); each row's ``launches_by_path`` holds the count of every path that
+launched it, each driven with the counts set to 0 just before it (phase
+13 adds ``device_sampler train_chunk_dev(10)`` and ``device_sampler
+fit(20)`` to the bit pair, ``sampled fit(10) prefetch=False`` and
+``prefetch=True`` to the ELL pair); the last is ``{"ok": true, "device":
 {...}}``.  Needs one card; imports nothing of
 JAX and nothing of the JAX package.
 """
@@ -888,6 +924,27 @@ def check_artifact(art, graph=ML10M):
 # ----------------------------- training slice -----------------------------
 
 
+@contextlib.contextmanager
+def recorded_losses(trainer, losses):
+    """While open, every step of the full-graph ``trainer`` (host-fed or
+    drawn on the card, single or in a chunk: ``fit`` takes them all
+    through ``_step``) appends its loss to ``losses``.  The class's method
+    comes back on exit: a copy of the trainer (the twins of phase 11b)
+    must not carry this trainer's bound step."""
+    real_step = trainer._step
+
+    def recording_step(*inputs):
+        st = real_step(*inputs)
+        losses.append(st["loss"])
+        return st
+
+    trainer._step = recording_step
+    try:
+        yield
+    finally:
+        del trainer._step
+
+
 def next_batches(trainer, rating_sampler, recon_sampler):
     rb = next(rating_sampler)
     noise_dict, _, recon_ids = next(recon_sampler)
@@ -1024,21 +1081,11 @@ def run_training_slice(bd, trainer, card):
     trainer.opt.load_state_dict(opt0)
     trainer.seed_dropout(SEED)
     losses = []
-    real_step = trainer.train_iteration
-
-    def recording_step(rb, cb):
-        st = real_step(rb, cb)
-        losses.append(st["loss"])
-        return st
-
-    trainer.train_iteration = recording_step
     lines = []
     zero_launches(bd)
-    summary, t_fit = host_s(lambda: trainer.fit(max_iter=20,
-                                                log=lines.append))
-    # Back to the class's method: a copy of the trainer (the twins of
-    # phase 11b) must not carry this trainer's bound step.
-    del trainer.train_iteration
+    with recorded_losses(trainer, losses):
+        summary, t_fit = host_s(lambda: trainer.fit(max_iter=20,
+                                                    log=lines.append))
     fit_launches = dict(bd.LAUNCHES)
     for line in lines:
         log(f"  fit: {line}")
@@ -2264,7 +2311,7 @@ def run_sampled_slice(bd, ek, cfg, it, model_cfg, full_trainer, save_dir,
     log(f"  restore_checkpoint({os.path.basename(best)}): the sampled "
         f"trainer and the full-graph Trainer both hold the saved "
         f"parameters, optimizer at step {strainer.opt.count}")
-    return launches_by_path, worst_full, shapes, numbers
+    return launches_by_path, worst_full, shapes, numbers, strainer
 
 
 # ----------------------------- serving slice -----------------------------
@@ -2613,21 +2660,11 @@ def run_dense_xla_slice(bd, ek, card, save_dir):
     # (f) fit: 20 steps with the config's intervals -> two validations.
     trainer.seed_dropout(SEED)
     losses = []
-    real_step = trainer.train_iteration
-
-    def recording_step(rb, cb):
-        st = real_step(rb, cb)
-        losses.append(st["loss"])
-        return st
-
-    trainer.train_iteration = recording_step
     lines = []
     zero_launches(bd, ek)
-    try:
+    with recorded_losses(trainer, losses):
         summary, t_fit = host_s(lambda: trainer.fit(max_iter=20,
                                                     log=lines.append))
-    finally:
-        del trainer.train_iteration
     for line in lines:
         log(f"  fit: {line}")
     losses = [float(x) for x in losses]
@@ -3404,6 +3441,773 @@ def run_probes(card):
     return launches, worst, {"probe_bitcast": [bshape], "probe_mma": shapes}
 
 
+# --------------- phase 13: sampling and planning on the card ---------------
+
+
+def call_without_waiting(fn, busy_ms=1000.0):
+    """``fn()`` with every operation that waits for the card an error
+    (``torch.cuda.set_sync_debug_mode("error")``) and, since that mode
+    does not catch every wait, called while the card still runs a
+    ``busy_ms`` sleep queued just before it: its host time well under
+    ``busy_ms`` shows that it waited for nothing.  ``fn`` should have run
+    once before (first calls allocate).  Returns ``(result, host ms)``."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(1_000_000)
+    end.record()
+    end.synchronize()
+    cycles = int(1_000_000 * busy_ms / max(start.elapsed_time(end), 1e-3))
+    torch.cuda._sleep(cycles)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        host = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(host < busy_ms / 2, f"{host:.1f} ms on the host behind a "
+          f"{busy_ms:.0f} ms sleep on the card: the call waited for it")
+    return out, host
+
+
+def h2d_copies(events):
+    """The host-to-device copies among ``device_events`` entries."""
+    return [(name, calls) for name, _, calls in events if "HtoD" in name]
+
+
+def cut_eval(it, n):
+    """The iterator with its valid and test pairs cut to the first ``n``
+    each (evaluation depth; the graphs, the train pairs and the samplers'
+    stream are the iterator's own)."""
+    cut = copy.copy(it)
+    for name in ("valid", "test"):
+        setattr(cut, f"_{name}_node_pairs",
+                getattr(it, f"{name}_node_pairs")[:, :n])
+        setattr(cut, f"_{name}_ratings", getattr(it, f"{name}_ratings")[:n])
+    return cut
+
+
+def recording_uniforms(strainer):
+    """Make ``strainer``'s plan draws also land in the list returned."""
+    draws, real = [], strainer.plan_uniform
+
+    def uniform(shape):
+        u = real(shape)
+        draws.append(u)
+        return u
+
+    strainer.plan_uniform = uniform
+    return draws
+
+
+def plan_on_card_against_cpu(strainer, feed, what, card):
+    """One device plan of ``feed`` built with every wait for the card an
+    error, then the same planner on the CPU fed the same uniforms: every
+    array equal, weights within 1e-6.  Returns ``(plan, pairs_pos, aux)``
+    and the largest weight difference."""
+    import torch
+
+    from stargcn_tpu_torch.graph.device_sampling import (DeviceGraphTables,
+                                                         DevicePlanner)
+
+    strainer._device_plan(feed)
+    real = strainer.plan_uniform
+    draws = recording_uniforms(strainer)
+    try:
+        out, host = call_without_waiting(lambda: strainer._device_plan(feed))
+    finally:
+        strainer.plan_uniform = real
+    tab = DeviceGraphTables.build(strainer.data_iter.train_graph, "user",
+                                  "movie", "cpu")
+    cpu_feed = {k: v.cpu() for k, v in feed.items()}
+    replay = iter([u.cpu() for u in draws])
+    cout = DevicePlanner(strainer.model_cfg, strainer.caps, strainer.fanout,
+                         symm=strainer.model_cfg.agg_norm_symm).build(
+        tab, lambda shape: next(replay),
+        tab.id2ind["user"].index_select(0, cpu_feed["bu"]),
+        tab.id2ind["item"].index_select(0, cpu_feed["bi"]),
+        cpu_feed["valid"], cpu_feed["recon_u"], cpu_feed["recon_i"],
+        exclude=strainer.do_remove)
+    worst = [0.0]
+
+    def same(a, b, path):
+        if b is None:
+            check(a is None, f"{what}: {path} differs from the CPU plan")
+        elif isinstance(b, dict):
+            check(sorted(a) == sorted(b), f"{what}: {path} keys")
+            for k in b:
+                same(a[k], b[k], f"{path}.{k}")
+        elif isinstance(b, (list, tuple)):
+            check(len(a) == len(b), f"{what}: {path} length")
+            for i, (x, y) in enumerate(zip(a, b)):
+                same(x, y, f"{path}[{i}]")
+        else:
+            x = a.cpu()
+            check(x.shape == b.shape and x.dtype == b.dtype,
+                  f"{what}: {path} shape or type")
+            if b.dtype.is_floating_point:
+                err = float((x - b).abs().max()) if b.numel() else 0.0
+                worst[0] = max(worst[0], err)
+                check(err <= 1e-6, f"{what}: {path} off by {err:.3e}")
+            else:
+                check(torch.equal(x, b), f"{what}: {path} differs from "
+                      "the CPU plan")
+
+    same(out[0], cout[0], "plan")
+    same(out[1], cout[1], "pairs_pos")
+    for k in ("needed_user", "needed_item", "overflow"):
+        check(int(out[2][k]) == int(cout[2][k]), f"{what}: aux {k}")
+    check(out[2]["identity"] == cout[2]["identity"], f"{what}: identity")
+    log(f"  {what}: the plan built on the card with every wait for the card "
+        f"an error (sync debug mode \"error\"), in {host:.2f} ms of host "
+        f"time behind a 1 s sleep on the card, {len(draws)} uniform "
+        f"draws; "
+        f"the same planner on the CPU fed them gives every array equal, "
+        f"weights within {worst[0]:.3e} (tol 1e-6); needed "
+        f"{int(out[2]['needed_user'])} users / {int(out[2]['needed_item'])} "
+        f"items of caps {strainer.caps} (0 on a dense type: no dedup), "
+        f"identity {out[2]['identity']} [{card}]")
+    return out, worst[0]
+
+
+def state_snapshot(owner):
+    """Copies of the parameters and the optimiser state (count, moments)."""
+    opt = owner.opt.state_dict()
+    return ({k: v.clone() for k, v in owner.model.state_dict().items()},
+            opt["count"], {k: v.clone() for k, v in opt["mu"].items()},
+            {k: v.clone() for k, v in opt["nu"].items()})
+
+
+def states_equal(a, b):
+    import torch
+
+    return a[1] == b[1] and all(torch.equal(x[k], y[k]) for x, y in
+                                ((a[0], b[0]), (a[2], b[2]), (a[3], b[3]))
+                                for k in x)
+
+
+def run_device_sampler_slice(bd, trainer, card, earlier):
+    """Phase 13 (a): ``TRAIN.DEVICE_SAMPLER`` on phase 4's ML-10M
+    ``bitdense`` trainer.  Returns the launch counts of each driven path
+    and the numbers; the trainer's parameters come back as they were."""
+    import numpy as np
+    import torch
+
+    from stargcn_tpu_torch.train import loop as tloop
+
+    it, cfg = trainer.data_iter, trainer.model_cfg
+    params0 = copy.deepcopy(trainer.model.state_dict())
+    opt0 = copy.deepcopy(trainer.opt.state_dict())
+    launches = {}
+
+    # The path through its entry point: counts from 0, a chunk, read.
+    trainer.seed_dropout(SEED)
+    zero_launches(bd)
+    stats, t_first = host_s(lambda: trainer.train_chunk_dev(10))
+    launches["device_sampler train_chunk_dev(10)"] = dict(bd.LAUNCHES)
+    losses = [float(x) for x in stats["loss"]]
+    log(f"  first train_chunk_dev(10) (the train edges copied to the card "
+        f"in it): {t_first:.3f} s, losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}, launches "
+        f"{dict(bd.LAUNCHES)} [{card}]")
+    check(bd.LAUNCHES == bit_counts(40, 40, 0, 0),
+          f"expected 40 + 40 bit launches in 10 steps, got {bd.LAUNCHES}")
+    check(np.isfinite(losses).all(), "non-finite loss drawn on the card")
+
+    # After the first call nothing is copied to the card inside a chunk.
+    events = device_events(lambda: trainer.train_chunk_dev(10))
+    copies = h2d_copies(events)
+    busy = device_busy_ms(None, events=events)
+    busy = None if busy is None else busy / 10
+    log(f"  a second chunk under the profiler: host-to-device copies "
+        f"{copies or 'none'}; device busy {_ms_or_not(busy)} a step "
+        f"[{card}]")
+    check(not copies, f"copies to the card inside a chunk: {copies}")
+
+    # One draw with every wait for the card an error, checked on the host.
+    arrays = trainer.device_train_arrays()
+
+    def draw():
+        d = trainer.draw_device_batch()
+        return d, tloop._device_sample_step_inputs(trainer, *arrays, d)
+
+    draw()
+    (draws, inputs), draw_host = call_without_waiting(draw)
+    ints, flts, noise, rmask = (x.cpu().numpy() for x in inputs)
+    tp = np.asarray(it.train_node_pairs, np.int64)
+    keys = tp[0] * cfg.num_items + tp[1]
+    order = np.argsort(keys)
+    q = ints[0].astype(np.int64) * cfg.num_items + ints[1]
+    pos = np.minimum(np.searchsorted(keys[order], q), keys.size - 1)
+    check((keys[order][pos] == q).all(), "a drawn pair is not a train edge")
+    check((np.asarray(it.train_ratings)[order][pos] == flts[0]).all()
+          and (np.asarray(it.possible_rating_values)[ints[2]]
+               == flts[0]).all(), "a drawn pair's rating or its index")
+    check((flts[1] == 1).all() and (flts[2] == 1).all(),
+          "drawn pairs are valid and removed")
+    fracs = {}
+    nu = cfg.num_users
+    for i, (t, sl) in enumerate((("user", slice(0, nu)),
+                                 ("item", slice(nu, None)))):
+        m, nz = rmask[sl], noise[sl]
+        p = trainer._dev_pmask[i]
+        sd = (p * (1 - p) / m.size) ** 0.5
+        fracs[t] = float(m.mean())
+        check(abs(m.mean() - p) <= 5 * sd,
+              f"{t} recon fraction {m.mean():.5f}, P_MASK {p} (sd {sd:.5f})")
+        kept = nz != -1
+        check(((~kept) <= (m > 0)).all()
+              and (nz[kept] == np.nonzero(kept)[0]).all(),
+              f"{t} noise: only selected nodes are masked")
+    log(f"  one draw of {ints.shape[1]} pairs with sync debug mode "
+        f"\"error\", in {draw_host:.2f} ms of host time behind a 1 s sleep "
+        f"on the card: every pair a train edge with its rating; recon "
+        f"fractions {fracs} against P_MASK {trainer._dev_pmask} (within 5 "
+        f"standard deviations) [{card}]")
+
+    # The same inputs through the host-fed step: the same loss and
+    # gradients, within the spread of repeating the host-fed step.
+    rb = (ints[:2], flts[0])
+    cb = (noise[:nu], noise[nu:], rmask[:nu], rmask[nu:])
+    reps = []
+    for _ in range(3):
+        trainer.seed_dropout(SEED)
+        reps.append(trainer.loss_and_grads(rb, cb))
+    trainer.seed_dropout(SEED)
+    drawn = trainer._loss_and_grads(*inputs)
+    spread = [compare_grads(reps[0], r) for r in reps[1:]]
+    got = compare_grads(reps[0], drawn)
+    tol = [2 * max(x[i] for x in spread) + eps
+           for i, eps in ((0, 1e-7), (1, 1e-6), (3, 1e-7))]
+    log(f"  the drawn inputs through train_step_dev's step and through the "
+        f"host-fed step: loss rel diff {got[0]:.3e}, all gradients together "
+        f"{got[3]:.3e}, worst parameter {got[1]:.3e} ({got[2]}); the "
+        f"host-fed step repeated: {', '.join(f'{x[3]:.3e}' for x in spread)} "
+        f"all together, worst {max(x[1] for x in spread):.3e} (tol twice "
+        f"the repeats' spread plus 1e-7 / 1e-6 / 1e-7)")
+    check(got[0] <= tol[0] and got[1] <= tol[1] and got[3] <= tol[2],
+          "the step drawn on the card disagrees with the host-fed step")
+    del reps, drawn
+
+    # Step time, busy and idle beside the host-fed step on these parameters.
+    times = []
+    for _ in range(3):
+        _, t = host_s(lambda: trainer.train_chunk_dev(10))
+        times.append(t * 1e3 / 10)
+    step_ms = median(times)
+    rs = it.rating_sampler(batch_size=trainer.s.rating_batch_size,
+                           segment="train")
+    recon = it.recon_nodes_sampler(batch_size=trainer.s.recon_batch_size)
+    host_times = []
+    for _ in range(6):
+        b = next_batches(trainer, rs, recon)
+        _, t = host_s(lambda: trainer.train_iteration(*b))
+        host_times.append(t * 1e3)
+    host_ms = median(host_times[1:])
+    host_busy = device_busy_ms(lambda: trainer.train_iteration(*b))
+    was = earlier.get("training") or {}
+    log(f"  DEVICE_SAMPLER step: {step_ms:.2f} ms on the host clock "
+        f"(train_chunk_dev(10) / 10, median of "
+        f"{', '.join(f'{x:.2f}' for x in times)}), device busy "
+        f"{_ms_or_not(busy)}, idle "
+        f"{'not measured' if busy is None else f'{1 - busy / step_ms:.0%}'};"
+        f" host-fed step in this phase {host_ms:.2f} ms, busy "
+        f"{_ms_or_not(host_busy)}; phase 6's host-fed step "
+        f"{_earlier_ms(was.get('step_ms'))}, busy "
+        f"{_earlier_ms(was.get('device_busy_ms'))} [{card}]")
+
+    # fit with the sampler on: 20 steps, two validations.
+    trainer.model.load_state_dict(params0)
+    trainer.opt.load_state_dict(opt0)
+    trainer.seed_dropout(SEED)
+    trainer.s.device_sampler = True
+    losses, lines = [], []
+    zero_launches(bd)
+    try:
+        with recorded_losses(trainer, losses):
+            summary, t_fit = host_s(lambda: trainer.fit(max_iter=20,
+                                                        log=lines.append))
+    finally:
+        trainer.s.device_sampler = False
+    launches["device_sampler fit(20)"] = dict(bd.LAUNCHES)
+    for line in lines:
+        log(f"  fit: {line}")
+    losses = [float(x) for x in losses]
+    log(f"  fit(max_iter=20) with TRAIN.DEVICE_SAMPLER: {t_fit:.2f} s (phase "
+        f"6's host-fed fit {_s_or_not(was.get('fit_s'))}); launches "
+        f"{dict(bd.LAUNCHES)} [{card}]")
+    eval_batches = -(-it.valid_node_pairs.shape[1]
+                     // trainer.s.rating_batch_size)
+    check(bd.LAUNCHES["bit_reduce_matmul"] == 80
+          and bd.LAUNCHES["bit_expand_matmul"] >= 80 + 2 * 4 * eval_batches,
+          f"device-sampled fit launch counts {bd.LAUNCHES}")
+    check(len(losses) == 20 and np.isfinite(losses).all()
+          and sum("Val RMSE" in x for x in lines) == 2
+          and np.isfinite(summary["best_valid_rmse"]),
+          f"device-sampled fit: 20 finite steps, two validations {summary}")
+    trainer.model.load_state_dict(params0)
+    trainer.opt.load_state_dict(opt0)
+    torch.cuda.empty_cache()
+    return launches, dict(
+        first_chunk_s=t_first, step_ms=step_ms, step_times_ms=times,
+        device_busy_ms=busy, host_fed_step_ms=host_ms,
+        host_fed_busy_ms=host_busy, h2d_copies_in_chunk=len(copies),
+        draw_host_ms=draw_host,
+        recon_fraction=fracs, host_fed_comparison=got[:2] + got[3:],
+        fit_s=t_fit, fit=summary)
+
+
+def _s_or_not(s):
+    return "not run in this process" if s is None else f"{s:.2f} s"
+
+
+def _earlier_ms(ms):
+    return "not run in this process" if ms is None else f"{ms:.2f} ms"
+
+
+def run_device_sampler_ml1m(bd, ek, card):
+    """Phase 13 (b), in a process of its own (``--phases 13b``): the
+    ML-1M ``dense`` trainer of phase 11, its host-fed step beside the step
+    drawn on the card, and ``fit`` both ways."""
+    import numpy as np
+    import torch
+
+    from stargcn_tpu_torch.train import Trainer, TrainSettings
+
+    (cfg, it, model_cfg), t_graph = host_s(build_ml1m)
+    check(model_cfg.backend == "dense", "ML-1M should resolve to dense")
+    numbers = {"graph_s": t_graph}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as save_dir:
+        trainer = Trainer(model_cfg, it, TrainSettings.from_cfg(cfg),
+                          save_dir=save_dir, device=DEVICE)
+        trainer.variants.dense_adj("train")
+        params0 = copy.deepcopy(trainer.model.state_dict())
+        opt0 = copy.deepcopy(trainer.opt.state_dict())
+        rs = it.rating_sampler(batch_size=trainer.s.rating_batch_size,
+                               segment="train")
+        recon = it.recon_nodes_sampler(
+            batch_size=trainer.s.recon_batch_size)
+        zero_launches(bd, ek)
+        host_times = []
+        for _ in range(6):
+            b = next_batches(trainer, rs, recon)
+            _, t = host_s(lambda: trainer.train_iteration(*b))
+            host_times.append(t * 1e3)
+        host_busy = device_busy_ms(lambda: trainer.train_iteration(*b))
+        trainer.train_chunk_dev(10)
+        times = []
+        for _ in range(3):
+            _, t = host_s(lambda: trainer.train_chunk_dev(10))
+            times.append(t * 1e3 / 10)
+        events = device_events(lambda: trainer.train_chunk_dev(10))
+        busy = device_busy_ms(None, events=events)
+        busy = None if busy is None else busy / 10
+        check(not h2d_copies(events), "copies to the card inside a chunk")
+        check(no_kernel_launched(bd, ek), "a dense step launched a kernel")
+        host_ms, step_ms = median(host_times[1:]), median(times)
+        log(f"  ML-1M dense: host-fed step {host_ms:.2f} ms (median of "
+            f"{', '.join(f'{x:.2f}' for x in host_times[1:])}), busy "
+            f"{_ms_or_not(host_busy)}; DEVICE_SAMPLER step {step_ms:.2f} ms "
+            f"(train_chunk_dev(10) / 10: "
+            f"{', '.join(f'{x:.2f}' for x in times)}), busy "
+            f"{_ms_or_not(busy)}, idle "
+            f"{'not measured' if busy is None else f'{1 - busy / step_ms:.0%}'}"
+            f" [{card}]")
+        # fit three ways, in turns: host-fed serial (SCAN_STEPS 1: the same
+        # steps, no producer thread), host-fed with the prefetch thread
+        # (SCAN_STEPS 10), drawn on the card.
+        fits = {k: [] for k in ("host_fed_serial", "host_fed_prefetch",
+                                "device_sampler")}
+        s0 = trainer.s
+        for _ in range(2):
+            for way in fits:
+                trainer.model.load_state_dict(params0)
+                trainer.opt.load_state_dict(opt0)
+                trainer.seed_dropout(SEED)
+                trainer.s = dataclasses.replace(
+                    s0, device_sampler=way == "device_sampler",
+                    scan_steps=1 if way == "host_fed_serial"
+                    else s0.scan_steps)
+                lines = []
+                summary, t_fit = host_s(lambda: trainer.fit(
+                    max_iter=20, log=lines.append))
+                check(np.isfinite(summary["best_valid_rmse"])
+                      and sum("Val RMSE" in x for x in lines) == 2,
+                      f"ML-1M fit {way} {summary}")
+                fits[way].append(t_fit)
+        trainer.s = s0
+        log(f"  ML-1M fit(max_iter=20), two validations, each way twice in "
+            f"turns: host-fed serial (SCAN_STEPS 1) "
+            f"{', '.join(f'{x:.2f}' for x in fits['host_fed_serial'])} s, "
+            f"host-fed with the prefetch thread "
+            f"{', '.join(f'{x:.2f}' for x in fits['host_fed_prefetch'])} s, "
+            f"DEVICE_SAMPLER "
+            f"{', '.join(f'{x:.2f}' for x in fits['device_sampler'])} s "
+            f"[{card}]")
+        check(no_kernel_launched(bd, ek), "ML-1M fit launched a kernel")
+    del torch
+    numbers.update(host_fed_step_ms=host_ms, host_fed_busy_ms=host_busy,
+                   step_ms=step_ms, device_busy_ms=busy, fit_s=fits)
+    return numbers
+
+
+def run_fresh(phase, key, card):
+    """``chip_smoke.py --phases <phase>`` in a process of its own: its lines
+    relayed, its numbers (the JSON line under ``key``) returned."""
+    out = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--phases",
+         phase], capture_output=True, text=True, timeout=900, cwd=ROOT)
+    numbers = None
+    for line in out.stdout.splitlines():
+        if line.startswith(f'{{"{key}"'):
+            numbers = json.loads(line)[key]
+        elif line.startswith("  "):
+            log(f"  [fresh] {line.strip()}")
+    check(out.returncode == 0 and numbers is not None,
+          f"--phases {phase} failed: {out.stderr[-2000:]}")
+    return numbers
+
+
+def probed_caps(strainer, batch):
+    """The frontier caps ``SampledTrainer`` would probe at another batch
+    size, from ``strainer``'s samplers (their caps lifted meanwhile so
+    the probe plans keep their real sizes)."""
+    saved = strainer.train_batch, [s.frontier_caps
+                                   for s in strainer.samplers.values()]
+    strainer.train_batch = batch
+    for s in strainer.samplers.values():
+        s.frontier_caps = None
+    try:
+        return strainer._probe_caps(1.6)
+    finally:
+        strainer.train_batch = saved[0]
+        for s, c in zip(strainer.samplers.values(), saved[1]):
+            s.frontier_caps = c
+
+
+def run_plan_device_slice(bd, ek, cfg, it, model_cfg, save_dir, card,
+                          earlier):
+    """Phase 13 (c) and (d): ``SampledTrainer(plan_device=True)`` at
+    ML-10M (batch 4096, recon 1024, fanout 8, ``xla``), then the dedup path
+    at a batch whose probed user cap falls below the user count."""
+    import numpy as np
+    import torch
+
+    from stargcn_tpu_torch.graph import kernels as gk
+    from stargcn_tpu_torch.graph.device_sampling import (batch_edge_keys,
+                                                         keep_mask)
+    from stargcn_tpu_torch.train import (SampledTrainer, TrainSettings,
+                                         sampled_loop)
+
+    settings = TrainSettings.from_cfg(cfg)
+    settings.rating_batch_size = 4096
+    settings.recon_batch_size = 1024
+    eval_it = cut_eval(it, 8192)
+    gk.set_seed(SEED)
+    strainer, t_make = host_s(lambda: SampledTrainer(
+        model_cfg, eval_it, settings, fanout=8, backend="xla",
+        device=DEVICE, plan_device=True, save_dir=save_dir, save_id=3))
+    n = strainer._dev_tables.n
+    log(f"  SampledTrainer(plan_device=True): {t_make:.2f} s; probed caps "
+        f"{strainer.caps} against {n} nodes [{card}]")
+    check(all(strainer.caps[t] >= n[t] for t in n),
+          "at batch 4096 both caps should pass the node counts")
+    rs = eval_it.rating_sampler(batch_size=strainer.train_batch,
+                                segment="train")
+    recon = eval_it.recon_nodes_sampler(batch_size=settings.recon_batch_size)
+    batch = strainer._build_batch_safe(rs, recon)
+    params0 = copy.deepcopy(strainer.model.state_dict())
+    opt0 = copy.deepcopy(strainer.opt.state_dict())
+    launches = {}
+
+    # The path through its entry point: counts from 0, a step, read.
+    strainer.seed_dropout(SEED)
+    zero_launches(bd, ek)
+    stats, t_first = host_s(lambda: strainer.train_iteration(batch))
+    launches["plan_device train_iteration"] = {**bd.LAUNCHES, **ek.LAUNCHES}
+    log(f"  first plan_device train_iteration: {t_first * 1e3:.1f} ms, loss "
+        f"{float(stats['loss']):.4f}, overflow {bool(stats['overflow'])}, "
+        f"launches {launches['plan_device train_iteration']} [{card}]")
+    check(no_kernel_launched(bd, ek), "a plan_device step launched a kernel")
+    check(not bool(stats["overflow"]) and bool(torch.isfinite(stats["loss"])),
+          "the first plan_device step")
+
+    # The plan against the CPU; the step through identity_frontiers
+    # against the same plan through the gather path.
+    feed = strainer._feed(strainer._pack_batch(batch))
+    (plan, pp, aux), w_err = plan_on_card_against_cpu(strainer, feed,
+                                                      "batch 4096", card)
+    check(aux["identity"] == {"user": True, "item": True},
+          "both types should take the identity path")
+    full = dict(feed, plan=dict(plan, pairs_pos=pp))
+    strainer.seed_dropout(SEED)
+    ident = sampled_loop._loss_and_grads(strainer, full,
+                                         identity=aux["identity"])
+    strainer.seed_dropout(SEED)
+    gather = sampled_loop._loss_and_grads(strainer, full)
+    loss_rel, worst, worst_name, glob = compare_grads(gather, ident)
+    log(f"  identity_frontiers against the gather path on that plan: loss "
+        f"rel diff {loss_rel:.3e} (tol 1e-5), all gradients together "
+        f"{glob:.3e} (tol 1e-4), worst parameter {worst:.3e} ({worst_name};"
+        f" tol 1e-3)")
+    check(loss_rel <= 1e-5 and glob <= 1e-4 and worst <= 1e-3,
+          "identity_frontiers disagrees with the gather path")
+    del ident, gather, full
+
+    # Device time of the plan and of the update, the step, idle, memory.
+    plan_busy = device_busy_ms(lambda: strainer._device_plan(feed))
+    dplan = strainer._device_plan(feed)
+    update_busy = device_busy_ms(
+        lambda: strainer._device_update(*dplan, feed))
+    del dplan
+    draw_times, times = [], []
+    batches = []
+    for _ in range(6):
+        b, t = host_s(lambda: strainer._build_batch_safe(rs, recon))
+        draw_times.append(t * 1e3)
+        batches.append(b)
+    for b in batches:
+        _, t = host_s(lambda: strainer.train_iteration(b))
+        times.append(t * 1e3)
+    step_ms, draw_ms = median(times[1:]), median(draw_times)
+    busy = device_busy_ms(lambda: strainer.train_iteration(batches[0]))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    strainer.train_iteration(batches[1])
+    torch.cuda.synchronize()
+    above = (torch.cuda.max_memory_allocated() - held) / 2**30
+    was = (earlier.get("sampled_training") or {}).get("xla") or {}
+    log(f"  plan_device step: {step_ms:.2f} ms on the host clock (median of "
+        f"{', '.join(f'{x:.2f}' for x in times[1:])}; the batch drawn "
+        f"before it in {draw_ms:.2f} ms), device busy {_ms_or_not(busy)}: "
+        f"plan {_ms_or_not(plan_busy)}, update {_ms_or_not(update_busy)}; "
+        f"idle "
+        f"{'not measured' if busy is None else f'{1 - busy / step_ms:.0%}'};"
+        f" {above:.3f} GiB above what is held; phase 8's host-planned xla "
+        f"step {_earlier_ms(was.get('step_ms'))} [{card}]")
+
+    # fit: 10 steps, one validation (evaluation on 8192 pairs).
+    strainer.model.load_state_dict(params0)
+    strainer.opt.load_state_dict(opt0)
+    strainer.seed_dropout(SEED)
+    lines = []
+    zero_launches(bd, ek)
+    summary, t_fit = host_s(lambda: strainer.fit(max_iter=10,
+                                                 log=lines.append))
+    launches["plan_device fit(10)"] = {**bd.LAUNCHES, **ek.LAUNCHES}
+    for line in lines:
+        log(f"  fit: {line}")
+    log(f"  plan_device fit(max_iter=10), one validation and one test pass "
+        f"of 8192 pairs each (host plans): {t_fit:.2f} s [{card}]")
+    check(no_kernel_launched(bd, ek)
+          and summary["best_iter"] == 10
+          and np.isfinite(summary["best_valid_rmse"])
+          and sum("Val RMSE" in x for x in lines) == 1,
+          f"plan_device fit {summary}")
+
+    # A forced overflow: the update is rejected, fit grows the caps.
+    caps0 = dict(strainer.caps)
+    strainer.caps = {"user": 4096, "item": 2048}
+    before = state_snapshot(strainer)
+    st = strainer.train_iteration(strainer._build_batch_safe(rs, recon))
+    after = state_snapshot(strainer)
+    need = (int(st["needed_user"]), int(st["needed_item"]))
+    check(bool(st["overflow"]) and float(st["gnorm"]) == 0.0
+          and float(st["sq_err"].abs().sum()) == 0.0,
+          f"an overflowed step should report itself: {st}")
+    check(states_equal(before, after),
+          "an overflowed step changed the parameters or the optimiser")
+    count = strainer.opt.count
+    lines = []
+    summary, t_grow = host_s(lambda: strainer.fit(max_iter=20,
+                                                  log=lines.append))
+    grown = dict(strainer.caps)
+    log(f"  caps cut to {{'user': 4096, 'item': 2048}}: the step needed "
+        f"{need}, reported overflow with gnorm 0, and left parameters and "
+        f"optimiser bit-equal; fit(max_iter=20) then grew the caps to "
+        f"{grown} and applied {strainer.opt.count - count} updates in "
+        f"{t_grow:.2f} s: "
+        f"{[x for x in lines if 'overflow' in x]} [{card}]")
+    check(any("skipped on frontier-cap overflow" in x for x in lines)
+          and grown["user"] > 4096 and strainer.opt.count > count
+          and np.isfinite(summary["best_valid_rmse"]),
+          "fit should grow the caps after an overflow and go on")
+    strainer.caps = caps0
+
+    # (d) the dedup path at full width.
+    log("== 13 (d). plan_device on the dedup path at full width")
+    found = None
+    for b in (512, 256, 128, 64, 32, 16):
+        caps_b = probed_caps(strainer, b)
+        log(f"  probed caps at batch {b}: {caps_b}")
+        if caps_b["user"] < n["user"]:
+            found = b
+            break
+    check(found is not None, "no batch gave a user cap below the users")
+    del strainer, batch, batches, feed, pp, plan
+    torch.cuda.empty_cache()
+    settings_d = dataclasses.replace(settings, rating_batch_size=found)
+    d, t_make = host_s(lambda: SampledTrainer(
+        model_cfg, eval_it, settings_d, fanout=8, backend="xla",
+        device=DEVICE, plan_device=True))
+    log(f"  SampledTrainer(plan_device=True) at batch {found}: "
+        f"{t_make:.2f} s; probed caps {d.caps} [{card}]")
+    check(d.caps["user"] < n["user"], "the dedup path's user cap")
+    rs = eval_it.rating_sampler(batch_size=d.train_batch, segment="train")
+    recon = eval_it.recon_nodes_sampler(batch_size=settings.recon_batch_size)
+    batch = d._build_batch_safe(rs, recon)
+    feed = d._feed(d._pack_batch(batch))
+    (plan, pp, aux), w_err_d = plan_on_card_against_cpu(
+        d, feed, f"batch {found}", card)
+    check(not aux["identity"]["user"] and not bool(aux["overflow"]),
+          "the dedup plan")
+    zero_launches(bd, ek)
+    stats, t_step = host_s(lambda: d.train_iteration(batch))
+    launches["plan_device dedup train_iteration"] = {**bd.LAUNCHES,
+                                                     **ek.LAUNCHES}
+    check(no_kernel_launched(bd, ek) and not bool(stats["overflow"])
+          and bool(torch.isfinite(stats["loss"])), "the dedup step")
+    d_busy = device_busy_ms(lambda: d._device_plan(feed))
+
+    # The exclusion the port keeps, against set membership on the host:
+    # each batch row's first slot names its own batch partner.
+    tab = d._dev_tables
+    bu = tab.id2ind["user"].index_select(0, feed["bu"])
+    bi = tab.id2ind["item"].index_select(0, feed["bi"])
+    ok_b = feed["valid"] > 0
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    nbr = torch.randint(0, n["item"], (bu.shape[0], 8), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    nbr[:, 0] = bi
+    keep, _ = call_without_waiting(lambda: keep_mask(
+        batch_edge_keys(bu, bi, ok_b, n["item"]), bu, nbr, n["item"]))
+    bk = (bu.long() * n["item"] + bi.long())[ok_b].cpu().numpy()
+    q = (bu.long()[:, None] * n["item"] + nbr.long()).cpu().numpy()
+    want = ~np.isin(q, bk)
+    check(np.array_equal(keep.cpu().numpy(), want)
+          and not want[ok_b.cpu().numpy(), 0].any(),
+          "the keep-mask differs from set membership")
+    log(f"  dedup step {t_step * 1e3:.1f} ms (first), plan busy "
+        f"{_ms_or_not(d_busy)}; the keep-mask of {keep.numel()} slots "
+        f"({int((~keep).sum())} excluded) equals set membership of the "
+        f"batch pairs [{card}]")
+    del d
+    torch.cuda.empty_cache()
+    return launches, dict(
+        caps=caps0, first_step_ms=t_first * 1e3, plan_weight_err=w_err,
+        identity_vs_gather=[loss_rel, worst, glob], plan_busy_ms=plan_busy,
+        update_busy_ms=update_busy, step_ms=step_ms, draw_ms=draw_ms,
+        device_busy_ms=busy, above_held_gib=above, fit_s=t_fit,
+        overflow_needed=need, grown_caps=grown,
+        dedup=dict(batch=found, caps=caps_b, plan_weight_err=w_err_d,
+                   first_step_ms=t_step * 1e3, plan_busy_ms=d_busy))
+
+
+def run_prefetch_fit(bd, ek, cfg, it, model_cfg, save_dir, card, strainer,
+                     earlier):
+    """Phase 13 (e): ``SampledTrainer.fit(max_iter=10)`` on ``pallas`` at
+    batch 4096, serial and with the prefetch thread, no validation inside
+    (the host plans of evaluation would dominate both)."""
+    import threading
+
+    import torch
+
+    from stargcn_tpu_torch.graph import kernels as gk
+    from stargcn_tpu_torch.train import SampledTrainer, TrainSettings
+
+    if strainer is None:
+        settings = TrainSettings.from_cfg(cfg)
+        settings.rating_batch_size = 4096
+        settings.recon_batch_size = 1024
+        gk.set_seed(SEED)
+        strainer = SampledTrainer(model_cfg, it, settings, fanout=8,
+                                  backend="pallas", device=DEVICE,
+                                  save_dir=save_dir, save_id=1)
+    params0 = copy.deepcopy(strainer.model.state_dict())
+    opt0 = copy.deepcopy(strainer.opt.state_dict())
+    s0 = strainer.s
+    strainer.s = dataclasses.replace(s0, valid_interval=10 ** 6)
+    launches, fits = {}, {}
+    try:
+        for prefetch in (False, True, True, False):
+            strainer.model.load_state_dict(params0)
+            strainer.opt.load_state_dict(opt0)
+            strainer.seed_dropout(SEED)
+            lines = []
+            zero_launches(bd, ek)
+            summary, t_fit = host_s(lambda: strainer.fit(
+                max_iter=10, prefetch=prefetch, log=lines.append))
+            path = f"sampled fit(10) prefetch={prefetch}"
+            launches[path] = {**bd.LAUNCHES, **ek.LAUNCHES}
+            fits.setdefault(path, []).append(t_fit)
+            check(launches[path] == {"ell_spmm_fwd_only": 40,
+                                     "ell_spmm_transpose": 40,
+                                     "ell_sddmm": 0,
+                                     **bit_counts(0, 0, 0, 0)},
+                  f"{path}: expected 4 + 4 ELL launches a step, got "
+                  f"{launches[path]}")
+            check(strainer.opt.count == opt0["count"] + 10 and all(
+                bool(torch.isfinite(v).all())
+                for v in strainer.model.state_dict().values()),
+                f"{path}: 10 updates, finite parameters")
+            check(not [t for t in threading.enumerate()
+                       if t.name == "prefetch"],
+                  "a producer thread outlived fit")
+    finally:
+        strainer.s = s0
+        strainer.model.load_state_dict(params0)
+        strainer.opt.load_state_dict(opt0)
+    was = (earlier.get("sampled_training") or {}).get("fit_s")
+    log(f"  sampled pallas fit(max_iter=10) without validation, in turns "
+        f"(serial, prefetch, prefetch, serial): serial "
+        f"{', '.join(f'{x:.2f}' for x in fits['sampled fit(10) prefetch=False'])}"
+        f" s, with the prefetch thread "
+        f"{', '.join(f'{x:.2f}' for x in fits['sampled fit(10) prefetch=True'])}"
+        f" s; phase 8's "
+        f"serial fit with one validation and one test pass "
+        f"{_s_or_not(was)} [{card}]")
+    return launches, fits
+
+
+def run_sampling_on_card(bd, ek, cfg, it, model_cfg, trainer, save_dir,
+                         card, strainer=None, earlier=None):
+    """Phase 13: batch sampling and plan building on the card, and the
+    prefetch threads.  Returns the launch counts of each driven path and
+    the numbers."""
+    import torch
+
+    earlier = earlier or {}
+    launches, numbers = {}, {}
+    t0 = time.perf_counter()
+    log("== 13 (a). TRAIN.DEVICE_SAMPLER at ML-10M on bitdense")
+    got, numbers["device_sampler_ml10m"] = run_device_sampler_slice(
+        bd, trainer, card, earlier)
+    launches.update(got)
+    log("== 13 (b). TRAIN.DEVICE_SAMPLER at ML-1M on dense, in a fresh "
+        "process")
+    numbers["device_sampler_ml1m"] = run_fresh("13b", "device_sampler_ml1m",
+                                               card)
+    log("== 13 (c). SampledTrainer(plan_device=True) at ML-10M")
+    got, numbers["plan_device"] = run_plan_device_slice(
+        bd, ek, cfg, it, model_cfg, save_dir, card, earlier)
+    launches.update(got)
+    torch.cuda.empty_cache()
+    log("== 13 (e). sampled fit with the prefetch thread, on pallas")
+    got, numbers["prefetch_fit_s"] = run_prefetch_fit(
+        bd, ek, cfg, it, model_cfg, save_dir, card, strainer, earlier)
+    launches.update(got)
+    numbers["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 13 took {numbers['phase_s']:.1f} s on the host clock "
+        f"[{card}]")
+    return launches, numbers
+
+
 def kernel_row(name, source, replaces, launches, worst, shapes):
     """One entry of the ``kernels`` line: the times are means over the
     directions measured (``shapes`` holds each)."""
@@ -3424,36 +4228,57 @@ def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--phases", default=None,
-        help="comma-separated phases out of 11 and 12 (those that build "
-             "their own data) to run alone after phases 1 and 2, each in a "
-             "process that ran no other phase; default: every phase")
+        help="comma-separated phases out of 11, 12 and 13 (those that "
+             "build their own data) to run alone after phases 1 and 2, in a "
+             "process that ran no other phase (13b: phase 13's ML-1M part "
+             "alone, which phase 13 runs so); default: every phase")
     args = ap.parse_args(argv)
     if args.phases is None:
         return None
     phases = {p.strip() for p in args.phases.split(",")}
-    if not phases or not phases <= {"11", "12"}:
-        ap.error("--phases takes 11, 12 or 11,12")
-    return {int(p) for p in phases}
+    if not phases or not phases <= {"11", "12", "13", "13b"}:
+        ap.error("--phases takes 11, 12, 13 or 13b, comma-separated")
+    return phases
 
 
 def run_phases_alone(bd, ek, card, phases):
-    """``--phases``: phases 11 and 12 without the phases before them; their
+    """``--phases``: phases 11, 12 and 13 without the phases before them
+    (phase 13 builds phase 4's ML-10M graph and trainer first); their
     numbers on one line."""
     import torch
 
     numbers = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as save_dir:
-        if 11 in phases:
+        if "13b" in phases:
+            log("== 13 (b). TRAIN.DEVICE_SAMPLER at ML-1M on dense")
+            numbers["device_sampler_ml1m"] = run_device_sampler_ml1m(
+                bd, ek, card)
+        if "11" in phases:
             log("== 11. slice: ML-1M full-graph training on KERNEL.BACKEND "
                 "auto (dense) and xla, serving, the train CLI")
             numbers["full_graph_dense_xla"] = run_dense_xla_slice(
                 bd, ek, card, save_dir)
             torch.cuda.empty_cache()
-        if 12 in phases:
+        if "12" in phases:
             log("== 12. slice: inductive ML-1M (items held out) from an "
                 "archive on disk")
             numbers["inductive_ml1m"], _ = run_inductive_slice(
                 bd, ek, card, save_dir)
+            torch.cuda.empty_cache()
+        if "13" in phases:
+            from stargcn_tpu_torch.train import Trainer, TrainSettings
+
+            log("== 4. set-up (for phase 13): ML-10M graph, iterator, "
+                "trainer")
+            (cfg, it, model_cfg), t_graph = host_s(build_ml10m)
+            trainer = Trainer(model_cfg, it, TrainSettings.from_cfg(cfg),
+                              save_dir=save_dir, device=DEVICE)
+            log(f"  host graph build: {t_graph:.2f} s [{card}]")
+            log("== 13. slice: batch sampling and plan building on the "
+                "card, and the prefetch threads")
+            launches, numbers["sampling_on_card"] = run_sampling_on_card(
+                bd, ek, cfg, it, model_cfg, trainer, save_dir, card)
+            numbers["sampling_on_card"]["launches_by_path"] = launches
     log(json.dumps(numbers))
 
 
@@ -3578,9 +4403,17 @@ def main(argv=None):
             "fanout 8) through the ELL kernels")
         del packs
         torch.cuda.empty_cache()
-        ell_launches, ell_worst, ell_shapes, sampled_numbers = \
+        ell_launches, ell_worst, ell_shapes, sampled_numbers, strainer = \
             run_sampled_slice(bd, ek, cfg, it, model_cfg, trainer, save_dir,
                               card)
+
+        log("== 13. slice: batch sampling and plan building on the card, "
+            "and the prefetch threads")
+        card_launches, card_numbers = run_sampling_on_card(
+            bd, ek, cfg, it, model_cfg, trainer, save_dir, card, strainer,
+            {"training": train_numbers, "sampled_training": sampled_numbers})
+        del strainer
+        torch.cuda.empty_cache()
 
         log("== 10. probes: probe_bitcast and probe_int8_mma")
         probe_launches, probe_worst, probe_shapes = run_probes(card)
@@ -3681,6 +4514,15 @@ def main(argv=None):
             if counts.get(row["name"]):
                 row.setdefault("launches_by_path", {})[path] = counts[
                     row["name"]]
+    # Phase 13's paths, each with the counts set to 0 just before it: the
+    # bit pair under TRAIN.DEVICE_SAMPLER, the ELL pair in the prefetched
+    # and serial sampled fit.  The plan_device paths launch no kernel.
+    for row in rows:
+        for path, counts in card_launches.items():
+            if counts.get(row["name"]):
+                row.setdefault("launches_by_path", {})[path] = counts[
+                    row["name"]]
+    log(json.dumps({"sampling_on_card": card_numbers}))
     log(json.dumps({"inductive_ml1m": inductive_numbers}))
     log(json.dumps({"full_graph_dense_xla": dense_numbers}))
     log(json.dumps({"training": train_numbers}))

@@ -10,6 +10,8 @@ module (its ``named_parameters``), so checkpoints are interchangeable.
 
 With ``fanout = -1`` (all neighbors) the sampled forward equals the
 full-graph forward on the target nodes (``tests/test_torch_sampled.py``).
+Plans built on the device (``graph/device_sampling.py``) have the same
+tree, and may mark whole-node-set frontiers with ``identity_frontiers``.
 
 Backends of the device phase: ``'xla'`` pools raw source rows per rating
 level and then projects (plain indexing and matrix products, the JAX
@@ -378,14 +380,12 @@ def _named(params):
     return params
 
 
-def _check_supported(cfg, identity_frontiers, row_sharding, remat):
+def _check_supported(cfg, row_sharding, remat):
     unsupported = {
         "MODEL.USE_FEA_PROJ": cfg.use_fea_proj,
         "MODEL.USE_EMBED false": not cfg.use_embed,
         "MODEL.COMPUTE_DTYPE other than float32":
             cfg.compute_dtype != "float32",
-        "identity_frontiers (the device planner's dense path)":
-            bool(identity_frontiers),
         "row_sharding (the device mesh)": row_sharding is not None,
         "remat": bool(remat),
     }
@@ -393,10 +393,9 @@ def _check_supported(cfg, identity_frontiers, row_sharding, remat):
     if bad:
         raise NotImplementedError(
             f"not ported yet ({', '.join(bad)}): the sampled forward runs "
-            "host-built plans in float32 over learned embeddings on one "
-            "device; the rest comes with the slices that port feature "
-            "projection, bfloat16 compute, graph/device_sampling.py and "
-            "the mesh")
+            "in float32 over learned embeddings on one device; the rest "
+            "comes with the slices that port feature projection, bfloat16 "
+            "compute, remat and the mesh")
 
 
 def sampled_forward(params, cfg, plan, noise_user, noise_item,
@@ -415,11 +414,18 @@ def sampled_forward(params, cfg, plan, noise_user, noise_item,
     aggregator and on the aggregated features before the out-FC, drawn from
     ``generator``, a ``torch.Generator`` on the same device.
 
+    ``identity_frontiers`` (``{"user": bool, "item": bool}``, the device
+    planner's ``aux["identity"]``) marks the types whose every frontier is
+    the whole node set in id order: with ``cfg.self_noise_only``, their
+    embedding reads become an elementwise row mask (no gather, so no
+    scatter in the backward) and cross-block features pass straight
+    through.
+
     Returns {'pred_ratings': (nblocks, B), 'pred_embed': per block per
     type (n_recon, emb) rows, 'recon_ok': per block per type validity,
     'gt_embed': (n_recon, emb) unmasked embedding rows}.
     """
-    _check_supported(cfg, identity_frontiers, row_sharding, remat)
+    _check_supported(cfg, row_sharding, remat)
     if backend not in ("xla", "pallas"):
         raise ValueError(f"unknown sampled backend: {backend!r}")
     if train and cfg.gcn_dropout > 0.0 and generator is None:
@@ -440,6 +446,11 @@ def sampled_forward(params, cfg, plan, noise_user, noise_item,
     def linear(x, name):
         return F.linear(x, p[f"{name}.weight"], p[f"{name}.bias"])
 
+    ident = identity_frontiers or {}
+
+    def is_ident(t):
+        return bool(ident.get(t)) and cfg.self_noise_only
+
     nblocks = len(plan["blocks"])
     pred_ratings, pred_embed, recon_ok = [], [], []
     gt_embed = {
@@ -449,14 +460,17 @@ def sampled_forward(params, cfg, plan, noise_user, noise_item,
     for block_id in range(nblocks):
         pidx = 0 if cfg.use_recurrent else block_id
         f0 = plan["frontiers"][block_id]
-        if block_id == 0:
-            feats = {t: _masked_embed_rows(table[t], f0[t], noise[t])
-                     for t in ("user", "item")}
-        else:
-            cg = plan["cross_gather"][block_id]
-            feats = {}
-            for t in ("user", "item"):
-                pos, ok = cg[t]
+        feats = {}
+        for t in ("user", "item"):
+            if block_id == 0 and is_ident(t):
+                keep = noise[t] != -1
+                feats[t] = table[t] * keep[:, None].to(table[t].dtype)
+            elif block_id == 0:
+                feats[t] = _masked_embed_rows(table[t], f0[t], noise[t])
+            elif is_ident(t):
+                feats[t] = prev_top_feats[t]
+            else:
+                pos, ok = plan["cross_gather"][block_id][t]
                 feats[t] = take_rows(prev_top_feats[t], pos.long()) \
                     * ok[:, None]
 

@@ -23,6 +23,12 @@ else takes the plain ``xla`` formulation::
     python -m stargcn_tpu_torch.train --cfg configs/transductive_ml_10m.yml \\
         --dataset synthetic --num_neighbors 8 --backend pallas --save_dir runs
 
+Full-graph training on the card draws its batches on the card
+(``TRAIN.DEVICE_SAMPLER``, see ``resolve_device_sampler``) unless
+``--no_device_sampler`` is given.  In sampled mode ``--plan_device`` builds
+the plans on the device (with the ``xla`` backend) and ``--prefetch`` builds
+batches in a producer thread ahead of the step.
+
 Writes ``cfg{id}.yml``, ``log{id}.log``, ``train_loss{id}.csv``,
 ``valid_loss{id}.csv``, ``test_loss{id}.csv`` and the checkpoints
 ``ckpt_best_{id}.pt`` / ``ckpt_last_{id}.pt`` into ``--save_dir``, and logs
@@ -35,6 +41,25 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+
+import torch
+
+
+def resolve_device_sampler(cfg, device, flag=None) -> bool:
+    """``TRAIN.DEVICE_SAMPLER`` for a run: ``flag`` (the CLI's
+    ``--device_sampler`` True / ``--no_device_sampler`` False) wins; else
+    the config's setting when it is on; else on exactly where its semantics
+    allow, as the JAX CLI decides it (``experiments/train.py:142-156``,
+    whose "the accelerator is a TPU" reads "the run's device is cuda"
+    here): full-graph mode and no mesh."""
+    if flag is not None:
+        return bool(flag)
+    if cfg.TRAIN.get("DEVICE_SAMPLER", False):
+        return True
+    return (torch.device(device).type == "cuda"
+            and int(cfg.GRAPH_SAMPLER.NUM_NEIGHBORS) <= 0
+            and cfg.PARALLEL.get("DATA_AXIS", 1)
+            * cfg.PARALLEL.get("MODEL_AXIS", 1) <= 1)
 
 
 def main(argv=None):
@@ -64,6 +89,19 @@ def main(argv=None):
     parser.add_argument("--resume", default=None, type=str,
                         help="restore parameters + optimizer state from a "
                              "checkpoint (.pt) before training")
+    parser.add_argument("--device_sampler", action="store_true",
+                        default=None,
+                        help="full-graph mode: draw batches on the device "
+                             "(TRAIN.DEVICE_SAMPLER); the default on cuda")
+    parser.add_argument("--no_device_sampler", action="store_true",
+                        help="full-graph mode: draw batches on the host")
+    parser.add_argument("--plan_device", action="store_true",
+                        help="sampled mode: build the plans on the device "
+                             "(graph/device_sampling.py; fanout drawn with "
+                             "replacement); needs the xla backend")
+    parser.add_argument("--prefetch", action="store_true",
+                        help="sampled mode: build batches in a producer "
+                             "thread one ahead of the step")
     parser.add_argument("--device", default="cuda", type=str,
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
@@ -91,6 +129,9 @@ def main(argv=None):
     if args.num_neighbors is not None:
         cfg.GRAPH_SAMPLER.NUM_NEIGHBORS = args.num_neighbors
     fanout = int(cfg.GRAPH_SAMPLER.NUM_NEIGHBORS)
+    cfg.TRAIN.DEVICE_SAMPLER = resolve_device_sampler(
+        cfg, args.device, False if args.no_device_sampler
+        else args.device_sampler)
 
     save_dir = args.save_dir
     if save_dir is None and args.cfg_file is not None:
@@ -115,7 +156,8 @@ def main(argv=None):
         trainer = SampledTrainer(
             model_cfg, data_iter, TrainSettings.from_cfg(cfg),
             fanout=fanout, save_dir=save_dir, save_id=save_id,
-            backend=sampled_backend, device=args.device)
+            backend=sampled_backend, device=args.device,
+            plan_device=args.plan_device)
     else:
         trainer = Trainer(model_cfg, data_iter, TrainSettings.from_cfg(cfg),
                           save_dir=save_dir, save_id=save_id,
@@ -123,7 +165,8 @@ def main(argv=None):
     if args.resume:
         trainer.restore_checkpoint(args.resume)
         logging.info("resumed from %s", args.resume)
-    result = trainer.fit()
+    result = trainer.fit(**({"prefetch": True}
+                            if fanout > 0 and args.prefetch else {}))
     logging.info("result: %s", result)
     return result
 

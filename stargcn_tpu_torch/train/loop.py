@@ -17,7 +17,11 @@ The port of ``stargcn_tpu/train/loop.py`` on the full-graph backends
   RECON_LAMBDA * sum over blocks/types of mean-over-masked-nodes
   ||e_hat - e||^2;
 * gradient global-norm clipping, Adam, and the patience-driven LR decay
-  to MIN_LR with early stopping.
+  to MIN_LR with early stopping;
+* batches come from the host samplers (with ``SCAN_STEPS`` > 1 a producer
+  thread draws them and runs their pair lookup ahead of the step), or, with
+  ``TRAIN.DEVICE_SAMPLER``, are drawn on the device from the train edges
+  (``train_chunk_dev``), with no host array made or copied in a step.
 
 A step is eager PyTorch: forward, ``backward`` (on ``bitdense`` through
 ``ops.bitdense.bit_pool_rated``, whose backward is the
@@ -29,6 +33,7 @@ bit-reproducible from run to run there, although both bit kernels are.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -45,6 +50,7 @@ from stargcn_tpu_torch.models.stargcn import STARGCN, STARGCNConfig
 from stargcn_tpu_torch.ops.agg import build_dense_adjacency
 from stargcn_tpu_torch.ops.bitdense import (build_bit_pack,
                                            pack_row_interleave, resolve_impl)
+from stargcn_tpu_torch.train.prefetch import Prefetcher
 from stargcn_tpu_torch.utils.device import resolve_device
 from stargcn_tpu_torch.utils.logging import MetricLogger
 
@@ -247,6 +253,12 @@ class ClipAdam:
 
     The moments are keyed by parameter name; ``lr`` may be changed between
     steps without touching them.
+
+    ``step(grads, keep=...)`` takes a device bool: where it is false the
+    step changes nothing (parameters, moments and the count of applied
+    steps), as ``jnp.where(keep, new, old)`` does in the JAX package's
+    device-planned step.  The count then lives on the device, so no step
+    waits for the host; reading ``count`` fetches it.
     """
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -256,30 +268,61 @@ class ClipAdam:
         self.lr = float(lr)
         self.grad_clip = float(grad_clip)
         self.wd = float(wd)
-        self.count = 0
+        self._count = 0
+        self._count_dev = None     # float64 device scalar after a keep step
         self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
         self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
 
+    @property
+    def count(self):
+        """Number of updates applied so far."""
+        if self._count_dev is not None:
+            self._count = int(self._count_dev.item())
+            self._count_dev = None
+        return self._count
+
     @torch.no_grad()
-    def step(self, grads):
-        """Apply one update from ``grads`` (name -> tensor); returns the
-        global gradient norm before clipping, as a device scalar."""
+    def step(self, grads, keep=None):
+        """Apply one update from ``grads`` (name -> tensor), or, where the
+        device bool ``keep`` is false, none; returns the global gradient
+        norm before clipping, as a device scalar."""
         gnorm = torch.sqrt(sum((g.float() ** 2).sum()
                                for g in grads.values()))
         under = gnorm < self.grad_clip
-        self.count += 1
-        c1 = 1.0 - self.B1 ** self.count
-        c2 = 1.0 - self.B2 ** self.count
+        if keep is None:
+            self._count = self.count + 1
+            c1 = 1.0 - self.B1 ** self._count
+            c2 = 1.0 - self.B2 ** self._count
+        else:
+            if self._count_dev is None:
+                self._count_dev = torch.full((), float(self._count),
+                                             dtype=torch.float64,
+                                             device=gnorm.device)
+            self._count_dev += keep
+            c1 = 1.0 - self.B1 ** self._count_dev
+            c2 = 1.0 - self.B2 ** self._count_dev
         for k, p in self.params.items():
             g = grads[k]
             g = torch.where(under, g, g / gnorm * self.grad_clip)
-            mu = self.mu[k].mul_(self.B1).add_(g, alpha=1.0 - self.B1)
-            nu = self.nu[k].mul_(self.B2).addcmul_(g, g,
-                                                   value=1.0 - self.B2)
+            if keep is None:
+                mu = self.mu[k].mul_(self.B1).add_(g, alpha=1.0 - self.B1)
+                nu = self.nu[k].mul_(self.B2).addcmul_(
+                    g, g, value=1.0 - self.B2)
+            else:
+                mu = torch.mul(self.mu[k], self.B1).add_(
+                    g, alpha=1.0 - self.B1)
+                nu = torch.mul(self.nu[k], self.B2).addcmul_(
+                    g, g, value=1.0 - self.B2)
             update = (mu / c1) / (torch.sqrt(nu / c2) + self.EPS)
             if self.wd:
                 update = update + self.wd * p
-            p.add_(update, alpha=-self.lr)
+            if keep is None:
+                p.add_(update, alpha=-self.lr)
+            else:
+                new_p = torch.add(p, update, alpha=-self.lr)
+                for old, new in ((self.mu[k], mu), (self.nu[k], nu),
+                                 (p, new_p)):
+                    old.copy_(torch.where(keep, new, old))
         return gnorm
 
     def state_dict(self):
@@ -287,7 +330,8 @@ class ClipAdam:
                 "nu": dict(self.nu)}
 
     def load_state_dict(self, state):
-        self.count = int(state["count"])
+        self._count = int(state["count"])
+        self._count_dev = None
         for name in ("mu", "nu"):
             mine = getattr(self, name)
             if sorted(state[name]) != sorted(mine):
@@ -358,10 +402,6 @@ class Trainer:
             raise NotImplementedError(
                 "the device mesh comes with the slice that ports "
                 "parallel/mesh.py and parallel/shardings.py")
-        if settings.device_sampler:
-            raise NotImplementedError(
-                "TRAIN.DEVICE_SAMPLER (train_chunk_dev) comes with the "
-                "slice that moves batch sampling onto the card")
         self.model_cfg = model_cfg
         self.data_iter = data_iter
         self.s = settings
@@ -417,6 +457,16 @@ class Trainer:
         self._eval_noise = tuple(
             torch.from_numpy(noise[k]).to(self.device)
             for k in (data_iter.name_user, data_iter.name_item))
+        # TRAIN.DEVICE_SAMPLER: the batch draws' stream, on the device, and
+        # the recon sampler's selection and zeroing rates per type.
+        self._sampler_gen = torch.Generator(device=self.device)
+        self._sampler_gen.manual_seed(self.s.seed)
+        self._dev_train_arrays = None
+        names = (data_iter.name_user, data_iter.name_item)
+        self._dev_pmask = tuple(
+            float(data_iter.embed_P_mask.get(k, 0.0)) for k in names)
+        self._dev_pzero = tuple(
+            float(data_iter._embed_p_zero.get(k, 0.0)) for k in names)
 
     def set_lr(self, lr: float):
         """Change the learning rate; the Adam moments stay."""
@@ -466,22 +516,84 @@ class Trainer:
             np.float32)
         return ints, flts, noise, rmask
 
+    def _to_device(self, arrays):
+        return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+
+    def _step(self, ints, flts, noise, rmask):
+        """One optimisation step on step inputs on the device."""
+        stats, grads = self._loss_and_grads(ints, flts, noise, rmask)
+        stats["gnorm"] = self.opt.step(grads)
+        return stats
+
     def train_iteration(self, rating_batch, recon_batch):
         """One optimisation step.  Returns a dict of device-side stats
         (``loss``, ``gnorm`` scalars; ``rating_loss``, ``recon_loss``,
         ``sq_err`` per block)."""
-        stats, grads = self.loss_and_grads(rating_batch, recon_batch)
-        stats["gnorm"] = self.opt.step(grads)
-        return stats
+        return self._step(*self._to_device(
+            self._prep_host_arrays(rating_batch, recon_batch)))
 
     def train_chunk(self, rating_batches, recon_batches):
         """k optimisation steps in one call: a loop of ``train_iteration``
         with the same dropout stream as k single calls.  Returns stats
         stacked along a leading k axis."""
-        steps = [self.train_iteration(rb, cb)
-                 for rb, cb in zip(rating_batches, recon_batches)]
-        return {k: torch.stack([st[k] for st in steps])
-                for k in _STAT_NAMES}
+        return self._train_prepped(
+            [self._prep_host_arrays(rb, cb)
+             for rb, cb in zip(rating_batches, recon_batches)])
+
+    def _train_prepped(self, prepped):
+        """``train_chunk`` over ``_prep_host_arrays`` outputs."""
+        return _stack_stats([self._step(*self._to_device(a))
+                             for a in prepped])
+
+    # ---------------------- TRAIN.DEVICE_SAMPLER ----------------------
+
+    def draw_device_batch(self):
+        """One step's draws for ``train_step_dev``, from the trainer's
+        sampler stream on the device: ``idx`` (the batch's train-edge
+        indices, drawn with replacement) and, with ``use_dae``, per type
+        the Bernoulli(P_mask) recon selection ``sel_*`` and the
+        Bernoulli(p_zero) zeroing ``zero_*``."""
+        g, dev = self._sampler_gen, self.device
+        n_train = self.data_iter.train_node_pairs.shape[1]
+        draws = {"idx": torch.randint(0, n_train, (self.train_batch_padded,),
+                                      generator=g, device=dev)}
+        if self.s.use_dae:
+            for t, n, pm, pz in (
+                    ("user", self.model_cfg.num_users, self._dev_pmask[0],
+                     self._dev_pzero[0]),
+                    ("item", self.model_cfg.num_items, self._dev_pmask[1],
+                     self._dev_pzero[1])):
+                draws[f"sel_{t}"] = torch.rand(n, generator=g,
+                                               device=dev) < pm
+                draws[f"zero_{t}"] = torch.rand(n, generator=g,
+                                                device=dev) < pz
+        return draws
+
+    def device_train_arrays(self):
+        """The train edges, their ratings and rating indices on the device
+        (copied once, on first use)."""
+        if self._dev_train_arrays is None:
+            it = self.data_iter
+            ratings = np.asarray(it.train_ratings)
+            self._dev_train_arrays = self._to_device((
+                np.asarray(it.train_node_pairs, np.int64),
+                ratings.astype(np.float32),
+                np.searchsorted(np.asarray(it.possible_rating_values),
+                                ratings).astype(np.int64)))
+        return self._dev_train_arrays
+
+    def train_step_dev(self, draws):
+        """One optimisation step on a batch drawn on the device
+        (``draw_device_batch``): the same step as ``train_iteration``."""
+        return self._step(*_device_sample_step_inputs(
+            self, *self.device_train_arrays(), draws))
+
+    def train_chunk_dev(self, k):
+        """k optimisation steps with batches drawn on the device
+        (TRAIN.DEVICE_SAMPLER): no host array is made or copied.  Returns
+        stats stacked along a leading k axis."""
+        return _stack_stats([self.train_step_dev(self.draw_device_batch())
+                             for _ in range(k)])
 
     def prepare_recon_batch(self, embed_noise_dict, recon_ids_dict):
         """Noise arrays + float recon masks from the sampler output."""
@@ -502,9 +614,12 @@ class Trainer:
         ``train_iteration`` but ``gnorm``, and the gradient of ``loss``
         for every parameter, by name.  One draw from the dropout
         stream."""
-        ints, flts, noise, rmask = (
-            torch.from_numpy(a).to(self.device)
-            for a in self._prep_host_arrays(rating_batch, recon_batch))
+        return self._loss_and_grads(*self._to_device(
+            self._prep_host_arrays(rating_batch, recon_batch)))
+
+    def _loss_and_grads(self, ints, flts, noise, rmask):
+        """``loss_and_grads`` on the step inputs of ``_prep_host_arrays``
+        as device tensors, host-fed or drawn on the device."""
         ints = ints.long()
         cfg, s = self.model_cfg, self.s
         mean, std = self.rating_mean, self.rating_std
@@ -617,7 +732,13 @@ class Trainer:
         ``log_interval``, validation every ``valid_interval`` with a test
         evaluation and checkpoints on improvement, LR decay after
         ``decay_patience`` validations without one, early stopping at
-        ``min_lr``, and recovery from a non-finite loss."""
+        ``min_lr``, and recovery from a non-finite loss.
+
+        With ``TRAIN.DEVICE_SAMPLER`` the batches are drawn on the device
+        (``train_chunk_dev``).  Otherwise, with ``SCAN_STEPS`` > 1, a
+        producer thread draws each chunk's batches and runs their host
+        pair lookup (``_prep_host_arrays``) one to two chunks ahead of the
+        step; it stops when ``fit`` returns or raises."""
         s = self.s
         it = self.data_iter
         max_iter = max_iter or s.max_iter
@@ -627,14 +748,7 @@ class Trainer:
             batch_size=s.recon_batch_size) if s.use_dae else None)
         loggers = make_metric_loggers(self.save_dir, self.save_id,
                                       self.model_cfg.nblocks)
-        nan_recoveries = 0
-        best_valid_rmse = np.inf
-        best_test_rmse = None
-        best_iter = -1
-        no_better = 0
         nb = self.model_cfg.nblocks
-        t_start = time.time()
-        stop = False
         # Steps per train_chunk call, when the cadence allows.
         k = s.scan_steps if (s.scan_steps > 1
                              and s.log_interval % s.scan_steps == 0
@@ -653,28 +767,68 @@ class Trainer:
                       np.zeros(self.model_cfg.num_items, np.float32))
             return rb, cb
 
+        def next_chunk():
+            """k batches' host step inputs and pair counts."""
+            chunk = [next_batches() for _ in range(k)]
+            return ([self._prep_host_arrays(rb, cb) for rb, cb in chunk],
+                    sum(rb[1].size for rb, _ in chunk))
+
+        use_dev = s.device_sampler
+        with contextlib.ExitStack() as stack:
+            if k > 1 and not use_dev:
+                next_chunk = stack.enter_context(
+                    Prefetcher(next_chunk, max_iter // k)).get
+            result = self._fit_loop(
+                max_iter, k, use_dev, next_batches, next_chunk, loggers,
+                log)
+        for lg in loggers.values():
+            lg.close()
+        self.save_checkpoint("last")
+        best_iter, best_valid_rmse, best_test_rmse = result
+        log(f"Best Iter={best_iter}, Best Valid RMSE={best_valid_rmse:.4f}, "
+            + (", ".join(f"Best Test RMSE{i}={best_test_rmse[i]:.4f}"
+                         for i in range(nb))
+               if best_test_rmse is not None else "no test eval"))
+        return {"best_iter": best_iter,
+                "best_valid_rmse": float(best_valid_rmse),
+                "best_test_rmse": (None if best_test_rmse is None
+                                   else [float(x) for x in best_test_rmse])}
+
+    def _fit_loop(self, max_iter, k, use_dev, next_batches, next_chunk,
+                  loggers, log):
+        """``fit``'s steps, logging, validation and schedule; returns
+        ``(best_iter, best_valid_rmse, best_test_rmse)``."""
+        s = self.s
+        nb = self.model_cfg.nblocks
+        nan_recoveries = 0
+        best_valid_rmse = np.inf
+        best_test_rmse = None
+        best_iter = -1
+        no_better = 0
+        t_start = time.time()
+        stop = False
         # Stats stay on the device between log intervals: one fetch per
-        # interval instead of one per step.  Each entry is one step's
-        # stats flattened in _STAT_NAMES order.
+        # interval instead of one per step.  Each entry is one call's
+        # stats flattened in _STAT_NAMES order, one row per step.
         pending = []
         pending_cnt = 0
         iter_idx = 0
         # With chunking, max_iter rounds down to a multiple of k.
         effective_max = (max_iter // k) * k if k > 1 else max_iter
         while iter_idx < effective_max:
-            if k > 1:
-                pulls = [next_batches() for _ in range(k)]
-                stats = self.train_chunk([p[0] for p in pulls],
-                                         [p[1] for p in pulls])
-                pending.append(torch.cat(
-                    [stats[name].reshape(k, -1) for name in _STAT_NAMES], 1))
-                pending_cnt += sum(p[0][1].size for p in pulls)
+            if use_dev:
+                stats = self.train_chunk_dev(k)
+                pending_cnt += self.train_batch_padded * k
+            elif k > 1:
+                prepped, n_pairs = next_chunk()
+                stats = self._train_prepped(prepped)
+                pending_cnt += n_pairs
             else:
                 rb, cb = next_batches()
-                stats = self.train_iteration(rb, cb)
-                pending.append(torch.cat(
-                    [stats[name].reshape(1, -1) for name in _STAT_NAMES], 1))
+                stats = _stack_stats([self.train_iteration(rb, cb)])
                 pending_cnt += rb[1].size
+            pending.append(torch.cat(
+                [stats[name].reshape(k, -1) for name in _STAT_NAMES], 1))
             iter_idx += k
 
             logging_str = ""
@@ -762,17 +916,7 @@ class Trainer:
                 log(logging_str)
             if stop:
                 break
-        for lg in loggers.values():
-            lg.close()
-        self.save_checkpoint("last")
-        log(f"Best Iter={best_iter}, Best Valid RMSE={best_valid_rmse:.4f}, "
-            + (", ".join(f"Best Test RMSE{i}={best_test_rmse[i]:.4f}"
-                         for i in range(nb))
-               if best_test_rmse is not None else "no test eval"))
-        return {"best_iter": best_iter,
-                "best_valid_rmse": float(best_valid_rmse),
-                "best_test_rmse": (None if best_test_rmse is None
-                                   else [float(x) for x in best_test_rmse])}
+        return best_iter, best_valid_rmse, best_test_rmse
 
     # ---------------------------- checkpointing ------------------------------
 
@@ -800,3 +944,44 @@ class Trainer:
         self.opt.load_state_dict(opt_state)
         if "lr" in extra:
             self.set_lr(float(extra["lr"]))
+
+
+def _stack_stats(steps):
+    """Per-step stats dicts stacked along a leading axis."""
+    return {k: torch.stack([st[k] for st in steps]) for k in _STAT_NAMES}
+
+
+def _device_sample_step_inputs(trainer, tp, tr, tri, draws):
+    """One step's ``(ints, flts, noise, rmask)``, the layout of
+    ``_prep_host_arrays``, made on the device from ``draws``
+    (``Trainer.draw_device_batch``) over the train edges ``tp`` (2, n),
+    their ratings ``tr`` and rating indices ``tri``: the step inputs of
+    TRAIN.DEVICE_SAMPLER (JAX ``stargcn_tpu/train/loop.py:1077-1129``).
+
+    Two deltas from the host samplers, both the JAX package's: the batch
+    is drawn WITH replacement (the host slices one permutation per epoch),
+    and each node is a recon target with probability P_mask on its own
+    (the host draws an exact count).  A drawn pair is a train edge, so the
+    REMOVE_RATING lookup is free: ``hit`` = 1 and the rating index is the
+    drawn edge's."""
+    idx = draws["idx"]
+    B = idx.shape[0]
+    dev = idx.device
+    ones = torch.ones(B, dtype=torch.float32, device=dev)
+    hit = ones if trainer.do_remove else torch.zeros_like(ones)
+    ints = torch.stack([tp[0].index_select(0, idx),
+                        tp[1].index_select(0, idx), tri.index_select(0, idx)])
+    flts = torch.stack([tr.index_select(0, idx), ones, hit])
+
+    def one_type(t, n):
+        iota = torch.arange(n, dtype=torch.int32, device=dev)
+        if not trainer.s.use_dae:
+            return iota, torch.zeros(n, dtype=torch.float32, device=dev)
+        sel = draws[f"sel_{t}"]
+        noise = torch.where(sel & draws[f"zero_{t}"], -1, iota)
+        return noise, sel.to(torch.float32)
+
+    cfg = trainer.model_cfg
+    nu, mu = one_type("user", cfg.num_users)
+    ni, mi = one_type("item", cfg.num_items)
+    return ints, flts, torch.cat([nu, ni]), torch.cat([mu, mi])

@@ -12,16 +12,23 @@ Every step the host builds a plan (``StackedPlan.build``: fixed-shape
 frontiers and ELL blocks under the frontier caps), packs it with the
 batch's noise and targets into one int32 and one float32 buffer (two
 host-to-device copies), and the device runs ``sampled_forward``, its
-backward, the global-norm clip and Adam.  Evaluation samples
-neighborhoods with the SAME fanout as training, on the eval graph, with
-the cold-start eval noise.
+backward, the global-norm clip and Adam.  With ``plan_device`` the host
+packs only the batch (pair ids, noise, recon ids) and the plan is built on
+the device (``graph/device_sampling.py``); a step whose frontiers overflow
+the caps is rejected on the device, and ``fit`` grows the caps when it
+next reads the statistics.  ``fit(prefetch=True)`` builds batches in a
+producer thread one ahead of the step.  Evaluation samples neighborhoods
+with the SAME fanout as training, on the eval graph, with the cold-start
+eval noise, from host plans.
 
-Not ported here: planning on the device (``plan_device``), the prefetch
-thread, the mesh, ``remat`` and the ``net%d.txt`` model summary.
+Not ported here: the mesh, ``remat``, ``plan_split`` (the JAX package's
+workaround for its TPU runtime's program-load limit: planning and update
+are one step here anyway) and the ``net%d.txt`` model summary.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -31,6 +38,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from stargcn_tpu_torch.graph.device_sampling import (DeviceGraphTables,
+                                                    DevicePlanner,
+                                                    uniform_from)
 from stargcn_tpu_torch.graph.sampling import BlockSampler, FrontierCapError
 from stargcn_tpu_torch.models.sampled import (StackedPlan, pack_tree,
                                               recon_losses, sampled_forward,
@@ -38,6 +48,7 @@ from stargcn_tpu_torch.models.sampled import (StackedPlan, pack_tree,
 from stargcn_tpu_torch.models.stargcn import STARGCN
 from stargcn_tpu_torch.train.loop import (_STAT_NAMES, make_metric_loggers,
                                           make_optimizer)
+from stargcn_tpu_torch.train.prefetch import Prefetcher
 from stargcn_tpu_torch.utils.device import resolve_device
 
 
@@ -87,6 +98,10 @@ class SampledTrainer:
         (``resolve_sampled_backend``).
       planner: ``BlockSampler``'s neighbor-drawing route.
       device: where the parameters and the step live (default the card).
+      plan_device: build the training plans on the device
+        (``DevicePlanner``, fanout drawn with replacement); pairs with the
+        ``xla`` backend.  ``plan_uniform(shape)`` gives its draws (by
+        default from a generator seeded with the settings' seed).
     """
 
     def __init__(self, model_cfg, data_iter, settings, *, fanout,
@@ -99,7 +114,6 @@ class SampledTrainer:
             raise ValueError("SampledTrainer needs a positive fanout")
         unsupported = {
             "the device mesh": mesh is not None,
-            "plan_device (graph/device_sampling.py)": plan_device,
             "remat": remat,
             "MODEL.USE_FEA_PROJ": model_cfg.use_fea_proj,
         }
@@ -107,7 +121,7 @@ class SampledTrainer:
         if bad:
             raise NotImplementedError(
                 f"not ported yet: {', '.join(bad)}; the sampled trainer "
-                "runs host-built plans on one device")
+                "runs on one device")
         self.model_cfg = model_cfg
         self.data_iter = data_iter
         self.s = settings
@@ -181,6 +195,29 @@ class SampledTrainer:
         self._dropout_gen.manual_seed(self.s.seed)
         self.opt = make_optimizer(self.s, self.model.named_parameters())
         self.lr = self.s.lr
+
+        # Device-planned mode: training plans are built inside the step;
+        # evaluation keeps host plans (eval graphs, eval cadence).
+        self.plan_device = bool(plan_device)
+        self._stat_names = _STAT_NAMES
+        if self.plan_device:
+            if self.backend == "pallas":
+                raise NotImplementedError(
+                    "plan_device pairs with the xla sampled backend")
+            self._dev_tables = DeviceGraphTables.build(
+                it.train_graph, name_user, name_item, self.device)
+            # The JAX package probes its REMOVE_RATING bound here from
+            # three batches of the shared sampler stream.  The port's
+            # exclusion is exact and needs no bound; it makes the same
+            # draws so that its later batches stay the JAX package's.
+            probe = it.rating_sampler(batch_size=self.train_batch,
+                                      segment="train")
+            for _ in range(3):
+                next(probe)
+            self._plan_gen = torch.Generator(device=self.device)
+            self._plan_gen.manual_seed(self.s.seed)
+            self.plan_uniform = uniform_from(self._plan_gen)
+            self._stat_names = _STAT_NAMES + _PLAN_STAT_NAMES
 
     # ------------------------------ setup -----------------------------------
 
@@ -258,10 +295,11 @@ class SampledTrainer:
         return out
 
     def _make_batch(self, rating_sampler, recon_sampler):
-        """Host-only batch construction: the next rating batch (padded),
-        the noise arrays and recon ids of the next recon batch, and the
-        plan over them.  Returns ``(plan, (bu, bi), gt, valid, noise_u,
-        noise_i)``."""
+        """Host-only batch construction (it runs in ``fit``'s prefetch
+        thread: no device op here): the next rating batch (padded), the
+        noise arrays and recon ids of the next recon batch, and the plan
+        over them.  Returns ``(plan, (bu, bi), gt, valid, noise_u,
+        noise_i)``, or with ``plan_device`` the raw arrays by name."""
         pairs, gt = next(rating_sampler)
         n = gt.size
         B = self.train_batch_pad
@@ -282,6 +320,12 @@ class SampledTrainer:
         else:
             noise_u = np.arange(self.model_cfg.num_users, dtype=np.int32)
             noise_i = np.arange(self.model_cfg.num_items, dtype=np.int32)
+        if self.plan_device:
+            none = np.zeros(0, np.int32)
+            return {"bu": bu, "bi": bi, "gt": gt_pad, "valid": valid,
+                    "noise_u": noise_u, "noise_i": noise_i,
+                    "recon_u": kw.get("recon_user_ids", none),
+                    "recon_i": kw.get("recon_item_ids", none)}
         exclude = (pairs[0], pairs[1]) if self.do_remove else None
         plan = StackedPlan.build(
             self.data_iter.train_graph, self.model_cfg, bu[:n], bi[:n],
@@ -293,7 +337,10 @@ class SampledTrainer:
 
     def _pack_batch(self, batch):
         """``(int_buf, float_buf, spec)`` of one batch: the plan with the
-        padded batch's positions, the noise arrays, targets and validity."""
+        padded batch's positions, the noise arrays, targets and validity;
+        or a ``plan_device`` batch's raw arrays."""
+        if isinstance(batch, dict):
+            return pack_tree(batch)
         plan, (bu, bi), gt, valid, noise_u, noise_i = batch
         ht = plan.as_host_tree()
         # Replace the plan's (unpadded, variable-length) pairs_pos with
@@ -353,14 +400,51 @@ class SampledTrainer:
     def train_iteration(self, batch):
         """One optimisation step on a ``_make_batch`` batch.  Returns a
         dict of device-side stats (``loss``, ``gnorm`` scalars;
-        ``rating_loss``, ``recon_loss``, ``sq_err`` per block)."""
-        return _loss_update(self, self._feed(self._pack_batch(batch)))
+        ``rating_loss``, ``recon_loss``, ``sq_err`` per block; with
+        ``plan_device`` also ``overflow`` and the ``needed_*`` counts)."""
+        feed = self._feed(self._pack_batch(batch))
+        if self.plan_device:
+            return self._device_update(*self._device_plan(feed), feed)
+        return _loss_update(self, feed)
+
+    def _device_plan(self, feed):
+        """The device planning phase of a ``plan_device`` feed: ``(plan,
+        pairs_pos, aux)`` of ``DevicePlanner.build``."""
+        tab = self._dev_tables
+        planner = DevicePlanner(self.model_cfg, self.caps, self.fanout,
+                                symm=self.model_cfg.agg_norm_symm)
+        return planner.build(
+            tab, self.plan_uniform,
+            tab.id2ind["user"].index_select(0, feed["bu"]),
+            tab.id2ind["item"].index_select(0, feed["bi"]), feed["valid"],
+            feed["recon_u"], feed["recon_i"], exclude=self.do_remove)
+
+    def _device_update(self, plan, pairs_pos, aux, feed):
+        """Loss and update over a device-built plan.  An overflowed step
+        (a frontier cut at its cap) leaves the parameters and the
+        optimiser state as they were, and its ``sq_err``, ``rating_loss``,
+        ``recon_loss`` and ``gnorm`` read 0 so that ``fit``'s sums stay
+        clean; the stats carry ``overflow`` and the ``needed_*`` counts."""
+        feed = dict(feed, plan=dict(plan, pairs_pos=pairs_pos))
+        stats, grads = _loss_and_grads(self, feed,
+                                       identity=aux["identity"])
+        keep = ~aux["overflow"]
+        stats["gnorm"] = self.opt.step(grads, keep=keep)
+        for k in ("sq_err", "rating_loss", "recon_loss", "gnorm"):
+            stats[k] = stats[k] * keep.to(stats[k].dtype)
+        for k in _PLAN_STAT_NAMES:
+            stats[k] = aux[k]
+        return stats
 
     def train_chunk(self, batches):
         """k optimisation steps in one call: a loop of ``train_iteration``
         with the same dropout stream as k single calls.  Batches planned
         under caps that have grown since are planned again first.  Returns
         stats stacked along a leading k axis."""
+        if self.plan_device:
+            steps = [self.train_iteration(b) for b in batches]
+            return {k: torch.stack([st[k] for st in steps])
+                    for k in self._stat_names}
         packed = [self._pack_batch(b) for b in batches]
         spec = packed[-1][2]
         if any(p[2] != spec for p in packed[:-1]):
@@ -419,14 +503,24 @@ class SampledTrainer:
 
     # -------------------------------- fit ------------------------------------
 
-    def fit(self, max_iter: Optional[int] = None, log=logging.info):
+    def fit(self, max_iter: Optional[int] = None, log=logging.info,
+            prefetch: bool = False):
         """The training schedule of ``Trainer.fit`` over sampled
         mini-batches: steps, a train log line every ``log_interval``,
         validation every ``valid_interval`` with a test evaluation and the
         best checkpoint on improvement, LR decay after ``decay_patience``
         validations without one, early stopping at ``min_lr``, recovery
         from a non-finite loss (restore the best checkpoint, halve the
-        LR), and the last checkpoint at the end."""
+        LR), and the last checkpoint at the end.  With ``plan_device``,
+        steps rejected on frontier-cap overflow grow the caps at the next
+        log line.
+
+        ``prefetch`` builds batches (draws and host plans) in a producer
+        thread one to two batches ahead of the step; it stops when ``fit``
+        returns or raises.  The host planner's neighbour stream is shared
+        with evaluation, so with host plans a prefetched ``fit`` that
+        validates draws other neighbourhoods than a serial one (the
+        batches are the same), as in the JAX package."""
         s = self.s
         it = self.data_iter
         max_iter = max_iter or s.max_iter
@@ -434,20 +528,7 @@ class SampledTrainer:
                                            segment="train")
         recon_sampler = (it.recon_nodes_sampler(
             batch_size=s.recon_batch_size) if s.use_dae else None)
-        loggers = make_metric_loggers(self.save_dir, self.save_id,
-                                      self.model_cfg.nblocks)
         nb = self.model_cfg.nblocks
-        best_valid_rmse = np.inf
-        best_test_rmse = None
-        best_iter = -1
-        no_better = 0
-        stop = False
-        t_start = time.time()
-        # Stats stay on the device between log intervals; each entry is
-        # the stats of one call flattened in _STAT_NAMES order, one row
-        # per step.
-        pending = []
-        pending_cnt = 0
 
         def next_batch():
             return self._build_batch_safe(rating_sampler, recon_sampler)
@@ -457,6 +538,42 @@ class SampledTrainer:
                              and s.log_interval % s.scan_steps == 0
                              and s.valid_interval % s.scan_steps == 0
                              and max_iter >= s.scan_steps) else 1
+        with contextlib.ExitStack() as stack:
+            if prefetch:
+                next_batch = stack.enter_context(
+                    Prefetcher(next_batch, -(-max_iter // k) * k)).get
+            best_iter, best_valid_rmse, best_test_rmse = self._fit_loop(
+                max_iter, k, next_batch, log)
+        self.save_checkpoint("last")
+        log(f"Best Iter={best_iter}, "
+            f"Best Valid RMSE={best_valid_rmse:.4f}, "
+            + (", ".join(f"Best Test RMSE{i}={best_test_rmse[i]:.4f}"
+                         for i in range(nb))
+               if best_test_rmse is not None else "no test eval"))
+        return {"best_iter": best_iter,
+                "best_valid_rmse": float(best_valid_rmse),
+                "best_test_rmse": (None if best_test_rmse is None
+                                   else [float(x) for x in best_test_rmse])}
+
+    def _fit_loop(self, max_iter, k, next_batch, log):
+        """``fit``'s steps, logging, validation and schedule; returns
+        ``(best_iter, best_valid_rmse, best_test_rmse)``."""
+        s = self.s
+        loggers = make_metric_loggers(self.save_dir, self.save_id,
+                                      self.model_cfg.nblocks)
+        nb = self.model_cfg.nblocks
+        names = self._stat_names
+        best_valid_rmse = np.inf
+        best_test_rmse = None
+        best_iter = -1
+        no_better = 0
+        stop = False
+        t_start = time.time()
+        # Stats stay on the device between log intervals; each entry is
+        # the stats of one call flattened in ``names`` order, one row per
+        # step.
+        pending = []
+        pending_cnt = 0
         iter_idx = 0
         while iter_idx < max_iter:
             if k == 1:
@@ -465,7 +582,7 @@ class SampledTrainer:
                 stats = self.train_chunk([next_batch() for _ in range(k)])
             iter_idx += k
             pending.append(torch.cat(
-                [stats[name].reshape(k, -1) for name in _STAT_NAMES], 1))
+                [stats[name].reshape(k, -1).float() for name in names], 1))
             pending_cnt += self.train_batch * k
 
             logging_str = ""
@@ -479,6 +596,10 @@ class SampledTrainer:
                 sq = fetched[:, 2 + 2 * nb:2 + 3 * nb].sum(axis=0)
                 pending, n_pairs = [], pending_cnt
                 pending_cnt = 0
+                if self.plan_device:
+                    self._grow_caps_after_overflow(
+                        dict(zip(names[len(_STAT_NAMES):],
+                                 fetched[:, 2 + 3 * nb:].T)), log)
                 if not np.isfinite(last_loss):
                     log(f"Non-finite loss at iter {iter_idx}; "
                         "restoring best checkpoint and halving LR.")
@@ -541,16 +662,19 @@ class SampledTrainer:
                 break
         for lg in loggers.values():
             lg.close()
-        self.save_checkpoint("last")
-        log(f"Best Iter={best_iter}, "
-            f"Best Valid RMSE={best_valid_rmse:.4f}, "
-            + (", ".join(f"Best Test RMSE{i}={best_test_rmse[i]:.4f}"
-                         for i in range(nb))
-               if best_test_rmse is not None else "no test eval"))
-        return {"best_iter": best_iter,
-                "best_valid_rmse": float(best_valid_rmse),
-                "best_test_rmse": (None if best_test_rmse is None
-                                   else [float(x) for x in best_test_rmse])}
+        return best_iter, best_valid_rmse, best_test_rmse
+
+    def _grow_caps_after_overflow(self, cols, log):
+        """``plan_device``: grow the caps past the frontiers that steps
+        rejected on overflow needed (``cols``: the fetched ``overflow`` and
+        ``needed_*`` columns, one row per step)."""
+        n_over = int(cols["overflow"].sum())
+        if n_over:
+            need = {t: int(cols[f"needed_{t}"].max())
+                    for t in ("user", "item")}
+            log(f"{n_over} step(s) skipped on frontier-cap overflow; "
+                f"growing caps to cover {need}")
+            self._grow_caps(need)
 
     # ---------------------------- checkpointing ------------------------------
 
@@ -583,6 +707,10 @@ class SampledTrainer:
 
 # ----------------------------- step functions --------------------------------
 
+# The extra stats of a ``plan_device`` step.
+_PLAN_STAT_NAMES = ("overflow", "needed_user", "needed_item",
+                    "needed_exclude")
+
 
 def _pairs_positions(plan, bu, bi):
     """Positions of the (padded) batch pairs in each block's top
@@ -604,23 +732,23 @@ def _pairs_positions(plan, bu, bi):
     return out
 
 
-def _sampled_outputs(trainer, feed, *, train):
+def _sampled_outputs(trainer, feed, *, train, identity=None):
     backend = trainer.backend if train else trainer.eval_backend
     return sampled_forward(
         trainer.model, trainer.model_cfg, feed["plan"], feed["noise_u"],
         feed["noise_i"], backend=backend, train=train,
-        generator=trainer._dropout_gen)
+        generator=trainer._dropout_gen, identity_frontiers=identity)
 
 
-def _loss_and_grads(trainer, feed):
+def _loss_and_grads(trainer, feed, identity=None):
     """Loss, statistics and per-parameter gradients over an unpacked
-    feed."""
+    feed (``identity``: the device plan's identity frontiers)."""
     cfg, s = trainer.model_cfg, trainer.s
     mean, std = trainer.rating_mean, trainer.rating_std
     gt_ratings, pairs_valid = feed["gt"], feed["valid"]
     n_valid = pairs_valid.sum().clamp_min(1.0)
 
-    out = _sampled_outputs(trainer, feed, train=True)
+    out = _sampled_outputs(trainer, feed, train=True, identity=identity)
     target = (gt_ratings - mean) / std
     sq = (out["pred_ratings"] - target[None, :]) ** 2
     rating_loss = 0.5 * (sq * pairs_valid[None, :]).sum(dim=1) / n_valid

@@ -225,18 +225,20 @@ def sampled_iterator(cls, graph):
 
 
 def build_sampled_trainers(backend="xla", save_dir=None, fanout=4,
-                           planner="loop", model=None, **settings):
+                           planner="loop", model=None, plan_device=False,
+                           **settings):
     """``(jax_trainer, torch_trainer)``: both packages' ``SampledTrainer``
     over the same graph, split, sampler seeds, caps and parameters
     (``random_params``), the port's on the CPU with the loop planner, whose
-    draws are the reference's.  Call inside ``reference_on_cpu()``."""
+    draws are the reference's; ``plan_device`` for both.  Call inside
+    ``reference_on_cpu()``."""
     jg, tg = sampled_graphs()
     jcfg, tcfg = sampled_cfgs(**(model or {}))
     kw = {**SAMPLED_SETTINGS, **settings}
     seed_planners(5)
     jtrainer = SampledTrainer(
         jcfg, sampled_iterator(JDataIterator, jg), TrainSettings(**kw),
-        fanout=fanout, backend=backend,
+        fanout=fanout, backend=backend, plan_device=plan_device,
         save_dir=None if save_dir is None else os.path.join(save_dir, "jax"))
     jtrainer.params = random_params(jtrainer.params)
     jtrainer.opt_state = jtrainer.opt.init(jtrainer.params)
@@ -244,7 +246,7 @@ def build_sampled_trainers(backend="xla", save_dir=None, fanout=4,
     ttrainer = TSampledTrainer(
         tcfg, sampled_iterator(DataIterator, tg), TTrainSettings(**kw),
         fanout=fanout, backend=backend, planner=planner, device="cpu",
-        save_dir=None if save_dir is None
+        plan_device=plan_device, save_dir=None if save_dir is None
         else os.path.join(save_dir, "torch"))
     ttrainer.model.load_state_dict(convert.params_from_flax(jtrainer.params))
     seed_planners(7)

@@ -284,9 +284,7 @@ def test_refuses_what_is_not_ported(setup):
     cfg = sampled_cfgs()[1]
     model = STARGCN(cfg)
     for kw, word in ((dict(remat=True), "remat"),
-                     (dict(row_sharding=object()), "row_sharding"),
-                     (dict(identity_frontiers={"user": True}),
-                      "identity_frontiers")):
+                     (dict(row_sharding=object()), "row_sharding")):
         with pytest.raises(NotImplementedError, match=word):
             tsm.sampled_forward(model, cfg, tplan, noise_u, noise_i, **kw)
     bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")

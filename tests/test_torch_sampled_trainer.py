@@ -300,7 +300,8 @@ def test_refuses_what_is_not_ported():
     s = TrainSettings(rating_batch_size=24, recon_batch_size=8)
     cfg = sampled_cfgs()[1]
     for kw, word in ((dict(mesh=object()), "mesh"),
-                     (dict(plan_device=True), "plan_device"),
+                     (dict(plan_device=True, backend="pallas"),
+                      "plan_device"),
                      (dict(remat=True), "remat")):
         with pytest.raises(NotImplementedError, match=word):
             SampledTrainer(cfg, it, s, fanout=4, device="cpu", **kw)

@@ -341,9 +341,10 @@ def test_trainer_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="mesh"):
         Trainer(ttrainer.model_cfg, ttrainer.data_iter, ttrainer.s,
                 device="cpu", mesh=object())
+    # TRAIN.DEVICE_SAMPLER is ported (tests/test_torch_device_sampler.py)
     s = TrainSettings(device_sampler=True)
-    with pytest.raises(NotImplementedError, match="DEVICE_SAMPLER"):
-        Trainer(ttrainer.model_cfg, ttrainer.data_iter, s, device="cpu")
+    assert Trainer(ttrainer.model_cfg, ttrainer.data_iter, s,
+                   device="cpu").s.device_sampler
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(ttrainer.model_cfg, ttrainer.data_iter, ttrainer.s)
