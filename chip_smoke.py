@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 11,12   # phases 1, 2 and these alone
     python3 chip_smoke.py --phases 13      # phase 13 on its own ML-10M set-up
+    python3 chip_smoke.py --phases 14      # phase 14 on its own ML-10M set-up
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -172,6 +173,34 @@ Phases, in order; any failure exits non-zero and prints no result:
    on ``pallas`` serial and with ``prefetch=True`` (no validation inside:
    4 + 4 ELL launches a step), both timed beside phase 8's ``fit``.
 
+14. the model options (after phase 13, on phase 4's trainer and phase 8's
+   sampled trainer): (a) ``MODEL.COMPUTE_DTYPE: bfloat16`` on the ML-10M
+   ``bitdense`` trainer's parameters, packs and batches: one step (4 + 4 bit
+   launches), its loss and every gradient against the plain versions fed
+   bf16-rounded inputs (phase 6's bound), step time, busy, idle and memory
+   beside the float32 step in turns, ``fit(max_iter=20)`` (the loss falls),
+   the trained parameters' bf16 predictions within 5% of float32's scale,
+   the export (4 expands) and queries; then both bit kernels at F = 81 and
+   F = 65 on the ML-10M packs (phase 5's checks and times); (b)
+   ``MODEL.USE_FEA_PROJ`` (``FEA.MID_MAP`` / ``UNITS`` 16) with
+   ``inductive_ml_1m_item_10.yml`` on phase 12's archive: the ``dense`` step
+   and its numbers, the same batch on ``bitdense`` (4 + 4 bit launches at F
+   = 81, against the plain versions and against ``dense``), ``fit(20)``,
+   evaluation, the export and queries, a ``RECON_FEA`` step, a feature-only
+   step and export (``USE_EMBED`` false, ``NBLOCKS`` 1, no DAE), and one
+   sampled ``pallas`` step (4 + 4 ELL launches) against the plain ELL twin;
+   (c) ``GCN.DROPOUT_PER_EDGE`` (forced to ``xla``) on phase 11's ML-1M
+   graph beside the per-node ``xla`` step in turns, the eval equal to the
+   per-node eval within 1e-5, one step's keep rate within 5 standard
+   deviations of 1 - p, then one ML-10M step with its memory; (d) ``remat``
+   on phase 8's ``pallas`` trainer and on a ``plan_device`` ``xla`` trainer:
+   memory above what is held and time, with and without, in turns, loss and
+   gradients from one dropout state within phase 8's bound; (e) bf16 on the
+   ``plan_device`` trainer beside float32 in turns, with the top device
+   operations; (f) ``python -m stargcn_tpu_torch.train`` on a YAML with
+   ``USE_FEA_PROJ`` and bf16 over the ML-1M archive, full-graph, then with
+   ``--num_neighbors 8 --remat``.
+
 Phase 3 also checks the three ELL kernels on small cases (K = 1, 8, 32;
 F = 1, 65, 250, 256; padded slots with in-range and out-of-range indices;
 rows that repeat a source; a single source row; matrices that start off a
@@ -188,15 +217,18 @@ index; negative and too-large indices; every slot padded), each within
 and slots that name one index bit-equal.  Every time printed carries the
 card's name and power limit.
 
-Phases 13, 10, 11, 11b and 12 run inside phase 4's temporary directory,
-after phase 8, in that order.  The line before the last is the card's name
+Phases 13, 14, 10, 11, 11b and 12 run inside phase 4's temporary
+directory, after phase 8, in that order.  The line before the last is the card's name
 and power limit, the one before it ``{"kernels": [...]}`` (all nine
 kernels: the ``dense``, ``xla`` and ``plan_device`` paths launch none of
 them); each row's ``launches_by_path`` holds the count of every path that
 launched it, each driven with the counts set to 0 just before it (phase
 13 adds ``device_sampler train_chunk_dev(10)`` and ``device_sampler
 fit(20)`` to the bit pair, ``sampled fit(10) prefetch=False`` and
-``prefetch=True`` to the ELL pair); the last is ``{"ok": true, "device":
+``prefetch=True`` to the ELL pair; phase 14 the bf16 step and export and
+the ``USE_FEA_PROJ`` step at F = 81 to the bit pair, the ``USE_FEA_PROJ``
+sampled step and the ``remat`` step to the ELL pair, and the bit pair's
+F = 65 / 81 times as ``walk_by_f``); the last is ``{"ok": true, "device":
 {...}}``.  Needs one card; imports nothing of
 JAX and nothing of the JAX package.
 """
@@ -386,7 +418,11 @@ def small_kernel_checks(bd):
             (10, 65, True, torch.bfloat16, 2000, 1500, False),
             (2, 300, True, torch.float32, 2000, 1500, True),
             (10, 65, False, torch.float32, 300, 70000, True),
-            (3, 65, True, torch.float32, 300, 40000, False)):
+            (3, 65, True, torch.float32, 300, 40000, False),
+            # F = 81: MODEL.USE_FEA_PROJ's 64 + 16 columns and the ones
+            # column (walk_plan: fp 88, one column tile).
+            (10, 81, False, torch.float32, 2000, 1500, True),
+            (10, 81, True, torch.bfloat16, 300, 70000, False)):
         e = 40000
         P, d8 = bd.pack_bits(rng.randint(0, D, e), rng.randint(0, S, e),
                              rng.randint(0, R, e), R, D, S)
@@ -541,6 +577,7 @@ def small_design_checks(bd):
             (2, 128, 1024, 257, f32, "sparse", "skip"),
             (1, 128, 528, 600, bf16, "random", "perm"),
             (10, 128, 12288, 65, f32, "sparse", "perm"),
+            (10, 128, 12288, 81, f32, "sparse", "perm"),
             (2, 128, 32784, 65, f32, "last", "pad")):
         Pn = torch.from_numpy(design_pack(rng, kind, R * d8, s_pad)).to(
             DEVICE)
@@ -833,10 +870,12 @@ def plain_twin(owner):
     """The same ``Trainer`` or ``ServingState`` (a shallow copy: same
     operands, same dropout stream) with the model on the plain versions."""
     from stargcn_tpu_torch.models import STARGCN
+    from stargcn_tpu_torch.models.stargcn import feature_dims
 
     twin = copy.copy(owner)
     twin.model = STARGCN(dataclasses.replace(owner.model_cfg,
-                                             bit_impl="xla"))
+                                             bit_impl="xla"),
+                         feature_dims=feature_dims(owner.data_iter))
     twin.model.load_state_dict(owner.model.state_dict())
     twin.model.to(owner.device)
     return twin
@@ -2357,11 +2396,13 @@ def backend_twin(trainer, **changes):
     dropout stream) with the model config changed by ``changes``, the
     parameters copied into a new model and an optimiser of its own."""
     from stargcn_tpu_torch.models import STARGCN
+    from stargcn_tpu_torch.models.stargcn import feature_dims
     from stargcn_tpu_torch.train.loop import make_optimizer
 
     twin = copy.copy(trainer)
     twin.model_cfg = dataclasses.replace(trainer.model_cfg, **changes)
-    twin.model = STARGCN(twin.model_cfg)
+    twin.model = STARGCN(twin.model_cfg,
+                         feature_dims=feature_dims(trainer.data_iter))
     twin.model.load_state_dict(trainer.model.state_dict())
     twin.model.to(trainer.device)
     twin.opt = make_optimizer(twin.s, twin.model.named_parameters())
@@ -4208,6 +4249,687 @@ def run_sampling_on_card(bd, ek, cfg, it, model_cfg, trainer, save_dir,
     return launches, numbers
 
 
+# ------------------------ phase 14: the model options ------------------------
+
+
+def options_cfg(name, **keys):
+    """``configs/<name>`` as published with the dotted ``keys`` changed,
+    e.g. ``{"MODEL.COMPUTE_DTYPE": "bfloat16"}``."""
+    from stargcn_tpu_torch.utils import cfg_from_file
+
+    cfg = cfg_from_file(os.path.join(ROOT, "configs", name))
+    for dotted, value in keys.items():
+        node = cfg
+        *path, leaf = dotted.split(".")
+        for key in path:
+            node = node[key]
+        node[leaf] = value
+    return cfg
+
+
+FEA_KEYS = {"MODEL.USE_FEA_PROJ": True, "FEA.MID_MAP": 16, "FEA.UNITS": 16}
+
+
+def held_against(name, ref, other, tol):
+    """Log and check ``compare_grads(ref, other)`` against ``tol`` = (loss,
+    all gradients together, worst single parameter or None); returns the
+    numbers."""
+    loss_rel, worst, worst_name, glob = compare_grads(ref, other)
+    log(f"  {name}: loss rel diff {loss_rel:.3e} (tol {tol[0]:g}), all "
+        f"gradients together {glob:.3e} relative (tol {tol[1]:g}), worst "
+        f"single parameter {worst:.3e} of its largest entry ({worst_name}"
+        + (f"; tol {tol[2]:g})" if tol[2] else "; printed only)"))
+    check(loss_rel <= tol[0] and glob <= tol[1]
+          and (tol[2] is None or worst <= tol[2]),
+          f"{name}: the step's loss or gradients disagree")
+    return dict(loss_rel=loss_rel, worst=worst, worst_name=worst_name,
+                all=glob)
+
+
+def peak_above(fn):
+    """``(result, seconds, GiB above what is held, peak GiB)`` of one call
+    of ``fn``."""
+    import torch
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, t = host_s(fn)
+    peak = torch.cuda.max_memory_allocated()
+    return out, t, (peak - held) / 2**30, peak / 2**30
+
+
+def run_bf16_ml10m(bd, ek, trainer, card):
+    """Phase 14 (a): ``MODEL.COMPUTE_DTYPE: bfloat16`` on phase 4's ML-10M
+    ``bitdense`` trainer (same parameters, packs and batches), and the bit
+    walk at F = 81 beside F = 65 on its packs."""
+    import numpy as np
+    import torch
+
+    from stargcn_tpu_torch.serve import export_serving
+
+    numbers = {}
+    t16 = backend_twin(trainer, compute_dtype="bfloat16")
+    t16.save_id = 6     # its fit's checkpoints beside phase 6's
+    it, s = trainer.data_iter, trainer.s
+    rs = it.rating_sampler(batch_size=s.rating_batch_size, segment="train")
+    recon = it.recon_nodes_sampler(batch_size=s.recon_batch_size)
+    next_batch = lambda: next_batches(trainer, rs, recon)  # noqa: E731
+    batch = next_batch()
+    params0 = copy.deepcopy(trainer.model.state_dict())
+    opt0 = copy.deepcopy(trainer.opt.state_dict())
+
+    trainer.seed_dropout(SEED)
+    zero_launches(bd, ek)
+    stats, t_first = host_s(lambda: t16.train_iteration(*batch))
+    launches = {**bd.LAUNCHES, **ek.LAUNCHES}
+    log(f"  first bf16 train_iteration: {t_first * 1e3:.1f} ms, loss "
+        f"{float(stats['loss']):.4f}, launches {launches} [{card}]")
+    check(launches == {**bit_counts(4, 4, 0, 0), "ell_spmm_fwd_only": 0,
+                       "ell_spmm_transpose": 0, "ell_sddmm": 0},
+          f"expected 4 + 4 bit launches in a bf16 step, got {launches}")
+    check(bool(torch.isfinite(stats["loss"])), "non-finite bf16 loss")
+    check(all(p.dtype == torch.float32 for p in t16.model.parameters())
+          and all(v.dtype == torch.float32 for v in t16.opt.mu.values()),
+          "parameters and Adam moments must stay float32")
+    t16.model.load_state_dict(params0)
+
+    # The same bf16 step through the kernels and through the plain
+    # versions fed the same bf16-rounded x and g: phase 6's bound, or twice
+    # the spread of the kernel step against its own repeats where that is
+    # wider (the atomics' float32 sum orders flip bf16 roundings in the
+    # Denses after them, which float32 compute does not round).
+    trainer.seed_dropout(SEED)
+    k_run = t16.loss_and_grads(*batch)
+    spread = []
+    for _ in range(3):
+        trainer.seed_dropout(SEED)
+        spread.append(compare_grads(k_run, t16.loss_and_grads(*batch)))
+    spread_all = max(x[3] for x in spread)
+    spread_worst = max(x[1] for x in spread)
+    log(f"  the bf16 step 3 more times through the kernels, each against the "
+        f"first: all gradients together "
+        f"{', '.join(f'{x[3]:.3e}' for x in spread)}; worst single parameter "
+        f"{', '.join(f'{x[1]:.3e}' for x in spread)}")
+    twin = plain_twin(t16)
+    trainer.seed_dropout(SEED)
+    with bf16_fed_plain_versions(bd):
+        p_run = twin.loss_and_grads(*batch)
+    del twin
+    check(all(g.dtype == torch.float32 for g in k_run[1].values()),
+          "bf16 gradients must be float32")
+    numbers["repeat_spread"] = dict(all=spread_all, worst=spread_worst)
+    numbers["vs_plain"] = held_against(
+        "bf16 step, kernels against plain versions fed bf16-rounded x and g",
+        p_run, k_run, (1e-3, max(1e-3, 2 * spread_all),
+                       max(5e-2, 2 * spread_worst)))
+    del k_run, p_run
+
+    # Step time, busy, idle and memory, float32 and bf16 in turns.
+    for name, owner in (("float32", trainer), ("bf16", t16),
+                        ("bf16 again", t16), ("float32 again", trainer)):
+        owner.model.load_state_dict(params0)
+        numbers[name] = step_numbers(owner, next_batch, card,
+                                     f"ML-10M bitdense {name}")
+    t16.model.load_state_dict(params0)
+    trainer.model.load_state_dict(params0)
+    trainer.opt.load_state_dict(opt0)
+
+    # fit(20) in bf16: the loss falls; then the export and queries.
+    trainer.seed_dropout(SEED)
+    losses, lines = [], []
+    with recorded_losses(t16, losses):
+        summary, t_fit = host_s(lambda: t16.fit(max_iter=20,
+                                                log=lines.append))
+    losses = [float(x) for x in losses]
+    log(f"  bf16 fit(max_iter=20): {t_fit:.2f} s; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; {summary} [{card}]")
+    check(len(losses) == 20 and np.isfinite(losses).all()
+          and np.mean(losses[10:]) < losses[0], "the bf16 loss should fall")
+    numbers["fit_s"] = t_fit
+
+    # Predictions of the trained parameters on 100,000 test pairs, in bf16
+    # and in float32 (the seed's parameters predict the mean everywhere).
+    pairs = it.test_node_pairs[:, :100_000]
+    pu = torch.from_numpy(pairs[0].astype(np.int64)).to(DEVICE)
+    pi = torch.from_numpy(pairs[1].astype(np.int64)).to(DEVICE)
+    trainer.model.load_state_dict(t16.model.state_dict())
+    with torch.no_grad():
+        p16, p32 = ((owner._eval_forward("test", pu, pi)
+                     - trainer.rating_mean) / trainer.rating_std
+                    for owner in (t16, trainer))
+    scale = max(float(p32.abs().max()), 1.0)
+    diff = float((p16 - p32).abs().max())
+    log(f"  trained parameters, bf16 against float32 predictions on "
+        f"{pairs.shape[1]:,} test pairs (normalised, largest "
+        f"{float(p32.abs().max()):.3f}): max abs diff {diff:.4f} (tol 5% of "
+        f"the scale {scale:.3f})")
+    check(diff <= 0.05 * scale, "bf16 predictions stray from float32")
+    numbers["pred_vs_f32"] = diff / scale
+    trainer.model.load_state_dict(params0)
+
+    zero_launches(bd, ek)
+    art, t_export = host_s(lambda: export_serving(t16, segment="test"))
+    export_launches = dict(bd.LAUNCHES)
+    check(export_launches == bit_counts(4, 0, 0, 0),
+          f"bf16 export launches {export_launches}")
+    check_artifact(art, ML10M)
+    check_queries(art, card, "bf16 trained parameters")
+    numbers["export_s"] = t_export
+    trainer.model.load_state_dict(params0)
+    trainer.opt.load_state_dict(opt0)
+    del t16, art
+
+    # The bit walk at F = 81 (feature projection's 64 + 16 + the ones
+    # column) beside F = 65 on the same ML-10M packs.
+    R = trainer.model_cfg.num_links
+    train_pack = trainer.variants.bit_pack("train")
+    test_pack = trainer.variants.bit_pack("test")
+    walks = {}
+    for F in (65, 81):
+        e_worst, e_shapes = full_expand_checks(bd, test_pack, R, F, card)
+        r_worst, r_shapes = full_reduce_checks(bd, train_pack, R, F, card)
+        adjoint_check(bd, train_pack, R, F)
+        walks[F] = dict(expand=e_shapes, reduce=r_shapes,
+                        worst=max(e_worst, r_worst))
+    numbers["walk_by_f"] = walks
+    return numbers, {"bf16 train_iteration": launches,
+                     "bf16 export": export_launches}, walks
+
+
+def ml1m_archive(cfg, data_root, card):
+    """``build_dataset``'s result for ``cfg`` on phase 12's ML-1M-format
+    archive under ``data_root``, written first where it is not there."""
+    from stargcn_tpu_torch.predict import build_dataset
+
+    if os.path.exists(os.path.join(data_root, "ml-1m", "ratings.dat")):
+        built, t = host_s(lambda: build_dataset(cfg, data_root))
+        log(f"  build_dataset on the archive phase 12 wrote: {t:.2f} s "
+            f"[{card}]")
+        return built
+    return build_inductive_ml1m(cfg, data_root, card)[0]
+
+
+def run_fea_proj_ml1m(bd, ek, card, save_dir):
+    """Phase 14 (b): ``MODEL.USE_FEA_PROJ`` on the inductive ML-1M archive:
+    ``dense`` (``auto``), the same batch on ``bitdense`` (the walk at F =
+    81) and sampled ``pallas``; ``RECON_FEA``; feature-only input."""
+    import numpy as np
+    import torch
+
+    from stargcn_tpu_torch.serve import export_serving
+    from stargcn_tpu_torch.train import (SampledTrainer, Trainer,
+                                         TrainSettings, sampled_loop)
+
+    os.environ["STARGCN_AUTO_DOWNLOAD"] = "0"
+    data_root = os.path.join(save_dir, "movielens")
+    cfg = options_cfg("inductive_ml_1m_item_10.yml", **FEA_KEYS)
+    _, it, model_cfg = ml1m_archive(cfg, data_root, card)
+    check(model_cfg.backend == "dense" and model_cfg.use_fea_proj
+          and model_cfg.fea_units == 16, f"model config {model_cfg}")
+    fea_dims = {k: it.all_graph.features[k].shape[1]
+                for k in ("user", "movie")}
+    log(f"  raw feature widths {fea_dims} (user: age, gender, occupation "
+        f"one-hot; movie: the 300-d title vector, year, genre one-hots)")
+    numbers, launches = {"feature_dims": fea_dims}, {}
+    trainer = Trainer(model_cfg, it, TrainSettings.from_cfg(cfg),
+                      save_dir=os.path.join(save_dir, "fea1m"),
+                      device=DEVICE)
+    fu, fi = trainer.features()
+    check(fu.device.type == torch.device(DEVICE).type
+          and tuple(fu.shape) == (ML1M["num_users"], fea_dims["user"]),
+          "the features should sit on the card")
+    check(trainer.model.enc_b0.l0.agg_user_item.weight.shape[1] == 80,
+          "the first block's input should be 64 + 16 wide")
+    s = trainer.s
+    rs = it.rating_sampler(batch_size=s.rating_batch_size, segment="train")
+    recon = it.recon_nodes_sampler(batch_size=s.recon_batch_size)
+    next_batch = lambda: next_batches(trainer, rs, recon)  # noqa: E731
+    batch = next_batch()
+    params0 = copy.deepcopy(trainer.model.state_dict())
+    opt0 = copy.deepcopy(trainer.opt.state_dict())
+
+    trainer.seed_dropout(SEED)
+    zero_launches(bd, ek)
+    stats, t_first = host_s(lambda: trainer.train_iteration(*batch))
+    log(f"  first train_iteration with USE_FEA_PROJ (dense): "
+        f"{t_first * 1e3:.1f} ms, loss {float(stats['loss']):.4f} [{card}]")
+    check(no_kernel_launched(bd, ek) and bool(torch.isfinite(stats["loss"])),
+          "the dense feature step")
+    trainer.model.load_state_dict(params0)
+    trainer.opt.load_state_dict(opt0)
+    numbers["dense_step"] = step_numbers(trainer, next_batch, card,
+                                         "inductive dense USE_FEA_PROJ")
+    trainer.model.load_state_dict(params0)
+    trainer.opt.load_state_dict(opt0)
+
+    # The same batch on bitdense: the bit pair at F = 81.
+    bit = backend_twin(trainer, backend="bitdense")
+    trainer.seed_dropout(SEED)
+    zero_launches(bd, ek)
+    b_stats, t_bit = host_s(lambda: bit.train_iteration(*batch))
+    launches["USE_FEA_PROJ bitdense train_iteration (F = 81)"] = \
+        bit_launches = {**bd.LAUNCHES, **ek.LAUNCHES}
+    log(f"  bitdense train_iteration with USE_FEA_PROJ (packs built in the "
+        f"call): {t_bit * 1e3:.1f} ms, loss {float(b_stats['loss']):.4f}, "
+        f"launches {bit_launches} [{card}]")
+    check(bit_launches == {**bit_counts(4, 4, 0, 0), "ell_spmm_fwd_only": 0,
+                           "ell_spmm_transpose": 0, "ell_sddmm": 0},
+          f"expected 4 + 4 bit launches at F = 81, got {bit_launches}")
+    bit.model.load_state_dict(params0)
+    runs = {}
+    for name, owner in (("dense", trainer), ("bitdense", bit)):
+        trainer.seed_dropout(SEED)
+        runs[name] = owner.loss_and_grads(*batch)
+    twin = plain_twin(bit)
+    trainer.seed_dropout(SEED)
+    with bf16_fed_plain_versions(bd):
+        runs["plain"] = twin.loss_and_grads(*batch)
+    del twin
+    numbers["bitdense_vs_plain"] = held_against(
+        "F = 81: bitdense against its plain versions fed bf16-rounded x and "
+        "g", runs["plain"], runs["bitdense"], (1e-3, 1e-3, 5e-2))
+    numbers["bitdense_vs_dense"] = held_against(
+        "F = 81: bitdense against dense (bf16 adjacency)", runs["dense"],
+        runs["bitdense"], (1e-2, 1e-1, None))
+    del runs, bit
+    trainer.model.load_state_dict(params0)
+    trainer.opt.load_state_dict(opt0)
+
+    # fit, evaluation, export, queries.
+    trainer.seed_dropout(SEED)
+    lines = []
+    summary, t_fit = host_s(lambda: trainer.fit(max_iter=20,
+                                                log=lines.append))
+    log(f"  fit(max_iter=20) with USE_FEA_PROJ: {t_fit:.2f} s; {summary} "
+        f"[{card}]")
+    rmses = [summary["best_valid_rmse"], *summary["best_test_rmse"]]
+    check(summary["best_iter"] in (10, 20) and np.isfinite(rmses).all()
+          and max(rmses) <= trainer.rating_max - trainer.rating_min,
+          f"fit summary {summary}")
+    numbers["fit_s"] = t_fit
+    valid = trainer.evaluate("valid")
+    art, t_export = host_s(lambda: export_serving(trainer, segment="test"))
+    check_artifact(art, ML1M)
+    check_queries(art, card, "USE_FEA_PROJ inductive ML-1M")
+    log(f"  evaluate('valid') {valid}; export_serving {t_export:.3f} s "
+        f"[{card}]")
+    numbers["export_s"] = t_export
+    del art
+
+    # RECON_FEA: the decoder reconstructs [embedding, projected features].
+    rcfg = dataclasses.replace(model_cfg, recon_fea=True)
+    rtrainer = Trainer(rcfg, it, TrainSettings.from_cfg(cfg), device=DEVICE)
+    rtrainer.variants = trainer.variants
+    r_stats, t_r = host_s(lambda: rtrainer.train_iteration(*batch))
+    check(rtrainer.model.embed_map_b0_user_l1.out_features == 80
+          and bool(torch.isfinite(r_stats["loss"])), "the RECON_FEA step")
+    log(f"  RECON_FEA train_iteration: {t_r * 1e3:.1f} ms, loss "
+        f"{float(r_stats['loss']):.4f} (decoder 80 wide) [{card}]")
+    del rtrainer
+
+    # Feature-only input: NBLOCKS 1, no DAE (the reference's own limit).
+    ocfg = dataclasses.replace(model_cfg, use_embed=False, nblocks=1,
+                               use_dae=False)
+    osettings = TrainSettings.from_cfg(cfg)
+    osettings.use_dae = False
+    otrainer = Trainer(ocfg, it, osettings, device=DEVICE)
+    otrainer.variants = trainer.variants
+    check(not any(k.startswith(("embed_user", "embed_item"))
+                  for k in otrainer.model.state_dict()),
+          "feature-only input has no embedding tables")
+    o_rb = batch[0]
+    o_cb = (np.arange(ML1M["num_users"], dtype=np.int32),
+            np.arange(ML1M["num_items"], dtype=np.int32),
+            np.zeros(ML1M["num_users"], np.float32),
+            np.zeros(ML1M["num_items"], np.float32))
+    o_stats, t_o = host_s(lambda: otrainer.train_iteration(o_rb, o_cb))
+    o_art = export_serving(otrainer, segment="test")
+    check(bool(torch.isfinite(o_stats["loss"]))
+          and np.isfinite(o_art.user_feats).all(), "feature-only step")
+    log(f"  USE_EMBED false, NBLOCKS 1: train_iteration {t_o * 1e3:.1f} ms, "
+        f"loss {float(o_stats['loss']):.4f}; export {o_art.user_feats.shape}"
+        f" [{card}]")
+    del otrainer, o_art, trainer
+    torch.cuda.empty_cache()
+
+    # Sampled pallas with features, phase 8's settings.
+    settings = TrainSettings.from_cfg(cfg)
+    settings.rating_batch_size = 4096
+    settings.recon_batch_size = 1024
+    strainer = SampledTrainer(model_cfg, it, settings, fanout=8,
+                              backend="pallas", device=DEVICE)
+    srs = it.rating_sampler(batch_size=strainer.train_batch,
+                            segment="train")
+    srecon = it.recon_nodes_sampler(batch_size=settings.recon_batch_size)
+    sbatch = strainer._build_batch_safe(srs, srecon)
+    sparams0 = copy.deepcopy(strainer.model.state_dict())
+    strainer.seed_dropout(SEED)
+    zero_launches(bd, ek)
+    s_stats, t_s = host_s(lambda: strainer.train_iteration(sbatch))
+    launches["USE_FEA_PROJ sampled train_iteration"] = \
+        s_launches = {**bd.LAUNCHES, **ek.LAUNCHES}
+    log(f"  sampled pallas train_iteration with USE_FEA_PROJ: "
+        f"{t_s * 1e3:.1f} ms, loss {float(s_stats['loss']):.4f}, launches "
+        f"{s_launches} [{card}]")
+    check(s_launches == {"ell_spmm_fwd_only": 4, "ell_spmm_transpose": 4,
+                         "ell_sddmm": 0, **bit_counts(0, 0, 0, 0)},
+          f"expected 4 + 4 ELL launches, got {s_launches}")
+
+    def fixed():
+        strainer.model.load_state_dict(sparams0)
+        strainer.seed_dropout(SEED)
+        return sampled_loop._loss_and_grads(
+            strainer, strainer._feed(strainer._pack_batch(sbatch)))
+
+    k_run = fixed()
+    with plain_ell_versions(ek):
+        p_run = fixed()
+    numbers["sampled_vs_plain"] = held_against(
+        "sampled USE_FEA_PROJ step, ELL kernels against the plain twin",
+        p_run, k_run, (1e-5, 1e-4, 1e-3))
+    del k_run, p_run, strainer
+    torch.cuda.empty_cache()
+    return numbers, launches
+
+
+def run_per_edge_dropout(bd, ek, trainer10m, card):
+    """Phase 14 (c): ``GCN.DROPOUT_PER_EDGE`` (forced to ``xla``) on phase
+    11's ML-1M graph beside the per-node ``xla`` step, then one ML-10M step
+    in that mode."""
+    import numpy as np
+    import torch
+
+    from stargcn_tpu_torch.models import aggregators, build_model_config
+    from stargcn_tpu_torch.train import Trainer, TrainSettings
+
+    numbers = {}
+    cfg, it, _ = build_ml1m()
+    cfg.GCN.DROPOUT_PER_EDGE = True
+    csr = it.all_graph["user", "movie"]
+    model_cfg = build_model_config(cfg, csr.shape[0], csr.shape[1],
+                                   len(csr.multi_link), num_edges=csr.nnz)
+    check(model_cfg.backend == "xla" and model_cfg.dropout_per_edge,
+          "DROPOUT_PER_EDGE should force the xla backend")
+    edge = Trainer(model_cfg, it, TrainSettings.from_cfg(cfg),
+                   device=DEVICE)
+    node = backend_twin(edge, dropout_per_edge=False)
+    rs = it.rating_sampler(batch_size=edge.s.rating_batch_size,
+                           segment="train")
+    recon = it.recon_nodes_sampler(batch_size=edge.s.recon_batch_size)
+    next_batch = lambda: next_batches(edge, rs, recon)  # noqa: E731
+    params0 = copy.deepcopy(edge.model.state_dict())
+    for name, owner in (("per-node xla", node), ("per-edge", edge),
+                        ("per-edge again", edge),
+                        ("per-node xla again", node)):
+        owner.model.load_state_dict(params0)
+        numbers[name] = step_numbers(owner, next_batch, card,
+                                     f"ML-1M {name}")
+    edge.model.load_state_dict(params0)
+    node.model.load_state_dict(params0)
+    pairs = it.test_node_pairs
+    pu = torch.from_numpy(pairs[0].astype(np.int64)).to(DEVICE)
+    pi = torch.from_numpy(pairs[1].astype(np.int64)).to(DEVICE)
+    with torch.no_grad():
+        a = edge._eval_forward("test", pu, pi)
+        b = node._eval_forward("test", pu, pi)
+    diff = float((a - b).abs().max())
+    log(f"  eval on {pairs.shape[1]:,} test pairs, per-edge against "
+        f"per-node: max abs diff {diff:.3e} (tol 1e-5)")
+    check(diff <= 1e-5, "per-edge eval should equal the per-node eval")
+    numbers["eval_diff"] = diff
+
+    # The keep rate of one training step's masks.
+    kept = []
+    real = aggregators.dropout
+
+    def counting(x, rate, train, generator=None):
+        out = real(x, rate, train, generator)
+        live = x != 0
+        kept.append((int((out != 0).sum()), int(live.sum())))
+        return out
+
+    aggregators.dropout = counting
+    try:
+        edge.seed_dropout(SEED)
+        edge.train_iteration(*next_batch())
+    finally:
+        aggregators.dropout = real
+    k, n = map(sum, zip(*kept))
+    rate = edge.model_cfg.gcn_dropout
+    sd = (rate * (1 - rate) / n) ** 0.5
+    log(f"  one step's per-edge masks: {len(kept)} gathers, {n:,} live "
+        f"elements, kept {k / n:.5f} (1 - p = {1 - rate:g}, 5 sd "
+        f"{5 * sd:.1e})")
+    check(abs(k / n - (1 - rate)) <= 5 * sd, "the per-edge keep rate")
+    numbers["keep_rate"] = k / n
+    del edge, node
+    torch.cuda.empty_cache()
+
+    # One ML-10M step in that mode: its (E, 65) float32 messages.
+    edge10 = backend_twin(trainer10m, backend="xla", dropout_per_edge=True,
+                          edge_chunk=None)
+    it10, s10 = trainer10m.data_iter, trainer10m.s
+    b10 = next_batches(trainer10m, it10.rating_sampler(
+        batch_size=s10.rating_batch_size, segment="train"),
+        it10.recon_nodes_sampler(batch_size=s10.recon_batch_size))
+    trainer10m.seed_dropout(SEED)
+    zero_launches(bd, ek)
+    stats, t10, above, peak = peak_above(
+        lambda: edge10.train_iteration(*b10))
+    log(f"  ML-10M per-edge step: {t10 * 1e3:.1f} ms, loss "
+        f"{float(stats['loss']):.4f}; peak device memory {peak:.3f} GiB, "
+        f"{above:.3f} GiB above what is held ({10_000_000 * 65 * 4 / 2**30:.2f}"
+        f" GiB is one (E, 65) float32 message) [{card}]")
+    check(no_kernel_launched(bd, ek) and bool(torch.isfinite(stats["loss"])),
+          "the ML-10M per-edge step")
+    numbers["ml10m"] = dict(step_ms=t10 * 1e3, step_gib=above,
+                            peak_gib=peak)
+    del edge10
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def run_sampled_options(bd, ek, cfg, it, model_cfg, strainer, save_dir,
+                        card):
+    """Phase 14 (d), (e): ``remat`` on phase 8's host-planned ``pallas``
+    trainer and on a ``plan_device`` ``xla`` trainer at ML-10M, then bf16
+    on the ``plan_device`` trainer."""
+    import torch
+
+    from stargcn_tpu_torch.graph import kernels as gk
+    from stargcn_tpu_torch.train import (SampledTrainer, TrainSettings,
+                                         sampled_loop)
+
+    numbers, launches = {}, {}
+    if strainer is None:
+        settings = TrainSettings.from_cfg(cfg)
+        settings.rating_batch_size = 4096
+        settings.recon_batch_size = 1024
+        gk.set_seed(SEED)
+        strainer, t_make = host_s(lambda: SampledTrainer(
+            model_cfg, it, settings, fanout=8, backend="pallas",
+            device=DEVICE, save_dir=save_dir, save_id=4))
+        log(f"  SampledTrainer (pallas, batch 4096, fanout 8): {t_make:.2f}"
+            f" s; caps {strainer.caps} [{card}]")
+    rs = it.rating_sampler(batch_size=strainer.train_batch, segment="train")
+    recon = it.recon_nodes_sampler(batch_size=strainer.s.recon_batch_size)
+    feed = strainer._feed(strainer._pack_batch(
+        strainer._build_batch_safe(rs, recon)))
+    params0 = copy.deepcopy(strainer.model.state_dict())
+
+    def run(owner, feed, remat, **kw):
+        owner.model.load_state_dict(params0)
+        owner.remat = remat
+        owner.seed_dropout(SEED)
+        return sampled_loop._loss_and_grads(owner, feed, **kw)
+
+    def remat_pair(owner, feed, what, **kw):
+        out = {}
+        for remat in (False, True, True, False):
+            zero_launches(bd, ek)
+            res, t, above, _ = peak_above(lambda: run(owner, feed, remat,
+                                                      **kw))
+            out.setdefault(remat, []).append(dict(
+                ms=t * 1e3, gib_above=above, run=res,
+                launches={**bd.LAUNCHES, **ek.LAUNCHES}))
+        owner.remat = False
+        for remat in (False, True):
+            r = out[remat]
+            log(f"  {what} loss_and_grads, remat {remat}: "
+                f"{r[0]['ms']:.2f} / {r[1]['ms']:.2f} ms, "
+                f"{r[0]['gib_above']:.3f} / {r[1]['gib_above']:.3f} GiB above"
+                f" what is held, launches {r[0]['launches']} [{card}]")
+        same = held_against(
+            f"{what}: remat against no remat, dropout "
+            f"{owner.model_cfg.gcn_dropout} from one generator state",
+            out[False][0]["run"], out[True][0]["run"], (1e-5, 1e-4, 1e-3))
+        return dict(same=same, **{
+            f"remat_{r}": [dict(ms=x["ms"], gib_above=x["gib_above"])
+                           for x in out[r]] for r in (False, True)}), \
+            out[True][0]["launches"]
+
+    numbers["pallas"], launches["sampled remat loss_and_grads"] = \
+        remat_pair(strainer, feed, "host-planned pallas")
+    check(launches["sampled remat loss_and_grads"]["ell_spmm_transpose"]
+          == 4, "remat: 4 transposes a step")
+    strainer.model.load_state_dict(params0)
+    del feed
+
+    # plan_device on xla, f32 and bf16 (e), with and without remat (d).
+    settings = TrainSettings.from_cfg(cfg)
+    settings.rating_batch_size = 4096
+    settings.recon_batch_size = 1024
+    eval_it = cut_eval(it, 8192)
+    dtr = SampledTrainer(model_cfg, eval_it, settings, fanout=8,
+                         backend="xla", device=DEVICE, plan_device=True,
+                         save_dir=save_dir, save_id=5)
+    drs = eval_it.rating_sampler(batch_size=dtr.train_batch,
+                                 segment="train")
+    drecon = eval_it.recon_nodes_sampler(batch_size=settings.recon_batch_size)
+    dfeed = dtr._feed(dtr._pack_batch(dtr._build_batch_safe(drs, drecon)))
+    plan, pp, aux = dtr._device_plan(dfeed)
+    full = dict(dfeed, plan=dict(plan, pairs_pos=pp))
+    params0 = copy.deepcopy(dtr.model.state_dict())
+    numbers["plan_device"], _ = remat_pair(dtr, full, "plan_device xla",
+                                           identity=aux["identity"])
+    del full, plan, pp
+
+    d16 = copy.copy(dtr)
+    d16.model_cfg = dataclasses.replace(model_cfg,
+                                        compute_dtype="bfloat16")
+    batches = [dtr._build_batch_safe(drs, drecon) for _ in range(12)]
+    for name, owner in (("float32", dtr), ("bf16", d16), ("bf16 again", d16),
+                        ("float32 again", dtr)):
+        owner.model.load_state_dict(params0)
+        times = []
+        for b in batches[:6]:
+            _, t = host_s(lambda: owner.train_iteration(b))
+            times.append(t * 1e3)
+        step_ms = median(times[1:])
+        events = device_events(lambda: owner.train_iteration(batches[6]))
+        busy, top = device_busy_ms(None, top=8, events=events)
+        # What bf16 turns the products into: the kernels named bf16.
+        named = [(n[:60], ms, c) for n, ms, c in events
+                 if "bf16" in n.lower() or "bfloat16" in n.lower()]
+        numbers[f"plan_device {name}"] = dict(step_ms=step_ms, busy_ms=busy,
+                                              top=top, bf16_ops=named)
+        log(f"  plan_device xla {name}: step {step_ms:.2f} ms (median of "
+            f"{', '.join(f'{x:.2f}' for x in times[1:])}), busy "
+            f"{_ms_or_not(busy)}, idle "
+            + ("not measured" if busy is None else f"{1 - busy / step_ms:.0%}")
+            + "; top device operations: "
+            + "; ".join(f"{n} {ms:.3f} ms x{c}" for n, ms, c in top)
+            + "; kernels named bf16: "
+            + ("; ".join(f"{n} {ms:.3f} ms x{c}" for n, ms, c in named)
+               or "none")
+            + f" [{card}]")
+    dtr.model.load_state_dict(params0)
+    del d16, dtr, batches
+    torch.cuda.empty_cache()
+    return numbers, launches
+
+
+def run_options_cli(bd, ek, card, save_dir):
+    """Phase 14 (f): the train CLI on a YAML with ``USE_FEA_PROJ`` and
+    bf16 over the inductive ML-1M archive, full-graph and then with
+    ``--num_neighbors 8 --remat``."""
+    import logging
+
+    import numpy as np
+    import yaml
+
+    from stargcn_tpu_torch.train import __main__ as train_cli
+
+    data_root = os.path.join(save_dir, "movielens")
+    numbers = {}
+    for name, extra, batch in (
+            ("full-graph", [], {}),
+            ("sampled remat", ["--num_neighbors", "8", "--backend", "pallas",
+                               "--remat"],
+             {"TRAIN.RATING_BATCH_SIZE": 4096,
+              "TRAIN.RECON_BATCH_SIZE": 1024})):
+        # The config as published, the options, and (sampled) phase 8's
+        # batch sizes.
+        cfg = options_cfg("inductive_ml_1m_item_10.yml", **FEA_KEYS,
+                          **{"MODEL.COMPUTE_DTYPE": "bfloat16"}, **batch)
+        path = os.path.join(save_dir, f"options_{name.split()[0]}.yml")
+        with open(path, "w") as f:
+            yaml.safe_dump(json.loads(json.dumps(cfg)), f)
+        root = logging.getLogger()
+        handlers, level = list(root.handlers), root.level
+        try:
+            result, t = host_s(lambda: train_cli.main([
+                "--cfg", path, "--data_root", data_root, "--save_dir",
+                os.path.join(save_dir, "cli_options", name.split()[0]),
+                "--max_iter", "10", "--silent", "--device", DEVICE,
+                *extra]))
+        finally:
+            for h in list(root.handlers):
+                if h not in handlers:
+                    h.close()
+            root.handlers[:] = handlers
+            root.setLevel(level)
+        log(f"  train CLI, USE_FEA_PROJ + bf16, {name}: {t:.2f} s, best "
+            f"valid RMSE {result['best_valid_rmse']:.4f} [{card}]")
+        check(result["best_iter"] == 10
+              and np.isfinite(result["best_valid_rmse"]),
+              f"options CLI result {result}")
+        numbers[name] = t
+    return numbers
+
+
+def run_model_options(bd, ek, cfg, it, model_cfg, trainer, save_dir, card,
+                      strainer=None):
+    """Phase 14: the model options at full width.  Returns the launch
+    counts of its kernel paths and its numbers."""
+    import torch
+
+    t0 = time.perf_counter()
+    numbers, launches = {}, {}
+    log("  (a) bf16 compute at ML-10M, bitdense")
+    numbers["bf16_ml10m"], paths, walks = run_bf16_ml10m(bd, ek, trainer,
+                                                         card)
+    launches.update(paths)
+    torch.cuda.empty_cache()
+    log("  (b) feature projection, inductive ML-1M")
+    numbers["fea_proj_ml1m"], paths = run_fea_proj_ml1m(bd, ek, card,
+                                                        save_dir)
+    launches.update(paths)
+    log("  (c) per-edge dropout")
+    numbers["per_edge_dropout"] = run_per_edge_dropout(bd, ek, trainer, card)
+    log("  (d), (e) sampled remat and bf16 at ML-10M")
+    numbers["sampled"], paths = run_sampled_options(
+        bd, ek, cfg, it, model_cfg, strainer, save_dir, card)
+    launches.update(paths)
+    log("  (f) the train CLI with the options")
+    numbers["cli_s"] = run_options_cli(bd, ek, card, save_dir)
+    numbers["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 14 took {numbers['phase_s']:.1f} s on the host clock "
+        f"[{card}]")
+    return launches, numbers, walks
+
+
 def kernel_row(name, source, replaces, launches, worst, shapes):
     """One entry of the ``kernels`` line: the times are means over the
     directions measured (``shapes`` holds each)."""
@@ -4228,7 +4950,7 @@ def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--phases", default=None,
-        help="comma-separated phases out of 11, 12 and 13 (those that "
+        help="comma-separated phases out of 11, 12, 13 and 14 (those that "
              "build their own data) to run alone after phases 1 and 2, in a "
              "process that ran no other phase (13b: phase 13's ML-1M part "
              "alone, which phase 13 runs so); default: every phase")
@@ -4236,8 +4958,8 @@ def parse_args(argv):
     if args.phases is None:
         return None
     phases = {p.strip() for p in args.phases.split(",")}
-    if not phases or not phases <= {"11", "12", "13", "13b"}:
-        ap.error("--phases takes 11, 12, 13 or 13b, comma-separated")
+    if not phases or not phases <= {"11", "12", "13", "13b", "14"}:
+        ap.error("--phases takes 11, 12, 13, 13b or 14, comma-separated")
     return phases
 
 
@@ -4265,20 +4987,27 @@ def run_phases_alone(bd, ek, card, phases):
             numbers["inductive_ml1m"], _ = run_inductive_slice(
                 bd, ek, card, save_dir)
             torch.cuda.empty_cache()
-        if "13" in phases:
+        if "13" in phases or "14" in phases:
             from stargcn_tpu_torch.train import Trainer, TrainSettings
 
-            log("== 4. set-up (for phase 13): ML-10M graph, iterator, "
-                "trainer")
+            log("== 4. set-up (for phases 13 and 14): ML-10M graph, "
+                "iterator, trainer")
             (cfg, it, model_cfg), t_graph = host_s(build_ml10m)
             trainer = Trainer(model_cfg, it, TrainSettings.from_cfg(cfg),
                               save_dir=save_dir, device=DEVICE)
             log(f"  host graph build: {t_graph:.2f} s [{card}]")
+        if "13" in phases:
             log("== 13. slice: batch sampling and plan building on the "
                 "card, and the prefetch threads")
             launches, numbers["sampling_on_card"] = run_sampling_on_card(
                 bd, ek, cfg, it, model_cfg, trainer, save_dir, card)
             numbers["sampling_on_card"]["launches_by_path"] = launches
+        if "14" in phases:
+            log("== 14. slice: the model options (bf16 compute, feature "
+                "projection, per-edge dropout, sampled remat)")
+            launches, numbers["model_options"], _ = run_model_options(
+                bd, ek, cfg, it, model_cfg, trainer, save_dir, card)
+            numbers["model_options"]["launches_by_path"] = launches
     log(json.dumps(numbers))
 
 
@@ -4412,6 +5141,12 @@ def main(argv=None):
         card_launches, card_numbers = run_sampling_on_card(
             bd, ek, cfg, it, model_cfg, trainer, save_dir, card, strainer,
             {"training": train_numbers, "sampled_training": sampled_numbers})
+        torch.cuda.empty_cache()
+
+        log("== 14. slice: the model options (bf16 compute, feature "
+            "projection, per-edge dropout, sampled remat)")
+        option_launches, option_numbers, walks = run_model_options(
+            bd, ek, cfg, it, model_cfg, trainer, save_dir, card, strainer)
         del strainer
         torch.cuda.empty_cache()
 
@@ -4522,6 +5257,17 @@ def main(argv=None):
             if counts.get(row["name"]):
                 row.setdefault("launches_by_path", {})[path] = counts[
                     row["name"]]
+    # Phase 14's paths, each with the counts set to 0 just before it: the
+    # bit pair in bf16 and at F = 81, the ELL pair with features and under
+    # remat; its F = 65 / 81 walk times on the ML-10M packs.
+    for row in rows:
+        for path, counts in option_launches.items():
+            if counts.get(row["name"]):
+                row.setdefault("launches_by_path", {})[path] = counts[
+                    row["name"]]
+    for row, kind in ((rows[0], "expand"), (rows[1], "reduce")):
+        row["walk_by_f"] = {str(F): walks[F][kind] for F in walks}
+    log(json.dumps({"model_options": option_numbers}))
     log(json.dumps({"sampling_on_card": card_numbers}))
     log(json.dumps({"inductive_ml1m": inductive_numbers}))
     log(json.dumps({"full_graph_dense_xla": dense_numbers}))

@@ -8,8 +8,12 @@ holds, per leaf path:
 * ``enc_b{p}/l{i}/agg_{t}_{s}/{weight,bias}`` — ``(R, in, U)``, ``(R, U)``;
 * ``enc_b{p}/l{i}/out_fc_{t}/{kernel,bias}``,
   ``rating_{user,item}_proj_b{p}/{kernel,bias}``,
-  ``embed_map_b{p}_{key}_l{0,1}/{kernel,bias}`` — Dense ``(in, out)``,
-  ``(out,)``.
+  ``embed_map_b{p}_{key}_l{0,1}/{kernel,bias}``, and with feature
+  projection ``fea_map_{user,item}_l{0,1}/{kernel,bias}`` — Dense ``(in,
+  out)``, ``(out,)``.
+
+Without embeddings (``USE_EMBED: false``) the tree has no ``embed_*``; with
+``GCN.USE_RECURRENT`` each encoder holds ``l0`` alone.
 
 The port's modules carry the same names, so a path maps to a
 ``state_dict`` key by joining with '.'; a flax ``embedding`` becomes

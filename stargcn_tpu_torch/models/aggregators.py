@@ -11,7 +11,13 @@ The port of ``MultiLinkGCNAggregator`` and ``GCNAggregator`` from
 * the per-link bias rides through the degree-normalised pooling (on a
   ones column on ``bitdense``; through the projection elsewhere);
 * in training, dropout falls on the source features before the
-  projection, so the bias is never dropped.
+  projection, so the bias is never dropped; with ``dropout_per_edge``
+  (``GCN.DROPOUT_PER_EDGE``, the reference's granularity) it falls on each
+  edge's gathered copy of its source row instead, on the flat edge arrays
+  (``xla``) only;
+* with a compute ``dtype`` (``MODEL.COMPUTE_DTYPE``) the source features,
+  weight and bias are cast to it on every call; the parameters stay
+  float32.
 
 Parameters: ``weight`` ``(num_links, in_units, link_units)`` and ``bias``
 ``(num_links, link_units)``, the flax layout.
@@ -35,20 +41,24 @@ from stargcn_tpu_torch.ops.agg import (
     removed_edges_correction,
     scaled_dense_aggregate,
 )
+from stargcn_tpu_torch.ops.gather import take_rows
 from stargcn_tpu_torch.ops.bitdense import bit_multi_link_aggregate
 
 
 class MultiLinkGCNAggregator(nn.Module):
     """Multi-link graph-conv aggregator; ``dropout_rate`` applies to the
-    source features when ``forward`` is called with ``train``.
-    ``backend`` and ``edge_chunk`` are ``multi_link_aggregate``'s, read
-    when the relation carries no static operands."""
+    source features (per edge with ``dropout_per_edge``) when ``forward``
+    is called with ``train``.  ``backend`` and ``edge_chunk`` are
+    ``multi_link_aggregate``'s, read when the relation carries no static
+    operands; ``dtype`` is the compute dtype (``None``: float32)."""
 
     def __init__(self, in_units: int, units: int, num_links: int,
                  act=None, dropout_rate: float = 0.0,
                  ordinal_sharing: bool = False,
                  accum: str = "stack", backend: str = "xla",
-                 edge_chunk: Optional[int] = None, generator=None):
+                 edge_chunk: Optional[int] = None,
+                 dropout_per_edge: bool = False, dtype=None,
+                 generator=None):
         super().__init__()
         if accum == "stack":
             assert units % num_links == 0, (
@@ -64,6 +74,8 @@ class MultiLinkGCNAggregator(nn.Module):
         self.accum = accum
         self.backend = backend
         self.edge_chunk = edge_chunk
+        self.dropout_per_edge = dropout_per_edge
+        self.dtype = dtype
         self.weight = nn.Parameter(xavier_in_(
             torch.empty(num_links, in_units, link_units),
             num_links * in_units, generator))
@@ -73,13 +85,20 @@ class MultiLinkGCNAggregator(nn.Module):
                 *, train: bool = False, generator=None):
         """Aggregate ``x_src`` ``(num_src, in_units)`` into ``num_dst``
         target nodes through ``rel``, a ``models.layers.Relation``."""
-        x = dropout(x_src, self.dropout_rate, train, generator)
+        weight, bias = self.weight, self.bias
+        if self.dtype is not None:
+            x_src = x_src.to(self.dtype)
+            weight, bias = weight.to(self.dtype), bias.to(self.dtype)
         act = get_activation(self.act)
+        if self.dropout_per_edge:
+            return act(self._per_edge(x_src, weight, bias, rel, num_dst,
+                                      train, generator))
+        x = dropout(x_src, self.dropout_rate, train, generator)
         if rel.bit_static is not None:
             return act(bit_multi_link_aggregate(
-                x, rel.bit_static, self.weight, self.bias,
+                x, rel.bit_static, weight, bias,
                 ordinal_sharing=self.ordinal_sharing, accum=self.accum))
-        proj = multi_link_project(x, self.weight, self.bias,
+        proj = multi_link_project(x, weight, bias,
                                   ordinal_sharing=self.ordinal_sharing)
         if rel.dense_static is not None:
             # Static adjacency: degree scalings folded around the product,
@@ -103,6 +122,36 @@ class MultiLinkGCNAggregator(nn.Module):
                 dense_transposed=rel.dense_transposed,
                 edge_chunk=self.edge_chunk)
         return act(out)
+
+    def _per_edge(self, x_src, weight, bias, rel, num_dst, train,
+                  generator):
+        """``GCN.DROPOUT_PER_EDGE``: gather each edge's source row, drop
+        elements of the gathered ``(E, F)`` rows (two edges from one source
+        get masks of their own), append an undropped ones column that
+        carries the bias, pool with the support into (dst, rating) slots,
+        then project per rating level.  Linear in the rows, so in eval it
+        equals the per-node aggregation.  The edges go through in one
+        piece, as in the JAX package: its ``(E, F + 1)`` float32 messages
+        (2.6 GB at ML-10M with F = 64) are what this mode costs."""
+        if rel.bit_static is not None or rel.dense_static is not None:
+            raise ValueError("GCN.DROPOUT_PER_EDGE reads the flat edge "
+                             "arrays (the xla backend)")
+        R = self.weight.shape[0]
+        msg = dropout(take_rows(x_src, rel.edge_src.long()),
+                      self.dropout_rate, train, generator)
+        msg = torch.cat([msg, msg.new_ones(msg.shape[0], 1)], dim=1) \
+            * rel.support[:, None]
+        seg = rel.edge_dst.long() * R + rel.edge_rating.long()
+        pooled = msg.new_zeros(num_dst * R, msg.shape[1]).index_add_(
+            0, seg, msg).reshape(num_dst, R, -1)
+        w_aug = torch.cat([weight, bias[:, None, :]], dim=1)
+        if self.ordinal_sharing:
+            w_aug = torch.cumsum(w_aug, dim=0)
+        out = torch.einsum("drf,rfu->dru", pooled,
+                           w_aug.to(pooled.dtype)).to(x_src.dtype)
+        if self.accum == "stack":
+            return out.reshape(num_dst, -1)
+        return out.sum(dim=1)
 
 
 class GCNAggregator(nn.Module):

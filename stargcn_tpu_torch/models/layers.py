@@ -93,7 +93,10 @@ class HeterGCNLayer(nn.Module):
       agg_units / out_units: aggregator and output widths (every target).
       dropout_rate: in training, on each aggregator's source features and
         on its output.
-      backend / edge_chunk: the aggregators' (``MultiLinkGCNAggregator``).
+      backend / edge_chunk / dropout_per_edge: the aggregators'
+        (``MultiLinkGCNAggregator``).
+      dtype: the compute dtype of the aggregators and the output Dense
+        (``None``: float32); the output is in it.
     """
 
     def __init__(self, meta: Dict[str, Sequence[str]], in_units: int,
@@ -101,7 +104,9 @@ class HeterGCNLayer(nn.Module):
                  dropout_rate: float = 0.0,
                  agg_ordinal_sharing: bool = False, agg_accum: str = "stack",
                  agg_act="relu", out_act=None, backend: str = "xla",
-                 edge_chunk: Optional[int] = None, generator=None):
+                 edge_chunk: Optional[int] = None,
+                 dropout_per_edge: bool = False, dtype=None,
+                 generator=None):
         super().__init__()
         self.meta = {t: list(s) for t, s in meta.items()}
         self.out_act = out_act
@@ -113,9 +118,10 @@ class HeterGCNLayer(nn.Module):
                     dropout_rate=dropout_rate,
                     ordinal_sharing=agg_ordinal_sharing, accum=agg_accum,
                     backend=backend, edge_chunk=edge_chunk,
+                    dropout_per_edge=dropout_per_edge, dtype=dtype,
                     generator=generator))
             self.add_module(f"out_fc_{t}", dense(
-                agg_units * len(sources), out_units, generator))
+                agg_units * len(sources), out_units, generator, dtype))
 
     def forward(self, features, relations, *, train: bool = False,
                 generator=None):
@@ -135,10 +141,18 @@ class HeterGCNLayer(nn.Module):
 
 class StackedHeterGCNLayers(nn.Module):
     """``len(layer_cfgs)`` stacked layers, named ``l0``, ``l1``, ...  Each
-    cfg holds ``HeterGCNLayer`` keyword arguments."""
+    cfg holds ``HeterGCNLayer`` keyword arguments.  With
+    ``recurrent_layer_num`` (``GCN.USE_RECURRENT``) ``layer_cfgs`` holds one
+    cfg, and its one layer ``l0`` runs that many times."""
 
-    def __init__(self, layer_cfgs: Sequence[dict], generator=None):
+    def __init__(self, layer_cfgs: Sequence[dict], generator=None,
+                 recurrent_layer_num: Optional[int] = None):
         super().__init__()
+        if recurrent_layer_num is not None:
+            assert len(layer_cfgs) == 1
+            self.depth = recurrent_layer_num
+        else:
+            self.depth = len(layer_cfgs)
         self.num_layers = len(layer_cfgs)
         for i, cfg in enumerate(layer_cfgs):
             self.add_module(f"l{i}", HeterGCNLayer(**cfg,
@@ -146,16 +160,17 @@ class StackedHeterGCNLayers(nn.Module):
 
     def forward(self, features, relations, *, train: bool = False,
                 generator=None):
-        for i in range(self.num_layers):
-            features = getattr(self, f"l{i}")(features, relations,
-                                              train=train,
-                                              generator=generator)
+        for i in range(self.depth):
+            features = getattr(self, f"l{i % self.num_layers}")(
+                features, relations, train=train, generator=generator)
         return features
 
 
 class InnerProductLayer(nn.Module):
     """Row-wise inner product (the parameter-free ``gen_ratings`` head;
-    ``mid_units=None`` in every configuration)."""
+    ``mid_units=None`` in every configuration), accumulated in float32
+    whatever the operands' dtype: the elementwise products are in their
+    dtype, the sum is not."""
 
     def forward(self, data1, data2):
         return (data1 * data2).float().sum(dim=-1, keepdim=True)

@@ -34,13 +34,15 @@ from typing import List, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from stargcn_tpu_torch.graph import kernels as K
 from stargcn_tpu_torch.graph.sampling import BlockSampler, SampledBlocks
+from stargcn_tpu_torch.models.common import compute_dtype
 from stargcn_tpu_torch.models.common import dropout as _dropout
 from stargcn_tpu_torch.models.common import get_activation
 from stargcn_tpu_torch.ops import ell_kernels
-from stargcn_tpu_torch.ops.agg import multi_link_project
+from stargcn_tpu_torch.ops.agg import matmul_f32, multi_link_project
 from stargcn_tpu_torch.ops.gather import take_rows
 
 
@@ -354,23 +356,31 @@ def _pool_then_project(x, weight, bias, block, accum, ordinal_sharing):
     pooled result — linear-equivalent to project-then-pool (projection
     and pooling are both linear: ``pool_r(xW_r + b_r) = pool_r(x)W_r +
     wsum_r b_r``), with the per-level intermediate shrunk from
-    ``(R, n_src, agg_units)`` to ``(n_dst, R, embed)``."""
+    ``(R, n_src, agg_units)`` to ``(n_dst, R, embed)``.
+
+    Mixed precision rides on ``x.dtype``: in bf16 the messages and the
+    slot weights are bf16, every contraction accumulates in float32, the
+    pooled rows are rounded to bf16 before the projection and the bias is
+    added in float32 (the JAX package's contract).  The output is
+    float32."""
     if ordinal_sharing:
         weight = torch.cumsum(weight, dim=0)
         bias = torch.cumsum(bias, dim=0)
     R = weight.shape[0]
     n_src = x.shape[0]
     idx = block["idx"]          # rating * n_src + nbr_pos (combined)
-    w = block["weight"]         # (n_dst, K); 0 on padded slots
+    w = block["weight"].to(x.dtype)  # (n_dst, K); 0 on padded slots
     msg = _take_slots(x, idx % n_src) * w[:, :, None]              # N,K,E
-    onehot = _onehot(idx // n_src, R, x.dtype)                     # N,K,R
-    raw = torch.einsum("nke,nkr->nre", msg, onehot)
-    wsum = torch.einsum("nk,nkr->nr", w, onehot)
+    onehot_t = _onehot(idx // n_src, R, x.dtype).transpose(1, 2)   # N,R,K
+    raw = matmul_f32(onehot_t, msg).to(x.dtype)                    # N,R,E
+    wsum = matmul_f32(onehot_t, w[:, :, None])[..., 0]             # N,R
+    weight, bias = weight.to(x.dtype), bias.float()
+    n = raw.shape[0]
     if accum == "sum":
-        return torch.einsum("nre,rea->na", raw, weight) + wsum @ bias
-    ch = torch.einsum("nre,rea->nra", raw, weight)
-    ch = ch + wsum[:, :, None] * bias[None]
-    return ch.reshape(ch.shape[0], -1)
+        return matmul_f32(raw.reshape(n, -1),
+                          weight.reshape(-1, weight.shape[-1])) + wsum @ bias
+    ch = matmul_f32(raw.transpose(0, 1), weight).transpose(0, 1)   # N,R,A
+    return (ch + wsum[:, :, None] * bias).reshape(n, -1)
 
 
 def _named(params):
@@ -380,27 +390,39 @@ def _named(params):
     return params
 
 
-def _check_supported(cfg, row_sharding, remat):
-    unsupported = {
-        "MODEL.USE_FEA_PROJ": cfg.use_fea_proj,
-        "MODEL.USE_EMBED false": not cfg.use_embed,
-        "MODEL.COMPUTE_DTYPE other than float32":
-            cfg.compute_dtype != "float32",
-        "row_sharding (the device mesh)": row_sharding is not None,
-        "remat": bool(remat),
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
+def _check_supported(cfg, row_sharding):
+    if row_sharding is not None:
         raise NotImplementedError(
-            f"not ported yet ({', '.join(bad)}): the sampled forward runs "
-            "in float32 over learned embeddings on one device; the rest "
-            "comes with the slices that port feature projection, bfloat16 "
-            "compute, remat and the mesh")
+            "row_sharding (the device mesh) is not ported yet: the sampled "
+            "forward runs on one device")
+
+
+class _Replay:
+    """One level's dropout stream under ``remat``: the first run (the
+    forward) draws from the caller's generator, which ends where it would
+    without remat; every later run (the recomputation in the backward)
+    draws from a generator restored to the state the first run started
+    from, so it replays the same masks.  ``torch.utils.checkpoint``'s own
+    ``preserve_rng_state`` saves only the default generators, not an
+    explicit one."""
+
+    def __init__(self, generator):
+        self.generator = generator
+        self.state = None if generator is None else generator.get_state()
+        self.runs = 0
+
+    def next(self):
+        self.runs += 1
+        if self.generator is None or self.runs == 1:
+            return self.generator
+        g = torch.Generator(device=self.generator.device)
+        g.set_state(self.state)
+        return g
 
 
 def sampled_forward(params, cfg, plan, noise_user, noise_item,
                     backend: str = "xla", *, train: bool = False,
-                    generator=None, row_sharding=None,
+                    generator=None, features=None, row_sharding=None,
                     identity_frontiers=None, remat: bool = False):
     """Bottom-up execution of the stacked plan.
 
@@ -414,91 +436,160 @@ def sampled_forward(params, cfg, plan, noise_user, noise_item,
     aggregator and on the aggregated features before the out-FC, drawn from
     ``generator``, a ``torch.Generator`` on the same device.
 
+    ``features`` = ``(user, item)`` raw feature tensors on the device,
+    required with ``cfg.use_fea_proj``: each frontier's rows go through the
+    two-layer feature MLP (never noise-masked; padded slots give zero
+    rows) and join the embedding rows, or replace them without
+    ``cfg.use_embed``.  ``cfg.compute_dtype`` bf16 runs every level in
+    bf16 with float32 accumulation and keeps the heads, the decoder and
+    the predictions in float32; the ``pallas`` route feeds the ELL kernel
+    float32 rows, as the JAX package does.
+
     ``identity_frontiers`` (``{"user": bool, "item": bool}``, the device
     planner's ``aux["identity"]``) marks the types whose every frontier is
     the whole node set in id order: with ``cfg.self_noise_only``, their
     embedding reads become an elementwise row mask (no gather, so no
-    scatter in the backward) and cross-block features pass straight
-    through.
+    scatter in the backward), their features are projected table-wide and
+    cross-block features pass straight through.
+
+    ``remat`` recomputes each level in the backward instead of keeping its
+    ``(N, K, E)`` messages and ``(N, R, E)`` pooled rows
+    (``torch.utils.checkpoint``); each level replays its own dropout masks
+    (``_Replay``), so loss and gradients equal those without ``remat``.
 
     Returns {'pred_ratings': (nblocks, B), 'pred_embed': per block per
     type (n_recon, emb) rows, 'recon_ok': per block per type validity,
-    'gt_embed': (n_recon, emb) unmasked embedding rows}.
+    'gt_embed': (n_recon, emb) reconstruction targets (empty without
+    embeddings)}.
     """
-    _check_supported(cfg, row_sharding, remat)
+    _check_supported(cfg, row_sharding)
     if backend not in ("xla", "pallas"):
         raise ValueError(f"unknown sampled backend: {backend!r}")
     if train and cfg.gcn_dropout > 0.0 and generator is None:
         raise ValueError("train=True with dropout requires a generator")
+    if cfg.use_fea_proj and features is None:
+        raise ValueError("cfg.use_fea_proj needs features=(user, item)")
     p = _named(params)
-    table = {"user": p["embed_user.weight"], "item": p["embed_item.weight"]}
-    device = table["user"].device
+    table = ({"user": p["embed_user.weight"], "item": p["embed_item.weight"]}
+             if cfg.use_embed else None)
+    device = next(iter(p.values())).device
     if isinstance(plan, StackedPlan):
         plan = plan.to(device)
     act = get_activation(cfg.activation)
+    cdt = compute_dtype(cfg.compute_dtype) or torch.float32
     use_pallas = backend == "pallas"
     noise = {"user": torch.as_tensor(noise_user, device=device),
              "item": torch.as_tensor(noise_item, device=device)}
-
-    def drop(x):
-        return _dropout(x, cfg.gcn_dropout, train, generator)
+    fea = ({"user": features[0], "item": features[1]}
+           if cfg.use_fea_proj else None)
 
     def linear(x, name):
-        return F.linear(x, p[f"{name}.weight"], p[f"{name}.bias"])
+        w = p[f"{name}.weight"]
+        return F.linear(x.to(w.dtype), w, p[f"{name}.bias"])
+
+    def fea_rows(t, ids=None):
+        """Projected feature rows of ``ids`` (the whole table when
+        None)."""
+        rows = fea[t] if ids is None else take_rows(fea[t],
+                                                    ids.clamp_min(0).long())
+        h = linear(act(linear(rows, f"fea_map_{t}_l0")), f"fea_map_{t}_l1")
+        return h if ids is None else h * (ids >= 0)[:, None].to(h.dtype)
 
     ident = identity_frontiers or {}
 
     def is_ident(t):
         return bool(ident.get(t)) and cfg.self_noise_only
 
+    def level_body(feats_u, feats_i, layer, lvl, gen):
+        def drop(x):
+            return _dropout(x, cfg.gcn_dropout, train, gen)
+
+        fin = {"user": feats_u, "item": feats_i}
+        out = {}
+        for t, s in (("user", "item"), ("item", "user")):
+            agg_w = p[f"{layer}.agg_{t}_{s}.weight"]
+            agg_b = p[f"{layer}.agg_{t}_{s}.bias"]
+            if use_pallas:
+                # The ELL kernel pools pre-projected float32 rows (the
+                # reference kernel's contract); the 'xla' default pools
+                # raw rows first.
+                proj = multi_link_project(
+                    drop(fin[s]).float(), agg_w, agg_b,
+                    ordinal_sharing=cfg.agg_ordinal_sharing)
+                pooled = _ell_aggregate(proj, lvl[t], cfg.agg_accum, True)
+            else:
+                pooled = _pool_then_project(
+                    drop(fin[s]), agg_w, agg_b, lvl[t], cfg.agg_accum,
+                    cfg.agg_ordinal_sharing)
+            pooled = drop(act(pooled))  # agg_act then dropout
+            w = p[f"{layer}.out_fc_{t}.weight"]
+            # The out-FC in the compute dtype, accumulated in float32.
+            h = matmul_f32(pooled.to(cdt), w.to(cdt).t()) \
+                + p[f"{layer}.out_fc_{t}.bias"]
+            out[t] = act(h).to(cdt)  # the next level reads the compute dtype
+        return out["user"], out["item"]
+
     nblocks = len(plan["blocks"])
     pred_ratings, pred_embed, recon_ok = [], [], []
-    gt_embed = {
-        t: take_rows(table[t], plan["recon_ids"][t].clamp_min(0).long())
-        for t in ("user", "item")}
+    gt_embed = {}
+    if cfg.use_embed:
+        gt_embed = {
+            t: take_rows(table[t], plan["recon_ids"][t].clamp_min(0).long())
+            for t in ("user", "item")}
+        if cfg.use_fea_proj and cfg.recon_fea:
+            gt_embed = {t: torch.cat([gt_embed[t], fea_rows(
+                t, plan["recon_ids"][t])], -1) for t in ("user", "item")}
     prev_top_feats = None
     for block_id in range(nblocks):
         pidx = 0 if cfg.use_recurrent else block_id
         f0 = plan["frontiers"][block_id]
         feats = {}
         for t in ("user", "item"):
-            if block_id == 0 and is_ident(t):
-                keep = noise[t] != -1
-                feats[t] = table[t] * keep[:, None].to(table[t].dtype)
-            elif block_id == 0:
-                feats[t] = _masked_embed_rows(table[t], f0[t], noise[t])
-            elif is_ident(t):
-                feats[t] = prev_top_feats[t]
+            parts = []
+            if block_id == 0:
+                if cfg.use_embed and is_ident(t):
+                    keep = noise[t] != -1
+                    parts.append(table[t] * keep[:, None].to(
+                        table[t].dtype))
+                elif cfg.use_embed:
+                    parts.append(_masked_embed_rows(table[t], f0[t],
+                                                    noise[t]))
+                if cfg.use_fea_proj:
+                    parts.append(fea_rows(t, None if is_ident(t)
+                                          else f0[t]))
             else:
-                pos, ok = plan["cross_gather"][block_id][t]
-                feats[t] = take_rows(prev_top_feats[t], pos.long()) \
-                    * ok[:, None]
+                if is_ident(t):
+                    parts.append(prev_top_feats[t])
+                else:
+                    pos, ok = plan["cross_gather"][block_id][t]
+                    parts.append(take_rows(prev_top_feats[t], pos.long())
+                                 * ok[:, None])
+                if cfg.use_fea_proj and not cfg.recon_fea:
+                    # The next block's input joins the decoder's output
+                    # and the projected features.
+                    parts.append(fea_rows(t, f0[t]))
+            feats[t] = (parts[0] if len(parts) == 1
+                        else torch.cat(parts, -1)).to(cdt)
 
         for li, lvl in enumerate(plan["blocks"][block_id]):
             depth = 0 if cfg.gcn_use_recurrent else li
             layer = f"enc_b{pidx}.l{depth}"
-            out = {}
-            for t, s in (("user", "item"), ("item", "user")):
-                agg_w = p[f"{layer}.agg_{t}_{s}.weight"]
-                agg_b = p[f"{layer}.agg_{t}_{s}.bias"]
-                if use_pallas:
-                    # The ELL kernel pools pre-projected rows (the
-                    # reference kernel's contract); the 'xla' default
-                    # pools raw rows first.
-                    proj = multi_link_project(
-                        drop(feats[s]), agg_w, agg_b,
-                        ordinal_sharing=cfg.agg_ordinal_sharing)
-                    pooled = _ell_aggregate(proj, lvl[t], cfg.agg_accum,
-                                            True)
-                else:
-                    pooled = _pool_then_project(
-                        drop(feats[s]), agg_w, agg_b, lvl[t],
-                        cfg.agg_accum, cfg.agg_ordinal_sharing)
-                pooled = drop(act(pooled))  # agg_act then dropout
-                out[t] = act(linear(pooled, f"{layer}.out_fc_{t}"))
-            feats = out
+            gen = generator if train and cfg.gcn_dropout > 0.0 else None
+            if remat and torch.is_grad_enabled():
+                replay = _Replay(gen)
 
-        # rating head
+                def run(fu, fi, layer=layer, lvl=lvl, replay=replay):
+                    return level_body(fu, fi, layer, lvl, replay.next())
+
+                fu, fi = torch.utils.checkpoint.checkpoint(
+                    run, feats["user"], feats["item"], use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                fu, fi = level_body(feats["user"], feats["item"], layer,
+                                    lvl, gen)
+            feats = {"user": fu, "item": fi}
+
+        # rating head, in float32
         pp = plan["pairs_pos"][block_id]
         u_rows = linear(take_rows(feats["user"], pp["user"].long()),
                         f"rating_user_proj_b{pidx}")
@@ -543,13 +634,15 @@ def recon_losses(out):
 
 def sampled_loss(params, cfg, plan, noise_user, noise_item, gt_ratings,
                  pairs_valid, rating_mean, rating_std, recon_lambda,
-                 *, train=False, generator=None, backend="xla"):
+                 *, train=False, generator=None, backend="xla",
+                 features=None, remat=False):
     """Rating + reconstruction loss on a sampled plan — the sampled-mode
     twin of the full-graph loss.  Returns ``(loss, (rating_loss,
     pred_ratings))``."""
     out = sampled_forward(params, cfg, plan, noise_user, noise_item,
                           backend=backend, train=train,
-                          generator=generator)
+                          generator=generator, features=features,
+                          remat=remat)
     target = (gt_ratings - rating_mean) / rating_std
     n_valid = pairs_valid.sum().clamp_min(1.0)
     sq = (out["pred_ratings"] - target[None, :]) ** 2

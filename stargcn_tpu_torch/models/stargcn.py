@@ -14,6 +14,17 @@ the caller's generator.  Module names match the flax tree
 ``embed_map_b{p}_{key}_l{0,1}``), so ``convert.params_from_flax`` maps
 parameters one to one.
 
+The model options of the JAX package run too: feature projection
+(``MODEL.USE_FEA_PROJ``: a two-layer MLP per node type over the raw
+features, ``fea_map_{user,item}_l{0,1}``, joined to the embedding, and with
+``MODEL.RECON_FEA`` to the reconstruction target), feature-only input
+(``MODEL.USE_EMBED: false``), bf16 compute (``MODEL.COMPUTE_DTYPE``:
+parameters float32, operands cast per call, predictions float32), per-edge
+dropout (``GCN.DROPOUT_PER_EDGE``, on ``xla``) and one encoder layer reused
+at every depth (``GCN.USE_RECURRENT``).  PyTorch states every input width
+where flax infers it, so the model takes the raw feature widths
+(``feature_dims``) when it projects features.
+
 ``build_model_config``, ``resolve_backend`` and ``resolve_edge_chunk`` are
 the port of ``stargcn_tpu/train/loop.py:40-115``.
 """
@@ -24,11 +35,13 @@ import dataclasses
 import logging
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from stargcn_tpu_torch.graph.device import EdgeSet
-from stargcn_tpu_torch.models.common import dense, get_activation
+from stargcn_tpu_torch.models.common import (compute_dtype, dense,
+                                             get_activation)
 from stargcn_tpu_torch.models.layers import (
     BitStatic,
     DenseStatic,
@@ -63,6 +76,8 @@ class STARGCNConfig:
     nblocks: int = 2
     use_recurrent: bool = False
     activation: str = "leaky"
+    fea_mid_map: int = 16
+    fea_units: int = 16
     embed_units: int = 64
     gcn_dropout: float = 0.7
     gcn_use_recurrent: bool = False
@@ -89,53 +104,90 @@ class STARGCNConfig:
 
 
 def _check_supported(cfg: STARGCNConfig):
-    unsupported = {
-        f"backend {cfg.backend!r} (ported: {', '.join(BACKENDS)})":
-            cfg.backend not in BACKENDS,
-        "MODEL.USE_FEA_PROJ": cfg.use_fea_proj,
-        "MODEL.USE_EMBED false": not cfg.use_embed,
-        "GCN.USE_RECURRENT": cfg.gcn_use_recurrent,
-        "GCN.DROPOUT_PER_EDGE": cfg.dropout_per_edge,
-        "MODEL.COMPUTE_DTYPE other than float32":
-            cfg.compute_dtype != "float32",
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
+    if cfg.backend not in BACKENDS:
         raise NotImplementedError(
-            f"not ported yet ({', '.join(bad)}): the port trains and "
-            "serves the bitdense, dense and xla backends in float32 with "
-            "learned embeddings; the ell backend comes with the slice that "
-            "ports ops/chunked_ell.py, bfloat16 compute, per-edge dropout "
-            "and feature projection with the slices that port them")
+            f"backend {cfg.backend!r} is not ported yet (ported: "
+            f"{', '.join(BACKENDS)}): the ell backend comes with the slice "
+            "that ports ops/chunked_ell.py")
+    if cfg.dropout_per_edge and cfg.backend != "xla":
+        raise NotImplementedError(
+            "GCN.DROPOUT_PER_EDGE runs on the flat edge arrays of the xla "
+            f"backend only, not on {cfg.backend!r} (build_model_config "
+            "forces xla)")
+    compute_dtype(cfg.compute_dtype)
+
+
+def _input_widths(cfg: STARGCNConfig):
+    """``(first, later, out_emb)``: the input width of the first block, of
+    every later block, and the width of the reconstructed embedding.  The
+    projected features join the embedding in the first block's input; in
+    later blocks they join the decoder's output unless the decoder
+    reconstructs them (``RECON_FEA``)."""
+    fea = cfg.fea_units if cfg.use_fea_proj else 0
+    out_emb = cfg.embed_units + (fea if cfg.recon_fea else 0)
+    first = (cfg.embed_units if cfg.use_embed else 0) + fea
+    later = out_emb + (0 if cfg.recon_fea else fea)
+    return first, later, out_emb
 
 
 class STARGCN(nn.Module):
-    """The full network: embeddings -> [encoder -> heads -> decoder] x B.
+    """The full network: embeddings and projected features -> [encoder ->
+    heads -> decoder] x B.
 
     Parameters are initialised from ``generator`` as the JAX package
     initialises its flax tree: ``U(-0.1, 0.1)`` embeddings, Xavier-in
-    kernels, zero biases.
+    kernels, zero biases.  ``feature_dims`` ``(user, item)`` are the raw
+    feature widths, read with ``cfg.use_fea_proj`` (``feature_dims``
+    gives them for a data iterator).
     """
 
-    def __init__(self, cfg: STARGCNConfig, generator=None):
+    def __init__(self, cfg: STARGCNConfig, generator=None,
+                 feature_dims=None):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
+        self.cdt = compute_dtype(cfg.compute_dtype)
         g = generator
         E = cfg.embed_units
-        self.embed_user = nn.Embedding(
-            cfg.num_users, E,
-            _weight=torch.empty(cfg.num_users, E).uniform_(
-                -0.1, 0.1, generator=g))
-        self.embed_item = nn.Embedding(
-            cfg.num_items, E,
-            _weight=torch.empty(cfg.num_items, E).uniform_(
-                -0.1, 0.1, generator=g))
+        first, later, out_emb = _input_widths(cfg)
+        depth = len(cfg.agg_units)
+        if cfg.use_recurrent and cfg.nblocks > 1 and first != later:
+            raise ValueError(
+                "MODEL.USE_RECURRENT shares one block's parameters, so "
+                f"every block's input must be {first} wide, not {later}")
+        if cfg.use_embed:
+            self.embed_user = nn.Embedding(
+                cfg.num_users, E,
+                _weight=torch.empty(cfg.num_users, E).uniform_(
+                    -0.1, 0.1, generator=g))
+            self.embed_item = nn.Embedding(
+                cfg.num_items, E,
+                _weight=torch.empty(cfg.num_items, E).uniform_(
+                    -0.1, 0.1, generator=g))
+        if cfg.use_fea_proj:
+            if feature_dims is None:
+                raise ValueError("MODEL.USE_FEA_PROJ needs feature_dims="
+                                 "(user, item): the raw feature widths")
+            for key, dim in zip(("user", "item"), feature_dims):
+                self.add_module(f"fea_map_{key}_l0",
+                                dense(int(dim), cfg.fea_mid_map, g))
+                self.add_module(f"fea_map_{key}_l1",
+                                dense(cfg.fea_mid_map, cfg.fea_units, g))
         meta = {"user": ["item"], "item": ["user"]}
         n_param_blocks = 1 if cfg.use_recurrent else cfg.nblocks
+        units = list(zip(cfg.agg_units, cfg.out_units))
+        if cfg.gcn_use_recurrent:
+            units = units[:1]
         for p in range(n_param_blocks):
-            in_units, layer_cfgs = E, []
-            for au, ou in zip(cfg.agg_units, cfg.out_units):
+            in_units, layer_cfgs = (first if p == 0 else later), []
+            if cfg.gcn_use_recurrent and depth > 1 \
+                    and cfg.out_units[0] != in_units:
+                raise ValueError(
+                    f"GCN.USE_RECURRENT reuses one layer at all {depth} "
+                    f"depths, so its output width (GCN.OUT.UNITS[0] = "
+                    f"{cfg.out_units[0]}) must equal its input width "
+                    f"({in_units})")
+            for au, ou in units:
                 layer_cfgs.append(dict(
                     meta=meta, in_units=in_units, agg_units=au,
                     out_units=ou, num_links=cfg.num_links,
@@ -143,25 +195,41 @@ class STARGCN(nn.Module):
                     agg_ordinal_sharing=cfg.agg_ordinal_sharing,
                     agg_accum=cfg.agg_accum, agg_act=cfg.activation,
                     out_act=cfg.activation, backend=cfg.backend,
-                    edge_chunk=cfg.edge_chunk))
+                    edge_chunk=cfg.edge_chunk,
+                    dropout_per_edge=cfg.dropout_per_edge, dtype=self.cdt))
                 in_units = ou
-            self.add_module(f"enc_b{p}",
-                            StackedHeterGCNLayers(layer_cfgs, generator=g))
+            self.add_module(f"enc_b{p}", StackedHeterGCNLayers(
+                layer_cfgs, generator=g,
+                recurrent_layer_num=depth if cfg.gcn_use_recurrent
+                else None))
             for key in ("user", "item"):
                 self.add_module(f"rating_{key}_proj_b{p}", dense(
-                    in_units, cfg.gen_rating_mid_map, g))
+                    in_units, cfg.gen_rating_mid_map, g, self.cdt))
             if cfg.use_dae:
                 for key in ("user", "item"):
                     self.add_module(f"embed_map_b{p}_{key}_l0",
-                                    dense(in_units, E, g))
+                                    dense(in_units, out_emb, g, self.cdt))
                     self.add_module(f"embed_map_b{p}_{key}_l1",
-                                    dense(E, E, g))
+                                    dense(out_emb, out_emb, g, self.cdt))
         self.gen_ratings = InnerProductLayer()
+
+    def project_features(self, user_features, item_features):
+        """``{'user', 'item'}``: the raw features through their two-layer
+        MLPs (float32)."""
+        if user_features is None or item_features is None:
+            raise ValueError("MODEL.USE_FEA_PROJ needs user_features= and "
+                             "item_features=")
+        act = get_activation(self.cfg.activation)
+        return {key: getattr(self, f"fea_map_{key}_l1")(act(getattr(
+                    self, f"fea_map_{key}_l0")(fea)))
+                for key, fea in (("user", user_features),
+                                 ("item", item_features))}
 
     def forward(self, noise_user, noise_item, pairs_user, pairs_item,
                 variant_degrees, operands, removed_pairs=None, *,
                 graph=None, train: bool = False, generator=None,
-                return_rating_feats: bool = False):
+                return_rating_feats: bool = False, user_features=None,
+                item_features=None):
         """Forward over one graph variant.
 
         Args:
@@ -190,12 +258,17 @@ class STARGCN(nn.Module):
           graph: the ``BipartiteGraphData``, for the 3-tuple lookup.
           train: apply dropout (``GCN.DROPOUT``), drawn from
             ``generator``, a ``torch.Generator`` on the model's device.
+          user_features / item_features: the raw feature matrices, read
+            with ``use_fea_proj`` (never noise-masked).
 
-        Returns a dict with ``pred_ratings`` ``(nblocks, B)``,
+        Returns a dict with ``pred_ratings`` ``(nblocks, B)`` (float32),
         ``pred_embed`` (per block ``{'user', 'item'}`` reconstructed
-        embeddings), ``gt_embed`` (the embedding tables) and, with
-        ``return_rating_feats``, ``rating_feats``: the last block's
-        projected node states, from which any rating is one inner product.
+        embeddings, in the compute dtype), ``gt_embed`` (the
+        reconstruction targets: the embedding tables, joined by the
+        projected features with ``recon_fea``; empty without embeddings)
+        and, with ``return_rating_feats``, ``rating_feats``: the last
+        block's projected node states, from which any rating is one inner
+        product.
         """
         cfg = self.cfg
         act = get_activation(cfg.activation)
@@ -234,14 +307,26 @@ class STARGCN(nn.Module):
                     ("item", "user"): Relation(cfg.num_links,
                                                dense_static=static_i)}
 
-        gt_embed = {"user": self.embed_user.weight,
-                    "item": self.embed_item.weight}
-        feats = {
-            "user": _masked_embed(self.embed_user.weight, noise_user,
-                                  cfg.self_noise_only),
-            "item": _masked_embed(self.embed_item.weight, noise_item,
-                                  cfg.self_noise_only),
-        }
+        gt_embed, feats = {}, {}
+        if cfg.use_embed:
+            gt_embed = {"user": self.embed_user.weight,
+                        "item": self.embed_item.weight}
+            feats = {
+                "user": _masked_embed(self.embed_user.weight, noise_user,
+                                      cfg.self_noise_only),
+                "item": _masked_embed(self.embed_item.weight, noise_item,
+                                      cfg.self_noise_only),
+            }
+        fea_proj = {}
+        if cfg.use_fea_proj:
+            fea_proj = self.project_features(user_features, item_features)
+            feats = ({k: torch.cat([feats[k], fea_proj[k]], -1)
+                      for k in feats} if cfg.use_embed else dict(fea_proj))
+            if cfg.recon_fea:
+                gt_embed = {k: torch.cat([gt_embed[k], fea_proj[k]], -1)
+                            for k in gt_embed}
+        if self.cdt is not None:
+            feats = {k: v.to(self.cdt) for k, v in feats.items()}
         pred_ratings, pred_embed = [], []
         rating_feats = None
         for block_id in range(cfg.nblocks):
@@ -265,6 +350,9 @@ class STARGCN(nn.Module):
                     mapped[key] = l1(act(l0(output[key])))
                 pred_embed.append(mapped)
                 feats = mapped
+                if cfg.use_fea_proj and not cfg.recon_fea:
+                    feats = {k: torch.cat([v, fea_proj[k].to(v.dtype)], -1)
+                             for k, v in feats.items()}
 
         out = {"pred_ratings": torch.stack(pred_ratings, dim=0),
                "pred_embed": pred_embed, "gt_embed": gt_embed}
@@ -405,6 +493,13 @@ def _build_bit_static_operands(cfg, bit_pack, deg_u, deg_i,
     return make("user"), make("item")
 
 
+def feature_dims(data_iter):
+    """``(user, item)`` raw feature widths of a data iterator's graph."""
+    f = data_iter.all_graph.features
+    return (int(np.shape(f[data_iter.name_user])[1]),
+            int(np.shape(f[data_iter.name_item])[1]))
+
+
 def _masked_embed(table, noise, self_noise_only: bool = True):
     """Embeddings through the noise array (-1 -> zero vector)."""
     if noise is None:
@@ -482,6 +577,8 @@ def build_model_config(cfg, num_users, num_items, num_links,
         out_units=tuple(cfg.GCN.OUT.UNITS),
         gen_rating_mid_map=cfg.GEN_RATING.MID_MAP,
         backend=backend,
+        fea_mid_map=cfg.FEA.MID_MAP,
+        fea_units=cfg.FEA.UNITS,
         edge_chunk=resolve_edge_chunk(
             backend, num_edges, tuple(cfg.GCN.AGG.UNITS),
             budget_mb=cfg.KERNEL.get("XLA_MSG_BUDGET_MB", 1500)),

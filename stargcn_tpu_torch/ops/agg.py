@@ -93,6 +93,51 @@ def gather_weighted_segment_sum(values: torch.Tensor,
                                 segment_ids.long(), int(num_segments), chunk)
 
 
+def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D, or 3-D batched) accumulated and returned in float32:
+    for two bf16 operands on a CUDA card one tensor-core product with
+    float32 output; elsewhere the float32 product of the same values."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        if a.dim() == 2:
+            return torch.bmm(a[None], b[None], out_dtype=torch.float32)[0]
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``a @ b`` with float32 accumulation and output for operands in a
+    reduced precision.  The backward is the JAX package's transpose of a
+    product with ``preferred_element_type=float32``: the float32 cotangent
+    times the other operand, in float32, rounded to each operand's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _product_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        grad_a = grad_b = None
+        if ctx.needs_input_grad[0]:
+            grad_a = torch.matmul(grad, b.float().transpose(-1, -2)).to(
+                a.dtype)
+        if ctx.needs_input_grad[1]:
+            grad_b = torch.matmul(a.float().transpose(-1, -2), grad).to(
+                b.dtype)
+        return grad_a, grad_b
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D, or 3-D batched) accumulated and returned in float32,
+    as a JAX contraction with ``preferred_element_type=float32``: the
+    compute-dtype products of ``MODEL.COMPUTE_DTYPE``."""
+    if a.dtype == b.dtype == torch.float32:
+        return torch.matmul(a, b)
+    return _MatmulF32.apply(a, b)
+
+
 def multi_link_project(x: torch.Tensor, weight: torch.Tensor,
                        bias: torch.Tensor,
                        ordinal_sharing: bool = False) -> torch.Tensor:
@@ -105,14 +150,21 @@ def multi_link_project(x: torch.Tensor, weight: torch.Tensor,
       weight: ``(num_links, feat_in, units)``.
       bias: ``(num_links, units)``.
 
-    Returns ``(num_links, num_src, units)``.
+    Returns ``(num_links, num_src, units)``, float32 whatever the operands'
+    dtype (bf16 operands: the product accumulates in float32 and the bias
+    is added in float32, as in the JAX package).
     """
     if ordinal_sharing:
         weight = torch.cumsum(weight, dim=0)
         bias = torch.cumsum(bias, dim=0)
-    # One batched product over all rating levels.
-    return torch.baddbmm(bias[:, None, :], x.expand(weight.shape[0], -1, -1),
-                         weight)
+    if x.dtype == weight.dtype == torch.float32:
+        # One batched product over all rating levels.
+        return torch.baddbmm(bias[:, None, :],
+                             x.expand(weight.shape[0], -1, -1), weight)
+    R, f, units = weight.shape
+    # Every rating level in one product: (N, F) @ (F, R * U).
+    proj = matmul_f32(x, weight.permute(1, 0, 2).reshape(f, R * units))
+    return (proj.reshape(-1, R, units) + bias.float()).permute(1, 0, 2)
 
 
 def multi_link_aggregate(proj: torch.Tensor, edge_src: torch.Tensor,

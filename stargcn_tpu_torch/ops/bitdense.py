@@ -514,7 +514,13 @@ def bit_multi_link_aggregate(x, bit_static, weight, bias,
     aggregate-then-project, with the per-link bias carried by a ones
     column through the pooling, separable degree scales around it and the
     removed batch edges taken out again as a batch-sized correction
-    (``stargcn_tpu.ops.bitdense.bit_multi_link_aggregate``)."""
+    (``stargcn_tpu.ops.bitdense.bit_multi_link_aggregate``).
+
+    ``x``, ``weight`` and ``bias`` share one dtype, float32 or a compute
+    dtype such as bf16; with the JAX package's type promotion: ``x_aug``
+    (x times the float32 scales) reaches the kernel in float32, the pooled
+    table is rounded to ``x``'s dtype, the correction, scaling and the
+    projection run in float32, and the output is in ``x``'s dtype."""
     bs = bit_static
     num_src = x.shape[0]
     num_dst = bs.dst_scale.shape[0]
@@ -532,19 +538,22 @@ def bit_multi_link_aggregate(x, bit_static, weight, bias,
         # of the pooled table: no (B, num_dst * R) one-hot is formed.
         gathered = take_rows(x_aug, bs.rem_src) * bs.rem_weight[:, None]
         seg = bs.rem_dst * R + bs.rem_rating
-        pooled = pooled.reshape(num_dst * R, -1).index_add(
-            0, seg, gathered, alpha=-1).reshape(num_dst, R, -1)
+        pooled = pooled.to(gathered.dtype).reshape(num_dst * R, -1) \
+            .index_add(0, seg, gathered, alpha=-1).reshape(num_dst, R, -1)
     pooled = pooled * bs.dst_scale[:, None, None]
 
     w_aug = torch.cat([weight, bias[:, None, :]], dim=1)   # (R, F+1, U)
     if ordinal_sharing:
         w_aug = torch.cumsum(w_aug, dim=0)
+    w_aug = w_aug.to(pooled.dtype)
     if accum == "sum":
         # sum_r pooled[:, r] @ w_aug[r] as one matmul over (r, f), so the
-        # (num_dst, R, U) per-link outputs are never stored.
-        return pooled.reshape(num_dst, -1) @ w_aug.reshape(-1, units)
+        # (num_dst, R, U) per-link outputs are never stored (in a compute
+        # dtype the sum is rounded once, not per link).
+        return (pooled.reshape(num_dst, -1)
+                @ w_aug.reshape(-1, units)).to(x.dtype)
     if accum == "stack":
         out = torch.einsum("drf,rfu->dru", pooled, w_aug)
-        return out.reshape(num_dst, R * units)
+        return out.reshape(num_dst, R * units).to(x.dtype)
     raise ValueError(f"unknown accum: {accum!r}")
 

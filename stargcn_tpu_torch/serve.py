@@ -30,8 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from stargcn_tpu_torch.models.stargcn import STARGCN
-from stargcn_tpu_torch.train.loop import GraphVariants
+from stargcn_tpu_torch.models.stargcn import STARGCN, feature_dims
+from stargcn_tpu_torch.train.loop import GraphVariants, graph_features
 from stargcn_tpu_torch.utils.device import resolve_device
 
 NEG_INF = np.float32(-3.4e38)
@@ -124,10 +124,12 @@ class ServingState:
         self.variants = variants if variants is not None else GraphVariants(
             model_cfg, data_iter, self.device)
         self.model = STARGCN(model_cfg,
-                             generator=torch.Generator().manual_seed(seed))
+                             generator=torch.Generator().manual_seed(seed),
+                             feature_dims=feature_dims(data_iter))
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         self.model.to(self.device)
+        self._features = graph_features(data_iter, model_cfg, self.device)
 
         train_ratings = data_iter.train_ratings
         self.rating_mean = float(train_ratings.mean())
@@ -136,12 +138,18 @@ class ServingState:
         self.rating_min = float(vals.min())
         self.rating_max = float(vals.max())
 
+    def features(self):
+        """``(user, item)`` raw feature tensors on the device, or ``(None,
+        None)`` without ``USE_FEA_PROJ``."""
+        return self._features
+
 
 def export_serving(state, segment: str = "test",
                    include_rated: bool = True) -> ServingArtifact:
     """Run the eval-mode encoder once and extract the scoring artifact:
     the segment's graph variant and the evaluation noise masking
-    (nodes unseen in training -> zero embedding).  ``state`` is a
+    (nodes unseen in training -> zero embedding), with the graph's raw
+    features where the model projects them.  ``state`` is a
     ``train.Trainer`` or a :class:`ServingState`."""
     it = state.data_iter
     dev = state.device
@@ -150,12 +158,14 @@ def export_serving(state, segment: str = "test",
     noise_u = torch.from_numpy(noise[it.name_user]).to(dev)
     noise_i = torch.from_numpy(noise[it.name_item]).to(dev)
     dummy = torch.zeros(1, dtype=torch.long, device=dev)
+    fu, fi = state.features()
     with torch.no_grad():
         out = state.model(noise_u, noise_i, dummy, dummy,
                           state.variants.degrees(seg),
                           state.variants.operands(
                               seg, state.model_cfg.backend),
-                          return_rating_feats=True)
+                          return_rating_feats=True, user_features=fu,
+                          item_features=fi)
         feats = out["rating_feats"]
         cfg = state.model_cfg
         U = feats["user"][:cfg.num_users].float().cpu().numpy()

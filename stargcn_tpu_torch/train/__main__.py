@@ -26,8 +26,11 @@ else takes the plain ``xla`` formulation::
 Full-graph training on the card draws its batches on the card
 (``TRAIN.DEVICE_SAMPLER``, see ``resolve_device_sampler``) unless
 ``--no_device_sampler`` is given.  In sampled mode ``--plan_device`` builds
-the plans on the device (with the ``xla`` backend) and ``--prefetch`` builds
-batches in a producer thread ahead of the step.
+the plans on the device (with the ``xla`` backend), ``--prefetch`` builds
+batches in a producer thread ahead of the step and ``--remat`` recomputes
+each level of the forward in the backward.  The model options of a YAML
+(``MODEL.USE_FEA_PROJ``, ``MODEL.USE_EMBED``, ``MODEL.COMPUTE_DTYPE``,
+``GCN.DROPOUT_PER_EDGE``, ``GCN.USE_RECURRENT``) run in both modes.
 
 Writes ``cfg{id}.yml``, ``log{id}.log``, ``train_loss{id}.csv``,
 ``valid_loss{id}.csv``, ``test_loss{id}.csv`` and the checkpoints
@@ -99,6 +102,10 @@ def main(argv=None):
                         help="sampled mode: build the plans on the device "
                              "(graph/device_sampling.py; fanout drawn with "
                              "replacement); needs the xla backend")
+    parser.add_argument("--remat", action="store_true",
+                        help="sampled mode: recompute each level of the "
+                             "forward in the backward instead of keeping "
+                             "its messages (less memory, same gradients)")
     parser.add_argument("--prefetch", action="store_true",
                         help="sampled mode: build batches in a producer "
                              "thread one ahead of the step")
@@ -157,7 +164,7 @@ def main(argv=None):
             model_cfg, data_iter, TrainSettings.from_cfg(cfg),
             fanout=fanout, save_dir=save_dir, save_id=save_id,
             backend=sampled_backend, device=args.device,
-            plan_device=args.plan_device)
+            plan_device=args.plan_device, remat=args.remat)
     else:
         trainer = Trainer(model_cfg, data_iter, TrainSettings.from_cfg(cfg),
                           save_dir=save_dir, save_id=save_id,

@@ -23,6 +23,11 @@ The port of ``stargcn_tpu/train/loop.py`` on the full-graph backends
   ``TRAIN.DEVICE_SAMPLER``, are drawn on the device from the train edges
   (``train_chunk_dev``), with no host array made or copied in a step.
 
+With ``MODEL.USE_FEA_PROJ`` the raw node features go to the device once
+(``graph_features``) and into every forward; with ``MODEL.COMPUTE_DTYPE``
+bf16 the model computes in bf16 while the parameters, the optimiser state
+and the loss stay float32.
+
 A step is eager PyTorch: forward, ``backward`` (on ``bitdense`` through
 ``ops.bitdense.bit_pool_rated``, whose backward is the
 ``bit_reduce_matmul`` kernel on the card; on ``dense`` and ``xla``
@@ -46,13 +51,39 @@ import numpy as np
 import torch
 
 from stargcn_tpu_torch.graph.device import BipartiteGraphData, EdgeSet
-from stargcn_tpu_torch.models.stargcn import STARGCN, STARGCNConfig
+from stargcn_tpu_torch.models.stargcn import (STARGCN, STARGCNConfig,
+                                              feature_dims)
 from stargcn_tpu_torch.ops.agg import build_dense_adjacency
 from stargcn_tpu_torch.ops.bitdense import (build_bit_pack,
                                            pack_row_interleave, resolve_impl)
 from stargcn_tpu_torch.train.prefetch import Prefetcher
 from stargcn_tpu_torch.utils.device import resolve_device
 from stargcn_tpu_torch.utils.logging import MetricLogger
+
+
+def graph_features(data_iter, model_cfg, device):
+    """``(user, item)``: the raw feature matrices of the data iterator's
+    graph (the JAX package's ``user`` / ``movie``) as float32 tensors on
+    ``device``, copied once; ``(None, None)`` unless the model projects
+    features."""
+    if not model_cfg.use_fea_proj:
+        return None, None
+    with torch.inference_mode(False):
+        dev = data_iter.all_graph.device_features(device)
+    return dev[data_iter.name_user], dev[data_iter.name_item]
+
+
+def check_feature_only_dae(model_cfg, use_dae):
+    """Refuse DAE reconstruction without embeddings: its target is the
+    embedding table, which feature-only input (``USE_EMBED: false``) does
+    not have.  The JAX package's trainers cannot train it either (its
+    full-graph step indexes the empty target, its sampled trainer refuses
+    it)."""
+    if use_dae and not model_cfg.use_embed:
+        raise NotImplementedError(
+            "DAE reconstruction needs embedding targets (MODEL.USE_EMBED); "
+            "feature-only input trains with MODEL.USE_DAE false and "
+            "MODEL.NBLOCKS 1")
 
 
 class _ByMask:
@@ -402,6 +433,7 @@ class Trainer:
             raise NotImplementedError(
                 "the device mesh comes with the slice that ports "
                 "parallel/mesh.py and parallel/shardings.py")
+        check_feature_only_dae(model_cfg, settings.use_dae)
         self.model_cfg = model_cfg
         self.data_iter = data_iter
         self.s = settings
@@ -409,6 +441,7 @@ class Trainer:
         self.save_id = save_id
         self.device = resolve_device(device)
         self.variants = GraphVariants(model_cfg, data_iter, self.device)
+        self._features = graph_features(data_iter, model_cfg, self.device)
         self.graph_data = self.variants.graph_data
         all_csr = self.variants.all_csr
 
@@ -446,7 +479,8 @@ class Trainer:
 
         self.model = STARGCN(
             model_cfg,
-            generator=torch.Generator().manual_seed(self.s.seed))
+            generator=torch.Generator().manual_seed(self.s.seed),
+            feature_dims=feature_dims(data_iter))
         self.model.to(self.device)
         # Dropout masks: one stream, on the model's device.
         self._dropout_gen = torch.Generator(device=self.device)
@@ -472,6 +506,16 @@ class Trainer:
         """Change the learning rate; the Adam moments stay."""
         self.lr = lr
         self.opt.lr = float(lr)
+
+    def features(self):
+        """``(user, item)`` raw feature tensors on the device, or ``(None,
+        None)`` without ``USE_FEA_PROJ``."""
+        return self._features
+
+    def _forward(self, *args, **kw):
+        """The model's forward with the trainer's features."""
+        fu, fi = self._features
+        return self.model(*args, user_features=fu, item_features=fi, **kw)
 
     def _operands(self, variant: str):
         """The model's aggregation operands of a graph variant."""
@@ -638,7 +682,7 @@ class Trainer:
                                    pairs_u, pairs_i, rem_hit, operands.mask))
         n_valid = pairs_valid.sum().clamp_min(1.0)
 
-        out = self.model(
+        out = self._forward(
             noise_u, noise_i, pairs_u, pairs_i,
             self.variants.degrees("train"), operands, removed_pairs,
             train=True, generator=self._dropout_gen)
@@ -678,9 +722,9 @@ class Trainer:
         the evaluation noise (unseen nodes -> zero embedding)."""
         seg_key = "valid" if segment == "valid" else "test"
         noise_u, noise_i = self._eval_noise
-        out = self.model(noise_u, noise_i, pu, pi,
-                         self.variants.degrees(seg_key),
-                         self._operands(seg_key), train=False)
+        out = self._forward(noise_u, noise_i, pu, pi,
+                            self.variants.degrees(seg_key),
+                            self._operands(seg_key), train=False)
         denorm = out["pred_ratings"] * self.rating_std + self.rating_mean
         return denorm.clamp(self.rating_min, self.rating_max)
 

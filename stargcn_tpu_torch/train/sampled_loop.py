@@ -21,7 +21,11 @@ producer thread one ahead of the step.  Evaluation samples neighborhoods
 with the SAME fanout as training, on the eval graph, with the cold-start
 eval noise, from host plans.
 
-Not ported here: the mesh, ``remat``, ``plan_split`` (the JAX package's
+With ``MODEL.USE_FEA_PROJ`` the raw node features go to the device once
+and each frontier's rows are projected inside the step; ``remat``
+recomputes each level in the backward instead of keeping its messages.
+
+Not ported here: the mesh, ``plan_split`` (the JAX package's
 workaround for its TPU runtime's program-load limit: planning and update
 are one step here anyway) and the ``net%d.txt`` model summary.
 """
@@ -45,8 +49,9 @@ from stargcn_tpu_torch.graph.sampling import BlockSampler, FrontierCapError
 from stargcn_tpu_torch.models.sampled import (StackedPlan, pack_tree,
                                               recon_losses, sampled_forward,
                                               unpack_tree)
-from stargcn_tpu_torch.models.stargcn import STARGCN
-from stargcn_tpu_torch.train.loop import (_STAT_NAMES, make_metric_loggers,
+from stargcn_tpu_torch.models.stargcn import STARGCN, feature_dims
+from stargcn_tpu_torch.train.loop import (_STAT_NAMES, graph_features,
+                                          make_metric_loggers,
                                           make_optimizer)
 from stargcn_tpu_torch.train.prefetch import Prefetcher
 from stargcn_tpu_torch.utils.device import resolve_device
@@ -102,6 +107,9 @@ class SampledTrainer:
         (``DevicePlanner``, fanout drawn with replacement); pairs with the
         ``xla`` backend.  ``plan_uniform(shape)`` gives its draws (by
         default from a generator seeded with the settings' seed).
+      remat: recompute each level of the sampled forward in the backward
+        (``sampled_forward(remat=True)``): less memory, the same loss and
+        gradients.
     """
 
     def __init__(self, model_cfg, data_iter, settings, *, fanout,
@@ -112,16 +120,15 @@ class SampledTrainer:
                  plan_device: bool = False, remat: bool = False):
         if fanout <= 0:
             raise ValueError("SampledTrainer needs a positive fanout")
-        unsupported = {
-            "the device mesh": mesh is not None,
-            "remat": remat,
-            "MODEL.USE_FEA_PROJ": model_cfg.use_fea_proj,
-        }
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
+        if mesh is not None:
             raise NotImplementedError(
-                f"not ported yet: {', '.join(bad)}; the sampled trainer "
-                "runs on one device")
+                "not ported yet: the device mesh; the sampled trainer runs "
+                "on one device")
+        if model_cfg.use_dae and not model_cfg.use_embed:
+            raise NotImplementedError(
+                "sampled DAE reconstruction needs embedding targets "
+                "(MODEL.USE_EMBED); feature-only input trains with "
+                "MODEL.USE_DAE false and MODEL.NBLOCKS 1")
         self.model_cfg = model_cfg
         self.data_iter = data_iter
         self.s = settings
@@ -131,6 +138,8 @@ class SampledTrainer:
         self.backend = backend
         self.names = (name_user, name_item)
         self.device = resolve_device(device)
+        self.remat = bool(remat)
+        self._fea = graph_features(data_iter, model_cfg, self.device)
 
         it = data_iter
         train_ratings = it.train_ratings
@@ -261,9 +270,11 @@ class SampledTrainer:
         """The full-graph module, initialised from the settings' seed as
         ``Trainer`` initialises it (the parameters depend only on the node
         and link counts, not on the full-graph backend), on the device."""
-        cfg = dataclasses.replace(self.model_cfg, backend="bitdense")
+        cfg = dataclasses.replace(self.model_cfg, backend="bitdense",
+                                  dropout_per_edge=False)
         model = STARGCN(
-            cfg, generator=torch.Generator().manual_seed(self.s.seed))
+            cfg, generator=torch.Generator().manual_seed(self.s.seed),
+            feature_dims=feature_dims(self.data_iter))
         return model.to(self.device)
 
     @property
@@ -737,7 +748,9 @@ def _sampled_outputs(trainer, feed, *, train, identity=None):
     return sampled_forward(
         trainer.model, trainer.model_cfg, feed["plan"], feed["noise_u"],
         feed["noise_i"], backend=backend, train=train,
-        generator=trainer._dropout_gen, identity_frontiers=identity)
+        generator=trainer._dropout_gen,
+        features=trainer._fea,
+        identity_frontiers=identity, remat=trainer.remat)
 
 
 def _loss_and_grads(trainer, feed, identity=None):

@@ -133,17 +133,29 @@ def test_seeded_init_follows_flax_scheme(pair_sum):
 
 
 def test_unported_paths_raise(pair_sum):
+    """The ``ell`` backend (and ``pallas``, a sampled-mode name) and
+    per-edge dropout off the flat edge arrays raise; the model options that
+    are ported build and run on ``bitdense`` (held against the JAX package
+    in ``tests/test_torch_model_options.py``); feature projection needs the
+    raw feature widths."""
     _, state = pair_sum
+    pu = torch.zeros(1, dtype=torch.long)
     for field, value in (("backend", "ell"), ("backend", "pallas"),
-                         ("compute_dtype", "bfloat16"),
-                         ("dropout_per_edge", True),
-                         ("use_fea_proj", True)):
+                         ("dropout_per_edge", True)):
         cfg = dataclasses.replace(state.model_cfg, **{field: value})
         with pytest.raises(NotImplementedError):
             model = STARGCN(cfg)
-            pu = torch.zeros(1, dtype=torch.long)
             model(None, None, pu, pu, state.variants.degrees("test"),
                   state.variants.bit_pack("test"))
+    bf16 = dataclasses.replace(state.model_cfg, compute_dtype="bfloat16")
+    out = STARGCN(bf16)(None, None, pu, pu, state.variants.degrees("test"),
+                        state.variants.bit_pack("test"))
+    assert out["pred_ratings"].dtype == torch.float32
+    fea = dataclasses.replace(state.model_cfg, use_fea_proj=True)
+    with pytest.raises(ValueError, match="feature_dims"):
+        STARGCN(fea)
+    with pytest.raises(ValueError, match="unknown compute dtype"):
+        STARGCN(dataclasses.replace(state.model_cfg, compute_dtype="int8"))
 
 
 @pytest.mark.parametrize("field,value,match", [
@@ -152,10 +164,13 @@ def test_unported_paths_raise(pair_sum):
 ])
 def test_ell_and_per_edge_dropout_still_refused(pair_sum, field, value,
                                                 match):
-    """The ``dense`` and ``xla`` backends build; the ``ell`` backend and
-    ``GCN.DROPOUT_PER_EDGE`` are still refused, by name."""
+    """The ``dense`` and ``xla`` backends build, and ``xla`` with
+    ``GCN.DROPOUT_PER_EDGE``; the ``ell`` backend and per-edge dropout on
+    ``bitdense`` are still refused, by name."""
     _, state = pair_sum
     for backend in ("dense", "xla"):
         STARGCN(dataclasses.replace(state.model_cfg, backend=backend))
+    STARGCN(dataclasses.replace(state.model_cfg, backend="xla",
+                                dropout_per_edge=True))
     with pytest.raises(NotImplementedError, match=match):
         STARGCN(dataclasses.replace(state.model_cfg, **{field: value}))

@@ -283,13 +283,14 @@ def test_refuses_what_is_not_ported(setup):
     _, tplan = build_plans(setup, 4, None, False)
     cfg = sampled_cfgs()[1]
     model = STARGCN(cfg)
-    for kw, word in ((dict(remat=True), "remat"),
-                     (dict(row_sharding=object()), "row_sharding")):
-        with pytest.raises(NotImplementedError, match=word):
-            tsm.sampled_forward(model, cfg, tplan, noise_u, noise_i, **kw)
-    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="COMPUTE_DTYPE"):
-        tsm.sampled_forward(model, bf16, tplan, noise_u, noise_i)
+    with pytest.raises(NotImplementedError, match="row_sharding"):
+        tsm.sampled_forward(model, cfg, tplan, noise_u, noise_i,
+                            row_sharding=object())
+    # remat and bf16 are ported (tests/test_torch_sampled_options.py);
+    # feature projection needs the features.
+    fea = dataclasses.replace(cfg, use_fea_proj=True)
+    with pytest.raises(ValueError, match="features"):
+        tsm.sampled_forward(model, fea, tplan, noise_u, noise_i)
     with pytest.raises(ValueError, match="backend"):
         tsm.sampled_forward(model, cfg, tplan, noise_u, noise_i,
                             backend="ell")

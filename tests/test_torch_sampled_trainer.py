@@ -10,6 +10,7 @@ where a gradient is near zero.
 """
 
 import csv
+import dataclasses
 import logging
 
 import jax
@@ -301,10 +302,17 @@ def test_refuses_what_is_not_ported():
     cfg = sampled_cfgs()[1]
     for kw, word in ((dict(mesh=object()), "mesh"),
                      (dict(plan_device=True, backend="pallas"),
-                      "plan_device"),
-                     (dict(remat=True), "remat")):
+                      "plan_device")):
         with pytest.raises(NotImplementedError, match=word):
             SampledTrainer(cfg, it, s, fanout=4, device="cpu", **kw)
+    # remat is ported (tests/test_torch_sampled_options.py); feature-only
+    # input with DAE reconstruction is refused, as the JAX package does.
+    assert SampledTrainer(cfg, it, s, fanout=4, device="cpu",
+                          remat=True).remat
+    feature_only = dataclasses.replace(cfg, use_embed=False,
+                                       use_fea_proj=True)
+    with pytest.raises(NotImplementedError, match="USE_EMBED"):
+        SampledTrainer(feature_only, it, s, fanout=4, device="cpu")
     with pytest.raises(ValueError, match="fanout"):
         SampledTrainer(cfg, it, s, fanout=-1, device="cpu")
     if not torch.cuda.is_available():
