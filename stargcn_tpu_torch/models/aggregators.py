@@ -1,15 +1,16 @@
 """Per-rating-level GCN aggregators.
 
 The port of ``MultiLinkGCNAggregator`` and ``GCNAggregator`` from
-``stargcn_tpu/models/aggregators.py``, on the ``bitdense``, ``dense`` and
-``xla`` backends:
+``stargcn_tpu/models/aggregators.py``, on the ``bitdense``, ``ell``,
+``dense`` and ``xla`` backends:
 
 * 'stack' accumulation splits ``units`` across links (``units //
   num_links`` each, concatenated); 'sum' gives every link ``units`` and
   adds;
 * optional ordinal weight sharing ``W_i = sum_{j<=i} w_j``;
 * the per-link bias rides through the degree-normalised pooling (on a
-  ones column on ``bitdense``; through the projection elsewhere);
+  ones column on ``bitdense`` and ``ell``, which aggregate the raw
+  features and project after; through the projection elsewhere);
 * in training, dropout falls on the source features before the
   projection, so the bias is never dropped; with ``dropout_per_edge``
   (``GCN.DROPOUT_PER_EDGE``, the reference's granularity) it falls on each
@@ -43,6 +44,7 @@ from stargcn_tpu_torch.ops.agg import (
 )
 from stargcn_tpu_torch.ops.gather import take_rows
 from stargcn_tpu_torch.ops.bitdense import bit_multi_link_aggregate
+from stargcn_tpu_torch.ops.chunked_ell import ell_multi_link_aggregate
 
 
 class MultiLinkGCNAggregator(nn.Module):
@@ -98,6 +100,10 @@ class MultiLinkGCNAggregator(nn.Module):
             return act(bit_multi_link_aggregate(
                 x, rel.bit_static, weight, bias,
                 ordinal_sharing=self.ordinal_sharing, accum=self.accum))
+        if rel.ell_static is not None:
+            return act(ell_multi_link_aggregate(
+                x, rel.ell_static, weight, bias,
+                ordinal_sharing=self.ordinal_sharing, accum=self.accum))
         proj = multi_link_project(x, weight, bias,
                                   ordinal_sharing=self.ordinal_sharing)
         if rel.dense_static is not None:
@@ -133,7 +139,8 @@ class MultiLinkGCNAggregator(nn.Module):
         equals the per-node aggregation.  The edges go through in one
         piece, as in the JAX package: its ``(E, F + 1)`` float32 messages
         (2.6 GB at ML-10M with F = 64) are what this mode costs."""
-        if rel.bit_static is not None or rel.dense_static is not None:
+        if (rel.bit_static is not None or rel.dense_static is not None
+                or rel.ell_static is not None):
             raise ValueError("GCN.DROPOUT_PER_EDGE reads the flat edge "
                              "arrays (the xla backend)")
         R = self.weight.shape[0]

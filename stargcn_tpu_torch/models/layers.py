@@ -5,8 +5,8 @@ The port of ``stargcn_tpu/models/layers.py``: a layer aggregates each
 across relations, and applies a per-type output Dense + activation.  A
 ``Relation`` carries what the aggregation reads, whichever backend filled
 it: edge arrays and a per-edge support (``xla``), a dense support
-(``dense`` without an adjacency), a ``DenseStatic`` (``dense``) or a
-``BitStatic`` (``bitdense``).
+(``dense`` without an adjacency), a ``DenseStatic`` (``dense``), a
+``BitStatic`` (``bitdense``) or an ``EllStatic`` (``ell``).
 Module names match the flax tree (``agg_{t}_{s}``, ``out_fc_{t}``,
 ``l{i}``), so ``convert.params_from_flax`` maps parameters one to one.
 """
@@ -41,6 +41,32 @@ class DenseStatic:
 
 
 @dataclasses.dataclass(frozen=True)
+class EllStatic:
+    """Chunked-ELL aggregation operands for one direction (see
+    ``ops.chunked_ell``): the variant's static index arrays for the
+    forward (``f_*``, rows = dst nodes) and the transpose (``b_*``, rows =
+    src nodes, read by the backward), the separable degree-scale vectors,
+    and the optional arrays of the batch edges removed from this step's
+    graph.  ``chunk`` is ``KERNEL.ELL_CHUNK``, ``bf16``
+    ``KERNEL.ELL_BF16``."""
+
+    f_idx: torch.Tensor                 # (V, K) int32, pad -> num_src
+    f_rat: torch.Tensor                 # (V, K) int32
+    f_row: torch.Tensor                 # (V,) int32 sorted dst rows
+    b_idx: torch.Tensor                 # (V', K) transpose arrays
+    b_rat: torch.Tensor
+    b_row: torch.Tensor
+    dst_scale: torch.Tensor             # (num_dst,)
+    src_scale: torch.Tensor             # (num_src,)
+    rem_src: Optional[torch.Tensor] = None     # (B,) removed edges
+    rem_dst: Optional[torch.Tensor] = None
+    rem_rating: Optional[torch.Tensor] = None
+    rem_weight: Optional[torch.Tensor] = None
+    chunk: Optional[int] = None
+    bf16: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class BitStatic:
     """Bit-packed dense aggregation operands for one direction (see
     ``ops.bitdense``): this direction's 1-bit multi-link adjacency
@@ -69,8 +95,8 @@ class Relation:
     target type's; ``support`` carries mask x degree normalisation (0 on
     removed and padded edges).  ``dense_support`` is a prebuilt ``(R,
     num_dst, num_src)`` support, or ``(R, num_src, num_dst)`` with
-    ``dense_transposed``.  Where ``dense_static`` or ``bit_static`` is
-    set, the aggregation reads only that.
+    ``dense_transposed``.  Where ``dense_static``, ``bit_static`` or
+    ``ell_static`` is set, the aggregation reads only that.
     """
 
     num_links: int
@@ -82,6 +108,7 @@ class Relation:
     dense_transposed: bool = False
     dense_static: Optional[DenseStatic] = None
     bit_static: Optional[BitStatic] = None
+    ell_static: Optional[EllStatic] = None
 
 
 class HeterGCNLayer(nn.Module):

@@ -1,14 +1,15 @@
 """STAR-GCN: stacked & reconstructed GCN for rating prediction (PyTorch).
 
 The port of ``stargcn_tpu/models/stargcn.py`` on the full-graph backends
-``bitdense``, ``dense`` and ``xla``: embeddings with noise masking -> per
-block [encoder -> rating head -> decoder].  Each backend aggregates
-through its own operands, which ``train.loop.GraphVariants`` builds per
-graph variant: the static bit packs (``bitdense``), the static 0/1 dense
-adjacency (``dense``), or the edge arrays under an edge mask (``xla``).
-In training the batch's own edges leave the graph: as a batch-sized
-correction of the degrees and of the static operands (``bitdense``,
-``dense``), or through the step's edge mask (``xla``).  Dropout draws from
+``bitdense``, ``ell``, ``dense`` and ``xla``: embeddings with noise
+masking -> per block [encoder -> rating head -> decoder].  Each backend
+aggregates through its own operands, which ``train.loop.GraphVariants``
+builds per graph variant: the static bit packs (``bitdense``), the static
+chunked-ELL packs (``ell``), the static 0/1 dense adjacency (``dense``),
+or the edge arrays under an edge mask (``xla``).  In training the batch's
+own edges leave the graph: as a batch-sized correction of the degrees and
+of the static operands (``bitdense``, ``ell``, ``dense``), or through the
+step's edge mask (``xla``).  Dropout draws from
 the caller's generator.  Module names match the flax tree
 (``embed_user``, ``enc_b{p}``, ``rating_user_proj_b{p}``,
 ``embed_map_b{p}_{key}_l{0,1}``), so ``convert.params_from_flax`` maps
@@ -45,6 +46,7 @@ from stargcn_tpu_torch.models.common import (compute_dtype, dense,
 from stargcn_tpu_torch.models.layers import (
     BitStatic,
     DenseStatic,
+    EllStatic,
     InnerProductLayer,
     Relation,
     StackedHeterGCNLayers,
@@ -57,7 +59,7 @@ from stargcn_tpu_torch.ops.agg import (
 from stargcn_tpu_torch.ops.bitdense import pack_row_interleave, resolve_impl
 from stargcn_tpu_torch.ops.gather import onehot_segment_sum, take_rows
 
-BACKENDS = ("bitdense", "dense", "xla")
+BACKENDS = ("bitdense", "ell", "dense", "xla")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +93,11 @@ class STARGCNConfig:
     # xla backend: edges per chunk of the aggregation's gather/scatter
     # (bounds its (E, units) message buffer on big graphs); None = all.
     edge_chunk: Optional[int] = None
+    # ell backend: slots per virtual row, virtual rows per gather, bf16
+    # gathers (KERNEL.ELL_K, ELL_CHUNK, ELL_BF16).
+    ell_k: int = 64
+    ell_chunk: Optional[int] = 16384
+    ell_bf16: bool = False
     bit_impl: str = "auto"
     dropout_per_edge: bool = False
     compute_dtype: str = "float32"
@@ -106,9 +113,8 @@ class STARGCNConfig:
 def _check_supported(cfg: STARGCNConfig):
     if cfg.backend not in BACKENDS:
         raise NotImplementedError(
-            f"backend {cfg.backend!r} is not ported yet (ported: "
-            f"{', '.join(BACKENDS)}): the ell backend comes with the slice "
-            "that ports ops/chunked_ell.py")
+            f"unknown full-graph backend {cfg.backend!r} (ported: "
+            f"{', '.join(BACKENDS)})")
     if cfg.dropout_per_edge and cfg.backend != "xla":
         raise NotImplementedError(
             "GCN.DROPOUT_PER_EDGE runs on the flat edge arrays of the xla "
@@ -237,17 +243,20 @@ class STARGCN(nn.Module):
             the embedding to zero, else the node's own id), or ``None``.
           pairs_user / pairs_item: ``(B,)`` rating-pair node indices.
           variant_degrees: ``(deg_user, deg_item)`` float degree vectors
-            of the variant, read by ``bitdense`` and by ``dense`` with an
-            adjacency; elsewhere the degrees come from the edge mask.
+            of the variant, read by ``bitdense``, ``ell`` and by ``dense``
+            with an adjacency; elsewhere the degrees come from the edge
+            mask.
           operands: what the backend aggregates through
             (``train.loop.GraphVariants.operands``): the variant's
             ``ops.bitdense.build_bit_pack`` dict (``bitdense``); its
+            ``ops.chunked_ell.build_ell_pack`` dict (``ell``); its
             ``(R, Nu, Ni)`` 0/1 adjacency (``dense``); or a
             ``graph.device.EdgeSet`` of the edge arrays and the step's
             edge mask (``xla``, and ``dense`` without an adjacency, which
             then scatters a dense support every call).
           removed_pairs: the batch edges to take out of the graph for this
-            step, read by ``bitdense`` and by ``dense`` with an adjacency:
+            step, read by ``bitdense``, ``ell`` and by ``dense`` with an
+            adjacency:
             ``(pu, pi, hit, rating)`` from the host lookup (int64 node ids
             and rating levels, ``hit`` float, 1 where the pair is an edge
             of the variant), or ``(pu, pi, valid)``, looked up on the
@@ -276,6 +285,9 @@ class STARGCN(nn.Module):
         if edges is not None and cfg.backend == "bitdense":
             raise ValueError("the bitdense backend reads a bit pack, not "
                              "an EdgeSet")
+        if edges is not None and cfg.backend == "ell":
+            raise ValueError("the ell backend reads its chunked-ELL packs, "
+                             "not an EdgeSet")
         if edges is None and cfg.backend == "xla":
             raise ValueError("the xla backend reads an EdgeSet (the edge "
                              "arrays and the step's edge mask)")
@@ -298,6 +310,14 @@ class STARGCN(nn.Module):
                                                bit_static=static_u),
                     ("item", "user"): Relation(cfg.num_links,
                                                bit_static=static_i)}
+            elif cfg.backend == "ell":
+                static_u, static_i = _build_ell_static_operands(
+                    cfg, operands, deg_u, deg_i, removed)
+                relations = {
+                    ("user", "item"): Relation(cfg.num_links,
+                                               ell_static=static_u),
+                    ("item", "user"): Relation(cfg.num_links,
+                                               ell_static=static_i)}
             else:
                 static_u, static_i = _build_dense_static_operands(
                     cfg, operands, deg_u, deg_i, removed)
@@ -493,6 +513,32 @@ def _build_bit_static_operands(cfg, bit_pack, deg_u, deg_i,
     return make("user"), make("item")
 
 
+def _build_ell_static_operands(cfg, ell_pack, deg_u, deg_i,
+                               removed_info=None):
+    """``EllStatic`` operands for both aggregation directions.
+    ``ell_pack`` holds each direction's arrays (dst = that type); a
+    direction's backward arrays are the other direction's forward ones
+    (the same edges seen from the other side).  ``removed_info``:
+    optional ``(pu, pi, hit, rating)`` removed-edge arrays."""
+    scales = _norm_scales(cfg, deg_u, deg_i)
+    rem = {"user": (None,) * 4, "item": (None,) * 4}
+    if removed_info is not None:
+        pu, pi, hit, r = removed_info
+        rem = {"user": (pi, pu, r, hit), "item": (pu, pi, r, hit)}
+
+    def make(t, other):
+        p, q = ell_pack[t], ell_pack[other]
+        rs, rd, rr, rw = rem[t]
+        return EllStatic(
+            f_idx=p["idx"], f_rat=p["rat"], f_row=p["row"],
+            b_idx=q["idx"], b_rat=q["rat"], b_row=q["row"],
+            dst_scale=scales[t][0], src_scale=scales[t][1],
+            rem_src=rs, rem_dst=rd, rem_rating=rr, rem_weight=rw,
+            chunk=cfg.ell_chunk, bf16=cfg.ell_bf16)
+
+    return make("user", "item"), make("item", "user")
+
+
 def feature_dims(data_iter):
     """``(user, item)`` raw feature widths of a data iterator's graph."""
     f = data_iter.all_graph.features
@@ -582,6 +628,9 @@ def build_model_config(cfg, num_users, num_items, num_links,
         edge_chunk=resolve_edge_chunk(
             backend, num_edges, tuple(cfg.GCN.AGG.UNITS),
             budget_mb=cfg.KERNEL.get("XLA_MSG_BUDGET_MB", 1500)),
+        ell_k=cfg.KERNEL.get("ELL_K", 64),
+        ell_chunk=cfg.KERNEL.get("ELL_CHUNK", 16384),
+        ell_bf16=cfg.KERNEL.get("ELL_BF16", False),
         bit_impl=cfg.KERNEL.get("BIT_IMPL", "auto"),
         dropout_per_edge=dropout_per_edge,
         self_noise_only=cfg.MODEL.get("SELF_NOISE_ONLY", True),

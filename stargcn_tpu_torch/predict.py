@@ -16,6 +16,12 @@ inductive config masks its held-out nodes as evaluation does)::
         --cfg configs/inductive_ml_1m_item_10.yml --data_root datasets \\
         --resume runs/ckpt_best_0.pt --pairs 1:10,2:33
 
+HR@10 / NDCG@10 against 100 sampled non-edges per held-out positive
+(``ranking.py``; it needs the dataset, not an artifact)::
+
+    python -m stargcn_tpu_torch.predict --cfg configs/transductive_ml_1m.yml \\
+        --dataset synthetic --resume runs/ckpt_best_0.pt --rank_eval
+
 Artifact-only serving (an ``.npz`` written by either package)::
 
     python -m stargcn_tpu_torch.predict --artifact art.npz --pairs 1:10,2:33
@@ -127,7 +133,7 @@ def main(argv=None):
                         help="write the exported artifact to this path")
     parser.add_argument("--backend", default=None, type=str,
                         help="full-graph aggregation backend: auto | dense "
-                             "| xla | bitdense (pallas reads as xla)")
+                             "| xla | bitdense | ell (pallas reads as xla)")
     parser.add_argument("--device", default="cuda", type=str,
                         help="cuda (default) or cpu")
     parser.add_argument("--users", default=None, type=str,
@@ -138,11 +144,14 @@ def main(argv=None):
     parser.add_argument("--pairs", default=None, type=str,
                         help="comma list of user:item pairs to score")
     parser.add_argument("--rank_eval", action="store_true",
-                        help="HR@K/NDCG@K (not ported yet)")
+                        help="compute HR@K/NDCG@K over the chosen segment "
+                             "(needs the dataset; see "
+                             "stargcn_tpu_torch/ranking.py)")
+    parser.add_argument("--rank_k", default=10, type=int)
+    parser.add_argument("--rank_negatives", default=100, type=int)
+    parser.add_argument("--rank_max_positives", default=None, type=int,
+                        help="subsample the segment's positives (fixed seed)")
     args = parser.parse_args(argv)
-    if args.rank_eval:
-        parser.error("--rank_eval is not ported yet: it comes with the "
-                     "port of ranking.py")
     logging.basicConfig(level=logging.INFO)
 
     from stargcn_tpu_torch.serve import (
@@ -152,8 +161,13 @@ def main(argv=None):
         export_serving,
     )
 
+    data_iter = None
     if args.artifact:
         art = ServingArtifact.load(args.artifact)
+        if args.rank_eval:
+            parser.error("--rank_eval needs the dataset (--cfg/--dataset), "
+                         "not --artifact: negatives must be drawn from the "
+                         "evaluation graph")
     else:
         from stargcn_tpu_torch.utils import cfg_from_file, default_cfg
 
@@ -183,6 +197,15 @@ def main(argv=None):
         if args.save_artifact:
             art.save(args.save_artifact)
             logging.info("artifact written to %s", args.save_artifact)
+
+    if args.rank_eval:
+        from stargcn_tpu_torch.ranking import rank_eval_from_iterator
+
+        out = rank_eval_from_iterator(
+            art, data_iter, segment=args.segment,
+            num_negatives=args.rank_negatives, k=args.rank_k,
+            max_positives=args.rank_max_positives, device=args.device)
+        print(json.dumps({"mode": "rank_eval", **out}))
 
     pred = Predictor(art, device=args.device)
     if args.pairs:

@@ -103,8 +103,8 @@ class ServingState:
     optimiser and the training tables.
 
     Args:
-      model_cfg: a ``STARGCNConfig`` on the ``bitdense``, ``dense`` or
-        ``xla`` backend.
+      model_cfg: a ``STARGCNConfig`` on the ``bitdense``, ``ell``,
+        ``dense`` or ``xla`` backend.
       data_iter: the ``DataIterator`` over the rating graph.
       device: where the model and its operands live (default the card).
       seed: seeds the ``torch.Generator`` that initialises the parameters

@@ -1,8 +1,9 @@
 """STAR-GCN training CLI (PyTorch).  The port of ``experiments/train.py``
-for full-graph training on the ``dense``, ``xla`` and ``bitdense``
-backends (``--backend auto``, the config's default, picks ``dense`` for
-graphs of at most 150M rating x user x item entries, such as ML-1M and the
-default synthetic graph, and ``bitdense`` beyond)::
+for full-graph training on the ``dense``, ``xla``, ``bitdense`` and
+``ell`` backends (``--backend auto``, the config's default, picks
+``dense`` for graphs of at most 150M rating x user x item entries, such as
+ML-1M and the default synthetic graph, and ``bitdense`` beyond; ``ell``,
+the chunked-ELL sparse backend, only by name)::
 
     python -m stargcn_tpu_torch.train --cfg configs/transductive_ml_1m.yml \\
         --dataset synthetic --save_dir runs --max_iter 200
@@ -84,8 +85,8 @@ def main(argv=None):
     parser.add_argument("--max_iter", default=None, type=int)
     parser.add_argument("--backend", default=None, type=str,
                         help="full-graph aggregation backend: auto | "
-                             "dense | xla | bitdense (pallas reads as xla); "
-                             "in sampled mode pallas | xla | auto")
+                             "dense | xla | bitdense | ell (pallas reads as "
+                             "xla); in sampled mode pallas | xla | auto")
     parser.add_argument("--num_neighbors", default=None, type=int,
                         help="sampled mini-batch mode with this fanout "
                              "(GRAPH_SAMPLER.NUM_NEIGHBORS)")

@@ -1,18 +1,20 @@
 """Full-graph training/evaluation engine for STAR-GCN (PyTorch).
 
 The port of ``stargcn_tpu/train/loop.py`` on the full-graph backends
-``bitdense``, ``dense`` and ``xla``:
+``bitdense``, ``ell``, ``dense`` and ``xla``:
 
 * graph variants (train/valid/test) are edge masks over one static edge
   array (inductively the train and valid variants also lack the held-out
   nodes' edges, and at evaluation those nodes keep a zero embedding); their
-  degrees, and the bit packs (``bitdense``) or 0/1 dense adjacencies
-  (``dense``), are built once (``GraphVariants``), the static operands on
-  first use and shared between variants with identical masks;
+  degrees, and the bit packs (``bitdense``), chunked-ELL packs (``ell``)
+  or 0/1 dense adjacencies (``dense``), are built once (``GraphVariants``),
+  the static operands on first use and shared between variants with
+  identical masks;
 * per-iteration batch-edge removal (``REMOVE_RATING``) is a host lookup of
   the batch pairs plus a batch-sized correction inside the model
-  (``bitdense``, ``dense``), or the variant's mask with the batch's edges
-  zeroed on the device by ``edge_mask_from_pairs`` (``xla``);
+  (``bitdense``, ``ell``, ``dense``), or the variant's mask with the
+  batch's edges zeroed on the device by ``edge_mask_from_pairs``
+  (``xla``);
 * loss = sum over blocks of 0.5 * mean (pred - (r - mean) / std)^2 +
   RECON_LAMBDA * sum over blocks/types of mean-over-masked-nodes
   ||e_hat - e||^2;
@@ -30,8 +32,10 @@ and the loss stay float32.
 
 A step is eager PyTorch: forward, ``backward`` (on ``bitdense`` through
 ``ops.bitdense.bit_pool_rated``, whose backward is the
-``bit_reduce_matmul`` kernel on the card; on ``dense`` and ``xla``
-through cuBLAS products and ``index_add_``), clip, Adam.  ``index_add_``
+``bit_reduce_matmul`` kernel on the card; on ``ell`` through
+``ops.chunked_ell.ell_pool_rated``, whose backward pools over the
+transpose packs; on ``dense`` and ``xla`` through cuBLAS products and
+``index_add_``), clip, Adam.  ``index_add_``
 and the gradient of a row gather use atomics on the card, so a step is not
 bit-reproducible from run to run there, although both bit kernels are.
 """
@@ -56,9 +60,13 @@ from stargcn_tpu_torch.models.stargcn import (STARGCN, STARGCNConfig,
 from stargcn_tpu_torch.ops.agg import build_dense_adjacency
 from stargcn_tpu_torch.ops.bitdense import (build_bit_pack,
                                            pack_row_interleave, resolve_impl)
+from stargcn_tpu_torch.ops.chunked_ell import build_ell_pack
 from stargcn_tpu_torch.train.prefetch import Prefetcher
+from stargcn_tpu_torch.train.resilience import (ElasticPolicy, ElasticStep,
+                                                HeartbeatMonitor)
 from stargcn_tpu_torch.utils.device import resolve_device
 from stargcn_tpu_torch.utils.logging import MetricLogger
+from stargcn_tpu_torch.utils.model_info import model_info
 
 
 def graph_features(data_iter, model_cfg, device):
@@ -121,7 +129,8 @@ class GraphVariants:
     """The static operands of the three graph variants of one rating
     graph, on ``device``: the padded edge arrays, and per variant
     (``'test'``, ``'valid'``, ``'train'``) its edge mask, degree vectors,
-    and bit packs or dense adjacencies, each built on first use.
+    and bit packs, chunked-ELL packs or dense adjacencies, each built on
+    first use.
     ``Trainer`` and ``serve.ServingState`` read them from here."""
 
     def __init__(self, model_cfg, data_iter, device):
@@ -137,6 +146,7 @@ class GraphVariants:
         self._masks, self._degrees, self._device_masks = {}, {}, {}
         pad = self._edges[3]
         self._packs = _ByMask(pad, self._build_pack)
+        self._ell_packs = _ByMask(pad, self._build_ell_pack)
         self._adjs = {dtype: _ByMask(pad, functools.partial(
             self._build_adj, dtype=dtype))
             for dtype in (torch.bfloat16, torch.float32)}
@@ -149,6 +159,12 @@ class GraphVariants:
         ril = pack_row_interleave(resolve_impl(cfg.bit_impl))
         return build_bit_pack(eu, ei, er, mask, cfg.num_users, cfg.num_items,
                               cfg.num_links, self.device, row_interleave=ril)
+
+    def _build_ell_pack(self, mask):
+        cfg = self.model_cfg
+        eu, ei, er, _ = self._edges
+        return build_ell_pack(eu, ei, er, mask, cfg.num_users, cfg.num_items,
+                              K=cfg.ell_k, device=self.device)
 
     def _build_adj(self, mask, dtype):
         g, cfg = self.graph_data, self.model_cfg
@@ -195,6 +211,11 @@ class GraphVariants:
         """The variant's bit packs on the device, built on first use."""
         return self._packs.get(variant, self.edge_mask(variant))
 
+    def ell_pack(self, variant: str):
+        """The variant's chunked-ELL packs on the device (both directions,
+        ``ops.chunked_ell.build_ell_pack``), built on first use."""
+        return self._ell_packs.get(variant, self.edge_mask(variant))
+
     def dense_adj(self, variant: str, dtype=torch.bfloat16):
         """The variant's ``(R, Nu, Ni)`` 0/1 adjacency on the device in
         ``dtype`` (bf16 or float32), built on first use."""
@@ -210,10 +231,13 @@ class GraphVariants:
 
     def operands(self, variant: str, backend: str):
         """What ``STARGCN.forward`` aggregates through on ``backend``: the
-        bit packs (``bitdense``), the bf16 dense adjacency (``dense``) or
-        the edge arrays under the variant's mask (``xla``)."""
+        bit packs (``bitdense``), the chunked-ELL packs (``ell``), the bf16
+        dense adjacency (``dense``) or the edge arrays under the variant's
+        mask (``xla``)."""
         if backend == "bitdense":
             return self.bit_pack(variant)
+        if backend == "ell":
+            return self.ell_pack(variant)
         if backend == "dense":
             return self.dense_adj(variant)
         if backend == "xla":
@@ -244,6 +268,11 @@ class TrainSettings:
     scan_steps: int = 1
     max_nan_recoveries: int = 3
     device_sampler: bool = False
+    # Failure detection (train/resilience.py): seconds without a step
+    # before the heartbeat monitor dumps the stacks (0 = no monitor), and
+    # the restarts a failed step gets.
+    hang_timeout_s: float = 900.0
+    max_restarts: int = 2
 
     @staticmethod
     def from_cfg(cfg):
@@ -266,6 +295,8 @@ class TrainSettings:
             scan_steps=cfg.TRAIN.get("SCAN_STEPS", 1),
             max_nan_recoveries=cfg.TRAIN.get("MAX_NAN_RECOVERIES", 3),
             device_sampler=cfg.TRAIN.get("DEVICE_SAMPLER", False),
+            hang_timeout_s=cfg.TRAIN.get("HANG_TIMEOUT_S", 900.0),
+            max_restarts=cfg.TRAIN.get("MAX_RESTARTS", 2),
         )
 
 
@@ -417,8 +448,8 @@ class Trainer:
     """Owns the model, its optimiser and the host-side schedule.
 
     Args:
-      model_cfg: a ``STARGCNConfig`` on the ``bitdense``, ``dense`` or
-        ``xla`` backend.
+      model_cfg: a ``STARGCNConfig`` on the ``bitdense``, ``ell``,
+        ``dense`` or ``xla`` backend.
       data_iter: the ``DataIterator`` over the rating graph.
       settings: ``TrainSettings``.
       save_dir / save_id: where the CSVs and checkpoints go (none without
@@ -501,6 +532,7 @@ class Trainer:
             float(data_iter.embed_P_mask.get(k, 0.0)) for k in names)
         self._dev_pzero = tuple(
             float(data_iter._embed_p_zero.get(k, 0.0)) for k in names)
+        self.elastic = None        # the last fit's ElasticStep
 
     def set_lr(self, lr: float):
         """Change the learning rate; the Adam moments stay."""
@@ -782,7 +814,16 @@ class Trainer:
         (``train_chunk_dev``).  Otherwise, with ``SCAN_STEPS`` > 1, a
         producer thread draws each chunk's batches and runs their host
         pair lookup (``_prep_host_arrays``) one to two chunks ahead of the
-        step; it stops when ``fit`` returns or raises."""
+        step; it stops when ``fit`` returns or raises.
+
+        Failure handling (``train/resilience.py``): every step call goes
+        through an ``ElasticStep`` (``self.elastic``), which retries a step
+        that raised after restoring ``ckpt_last`` (else ``ckpt_best``), at
+        most ``TRAIN.MAX_RESTARTS`` times; with ``TRAIN.HANG_TIMEOUT_S`` >
+        0 a ``HeartbeatMonitor`` thread dumps every thread's stack to the
+        log and to ``crash_{save_id}.log`` when no step ends for that long.
+        With a ``save_dir`` the parameter table goes to
+        ``net{save_id}.txt``."""
         s = self.s
         it = self.data_iter
         max_iter = max_iter or s.max_iter
@@ -790,9 +831,25 @@ class Trainer:
                                            segment="train")
         recon_sampler = (it.recon_nodes_sampler(
             batch_size=s.recon_batch_size) if s.use_dae else None)
+        if self.save_dir is not None:
+            # net%d.txt architecture dump (reference gluon_net_info).
+            model_info(self.model.state_dict(), os.path.join(
+                self.save_dir, f"net{self.save_id}.txt"))
         loggers = make_metric_loggers(self.save_dir, self.save_id,
                                       self.model_cfg.nblocks)
         nb = self.model_cfg.nblocks
+        # Stall diagnosis and bounded restart of failed steps.
+        monitor = None
+        if s.hang_timeout_s and s.hang_timeout_s > 0:
+            crash_file = (os.path.join(self.save_dir,
+                                       f"crash_{self.save_id}.log")
+                          if self.save_dir else None)
+            monitor = HeartbeatMonitor(s.hang_timeout_s, log=log,
+                                       crash_file=crash_file,
+                                       device=self.device).start()
+        self.elastic = ElasticStep(
+            ElasticPolicy(max_restarts=s.max_restarts),
+            on_restore=self._elastic_restore, log=log, device=self.device)
         # Steps per train_chunk call, when the cadence allows.
         k = s.scan_steps if (s.scan_steps > 1
                              and s.log_interval % s.scan_steps == 0
@@ -818,13 +875,17 @@ class Trainer:
                     sum(rb[1].size for rb, _ in chunk))
 
         use_dev = s.device_sampler
-        with contextlib.ExitStack() as stack:
-            if k > 1 and not use_dev:
-                next_chunk = stack.enter_context(
-                    Prefetcher(next_chunk, max_iter // k)).get
-            result = self._fit_loop(
-                max_iter, k, use_dev, next_batches, next_chunk, loggers,
-                log)
+        try:
+            with contextlib.ExitStack() as stack:
+                if k > 1 and not use_dev:
+                    next_chunk = stack.enter_context(
+                        Prefetcher(next_chunk, max_iter // k)).get
+                result = self._fit_loop(
+                    max_iter, k, use_dev, next_batches, next_chunk, loggers,
+                    log, monitor)
+        finally:
+            if monitor is not None:
+                monitor.stop()
         for lg in loggers.values():
             lg.close()
         self.save_checkpoint("last")
@@ -839,8 +900,9 @@ class Trainer:
                                    else [float(x) for x in best_test_rmse])}
 
     def _fit_loop(self, max_iter, k, use_dev, next_batches, next_chunk,
-                  loggers, log):
-        """``fit``'s steps, logging, validation and schedule; returns
+                  loggers, log, monitor):
+        """``fit``'s steps (each call through ``self.elastic``, a beat of
+        ``monitor`` after each), logging, validation and schedule; returns
         ``(best_iter, best_valid_rmse, best_test_rmse)``."""
         s = self.s
         nb = self.model_cfg.nblocks
@@ -861,16 +923,19 @@ class Trainer:
         effective_max = (max_iter // k) * k if k > 1 else max_iter
         while iter_idx < effective_max:
             if use_dev:
-                stats = self.train_chunk_dev(k)
+                stats = self.elastic.run(self.train_chunk_dev, k)
                 pending_cnt += self.train_batch_padded * k
             elif k > 1:
                 prepped, n_pairs = next_chunk()
-                stats = self._train_prepped(prepped)
+                stats = self.elastic.run(self._train_prepped, prepped)
                 pending_cnt += n_pairs
             else:
                 rb, cb = next_batches()
-                stats = _stack_stats([self.train_iteration(rb, cb)])
+                stats = _stack_stats([self.elastic.run(self.train_iteration,
+                                                       rb, cb)])
                 pending_cnt += rb[1].size
+            if monitor is not None:
+                monitor.beat()
             pending.append(torch.cat(
                 [stats[name].reshape(k, -1) for name in _STAT_NAMES], 1))
             iter_idx += k
@@ -963,6 +1028,19 @@ class Trainer:
         return best_iter, best_valid_rmse, best_test_rmse
 
     # ---------------------------- checkpointing ------------------------------
+
+    def _elastic_restore(self):
+        """Reload the most recent checkpoint on disk after a failed step
+        (``ElasticStep``'s ``on_restore``): ``ckpt_last``, else
+        ``ckpt_best``; without a ``save_dir``, or before the first
+        checkpoint, the parameters in memory go on as they are."""
+        if self.save_dir is None:
+            return
+        for tag in ("last", "best"):
+            path = self._checkpoint_path(tag)
+            if os.path.exists(path):
+                self.restore_checkpoint(path)
+                return
 
     def _checkpoint_path(self, tag):
         if self.save_dir is None:

@@ -55,6 +55,7 @@ from stargcn_tpu_torch.train.loop import (_STAT_NAMES, graph_features,
                                           make_optimizer)
 from stargcn_tpu_torch.train.prefetch import Prefetcher
 from stargcn_tpu_torch.utils.device import resolve_device
+from stargcn_tpu_torch.utils.model_info import model_info
 
 
 def _round_up(n, m):
@@ -540,6 +541,10 @@ class SampledTrainer:
         recon_sampler = (it.recon_nodes_sampler(
             batch_size=s.recon_batch_size) if s.use_dae else None)
         nb = self.model_cfg.nblocks
+        if self.save_dir is not None:
+            # net%d.txt architecture dump (reference gluon_net_info).
+            model_info(self.model.state_dict(), os.path.join(
+                self.save_dir, f"net{self.save_id}.txt"))
 
         def next_batch():
             return self._build_batch_safe(rating_sampler, recon_sampler)

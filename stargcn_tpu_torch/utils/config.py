@@ -197,3 +197,21 @@ def save_cfg_dir(dirname: str, source: EasyDict) -> int:
         run_id += 1
     save_cfg_file(os.path.join(dirname, f"cfg{run_id}.yml"), source)
     return run_id
+
+
+def load_latest_cfg(dirname: str,
+                    target: EasyDict | None = None) -> EasyDict:
+    """Load the highest-numbered ``cfg%d.yml`` snapshot from a save dir,
+    merged into ``target`` when one is given (reference
+    ``config.py:92-102``, whose ``re.group(1)`` for ``ret.group(1)`` fails
+    once a second snapshot exists; this reads the match's group)."""
+    import re
+
+    latest, path = -1, None
+    for fname in os.listdir(dirname):
+        m = re.fullmatch(r"cfg(\d+)\.yml", fname)
+        if m and int(m.group(1)) > latest:
+            latest, path = int(m.group(1)), os.path.join(dirname, fname)
+    if path is None:
+        raise FileNotFoundError(f"no cfg%d.yml snapshot in {dirname!r}")
+    return cfg_from_file(path, target)

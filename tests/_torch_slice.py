@@ -154,6 +154,19 @@ def build_trainers(accum="sum", save_dir=None, **overrides):
     return jtrainer, ttrainer
 
 
+def build_port_trainer(accum="sum", save_dir=None, **overrides):
+    """The port's ``Trainer`` of ``build_trainers`` alone (on the CPU, its
+    own seeded parameters), for tests that hold the port against itself."""
+    overrides = {"GCN.DROPOUT": 0.0, **overrides}
+    tcfg = small_ml10m_cfg(cfg_from_file, accum, **overrides)
+    tit = _iterator(DataIterator, tsyn.synthetic_graph(**GRAPH))
+    csr = tit.all_graph["user", "movie"]
+    dims = (csr.shape[0], csr.shape[1], len(csr.multi_link))
+    return TTrainer(build_model_config(tcfg, *dims), tit,
+                    TTrainSettings.from_cfg(tcfg), device="cpu",
+                    save_dir=save_dir)
+
+
 def host_batches(trainer, n):
     """The first ``n`` ``(rating_batch, recon_batch)`` pairs of a trainer's
     samplers, as ``fit`` draws them (either package's trainer)."""

@@ -133,14 +133,19 @@ def test_seeded_init_follows_flax_scheme(pair_sum):
 
 
 def test_unported_paths_raise(pair_sum):
-    """The ``ell`` backend (and ``pallas``, a sampled-mode name) and
-    per-edge dropout off the flat edge arrays raise; the model options that
-    are ported build and run on ``bitdense`` (held against the JAX package
-    in ``tests/test_torch_model_options.py``); feature projection needs the
-    raw feature widths."""
+    """``pallas`` (a sampled-mode name) and per-edge dropout off the flat
+    edge arrays raise; the ``ell`` backend builds and runs on its packs
+    (held against the JAX package in ``tests/test_torch_chunked_ell.py``);
+    the model options that are ported build and run on ``bitdense`` (held
+    against the JAX package in ``tests/test_torch_model_options.py``);
+    feature projection needs the raw feature widths."""
     _, state = pair_sum
     pu = torch.zeros(1, dtype=torch.long)
-    for field, value in (("backend", "ell"), ("backend", "pallas"),
+    ell = dataclasses.replace(state.model_cfg, backend="ell")
+    out = STARGCN(ell)(None, None, pu, pu, state.variants.degrees("test"),
+                       state.variants.ell_pack("test"))
+    assert out["pred_ratings"].shape == (2, 1)
+    for field, value in (("backend", "pallas"),
                          ("dropout_per_edge", True)):
         cfg = dataclasses.replace(state.model_cfg, **{field: value})
         with pytest.raises(NotImplementedError):
@@ -164,13 +169,14 @@ def test_unported_paths_raise(pair_sum):
 ])
 def test_ell_and_per_edge_dropout_still_refused(pair_sum, field, value,
                                                 match):
-    """The ``dense`` and ``xla`` backends build, and ``xla`` with
-    ``GCN.DROPOUT_PER_EDGE``; the ``ell`` backend and per-edge dropout on
-    ``bitdense`` are still refused, by name."""
+    """The ``dense``, ``xla`` and ``ell`` backends build, and ``xla`` with
+    ``GCN.DROPOUT_PER_EDGE``; per-edge dropout on ``ell`` and on
+    ``bitdense`` (the config's own backend) is still refused, by name."""
     _, state = pair_sum
-    for backend in ("dense", "xla"):
+    for backend in ("dense", "xla", "ell"):
         STARGCN(dataclasses.replace(state.model_cfg, backend=backend))
     STARGCN(dataclasses.replace(state.model_cfg, backend="xla",
                                 dropout_per_edge=True))
+    cfg = dataclasses.replace(state.model_cfg, **{field: value})
     with pytest.raises(NotImplementedError, match=match):
-        STARGCN(dataclasses.replace(state.model_cfg, **{field: value}))
+        STARGCN(dataclasses.replace(cfg, dropout_per_edge=True))

@@ -135,7 +135,8 @@ def test_entry_points_refuse_missing_card(slice_pair):
 
 def test_predict_cli_round_trip(slice_pair, tmp_path, capsys):
     """``python -m stargcn_tpu_torch.predict`` on an artifact the JAX
-    package wrote, and the flags left to later slices."""
+    package wrote, and ``--rank_eval``'s refusal of an artifact (its
+    negatives are drawn from the dataset's graph)."""
     import json
 
     from stargcn_tpu_torch import predict
@@ -151,7 +152,7 @@ def test_predict_cli_round_trip(slice_pair, tmp_path, capsys):
     assert lines[1]["items"] == want.tolist()
     with pytest.raises(SystemExit):
         predict.main(["--artifact", path, "--device", "cpu", "--rank_eval"])
-    assert "not ported yet" in capsys.readouterr().err
+    assert "needs the dataset" in capsys.readouterr().err
 
 
 def test_export_takes_a_trainer(slice_pair):
