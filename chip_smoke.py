@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 13      # phase 13 on its own ML-10M set-up
     python3 chip_smoke.py --phases 14      # phase 14 on its own ML-10M set-up
     python3 chip_smoke.py --phases 15      # phase 15 on its own ML-10M set-up
+    python3 chip_smoke.py --phases 16      # phase 16 on its own ML-10M set-up
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -228,6 +229,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    raises once (restored from ``ckpt_last``, one restart), a
    ``HeartbeatMonitor`` of 2 s around a 5 s host stall (its crash file
    holds the main thread's stack), and ``net0.txt``.
+16. the profiler, the FLOP count, the reference step estimate and the host
+   graph library (after phase 15, on phase 4's trainer, its parameters
+   restored after): (a) ``fit(max_iter=VALID_INTERVAL)`` under
+   ``utils.profiling.trace`` with one ``annotate`` span: the Chrome trace
+   parses, holds the span, and holds 4 + 4 walk kernels of
+   ``bit_expand`` / ``bit_reduce`` (their namespaces name them) a step,
+   4 more expands an evaluation batch, as many as the wrappers counted;
+   the top device operations by name, ``fit`` and 5 steps with and without
+   the profiler; (b) 10 steps timed by ``StepTimer``, each ending in a
+   synchronise: ``stargcn_step_flops`` at each step's active edges, the
+   useful TFLOP/s and ``mfu`` against the H100's dense bf16 peak, inside
+   (0, 1); (c) ``refestimate.measure_host_ms`` at the ``ml-100k``,
+   ``ml-1m`` (3 iterations) and ``ml-10m`` (1) shapes on this host's CPU
+   (named), then ``estimate`` on them and ``estimate_all`` on the
+   recorded medians, every ``rate_bound`` inside (1e5, 7.2e8); (d)
+   ``python -m stargcn_tpu_torch.train`` on ``transductive_ml_10m.yml``
+   with ``--dataset synthetic --backend bitdense --max_iter 20 --profile
+   DIR`` in a process of its own: rc 0 and its trace's bit kernels, 4 + 4
+   a step; (e) ``sample_neighbors(symm,
+   use_multi_link)`` on the ML-10M train CSR in both directions, seconds,
+   the per-level counts adding up to the nnz.
 
 Phase 3 also checks the three ELL kernels on small cases (K = 1, 8, 32;
 F = 1, 65, 250, 256; padded slots with in-range and out-of-range indices;
@@ -245,7 +267,7 @@ index; negative and too-large indices; every slot padded), each within
 and slots that name one index bit-equal.  Every time printed carries the
 card's name and power limit.
 
-Phases 13, 14, 15, 10, 11, 11b and 12 run inside phase 4's temporary
+Phases 13, 14, 15, 16, 10, 11, 11b and 12 run inside phase 4's temporary
 directory, after phase 8, in that order.  The line before the last is the card's name
 and power limit, the one before it ``{"kernels": [...]}`` (all nine
 kernels: the ``dense``, ``xla`` and ``plan_device`` paths launch none of
@@ -256,9 +278,10 @@ fit(20)`` to the bit pair, ``sampled fit(10) prefetch=False`` and
 ``prefetch=True`` to the ELL pair; phase 14 the bf16 step and export and
 the ``USE_FEA_PROJ`` step at F = 81 to the bit pair, the ``USE_FEA_PROJ``
 sampled step and the ``remat`` step to the ELL pair, and the bit pair's
-F = 65 / 81 times as ``walk_by_f``); the last is ``{"ok": true, "device":
-{...}}``.  Needs one card; imports nothing of
-JAX and nothing of the JAX package.
+F = 65 / 81 times as ``walk_by_f``; phase 16 the profiled ``fit(10)``
+and the ``StepTimer``'s 10 steps to the bit pair); the last is ``{"ok":
+true, "device": {...}}``.  Needs one card; imports nothing of JAX and
+nothing of the JAX package.
 """
 
 import contextlib
@@ -5544,6 +5567,349 @@ def run_phase15(bd, ek, trainer, save_dir, card):
     return numbers
 
 
+# ----- phase 16: the profiler, the FLOP count, the reference estimate -----
+
+
+def trace_device_events(logdir):
+    """The one Chrome trace under ``logdir``: ``(device, names, bytes)``,
+    ``device`` its device events as ``[(name, ms), ...]`` (kernels,
+    copies, memsets), ``names`` the names of all its events."""
+    import glob
+
+    files = glob.glob(os.path.join(logdir, "*.json"))
+    check(len(files) == 1, f"{logdir}: {len(files)} trace files")
+    with open(files[0]) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"]
+    device = [(e["name"], e.get("dur", 0) / 1e3) for e in events
+              if e.get("ph") == "X" and e.get("cat") in (
+                  "kernel", "gpu_memcpy", "gpu_memset")]
+    return device, {e.get("name") for e in events}, os.path.getsize(
+        files[0])
+
+
+def bit_walks(device):
+    """The walk and table kernel events of each bit op in a trace (their
+    namespaces name the op: ``ops/csrc/bit_walk.cuh``)."""
+    out = {}
+    for op in ("bit_expand", "bit_reduce"):
+        for kernel in ("walk_kernel", "table_kernel"):
+            out[f"{op} {kernel}"] = sum(
+                1 for n, _ in device if f"{op}::" in n and kernel in n)
+    return out
+
+
+def top_by_name(device, top=8):
+    totals = {}
+    for name, ms in device:
+        t, c = totals.get(name, (0.0, 0))
+        totals[name] = (t + ms, c + 1)
+    return sorted(((n, t, c) for n, (t, c) in totals.items()),
+                  key=lambda e: -e[1])[:top]
+
+
+def check_bit_walks(walks, steps, launches, what):
+    """4 + 4 walks a step: every reduce walk is a training step's, the
+    expand walks beyond 4 a step are evaluation batches' (4 each); each
+    walk has its table kernel and each is one counted launch."""
+    exp, red = walks["bit_expand walk_kernel"], walks["bit_reduce walk_kernel"]
+    check(red == 4 * steps and exp >= 4 * steps and (exp - 4 * steps) % 4
+          == 0, f"{what}: {exp} expand / {red} reduce walks for {steps} "
+          f"steps")
+    check(walks["bit_expand table_kernel"] == exp
+          and walks["bit_reduce table_kernel"] == red,
+          f"{what}: table kernels {walks}")
+    if launches is not None:
+        check(exp == launches["bit_expand_matmul"]
+              and red == launches["bit_reduce_matmul"],
+              f"{what}: trace {walks} against launches {launches}")
+
+
+def profiled_fit(bd, trainer, cfg, save_dir, card):
+    """Phase 16 (a): ``fit(max_iter=VALID_INTERVAL)`` under
+    ``utils.profiling.trace`` with one ``annotate`` span, between two of
+    the same ``fit`` without the profiler (the first also builds what the
+    trainer has not built yet); the trace's device events by name; then 5
+    steps under the profiler and 5 without, host clock ending in a
+    synchronise."""
+    import torch
+
+    from stargcn_tpu_torch.utils.profiling import annotate, trace
+
+    steps = int(cfg.TRAIN.VALID_INTERVAL)
+    logdir = os.path.join(save_dir, "profile16")
+
+    def fit():
+        return host_s(lambda: trainer.fit(max_iter=steps,
+                                          log=lambda *_: None))[1]
+
+    t_first = fit()
+    zero_launches(bd)
+    t0 = time.perf_counter()
+    with trace(logdir):
+        with annotate("chip_smoke.profiled_fit"):
+            t_fit_prof = fit()
+    t_trace = time.perf_counter() - t0 - t_fit_prof
+    launches = dict(bd.LAUNCHES)
+    t_fit = fit()
+    device, names, nbytes = trace_device_events(logdir)
+    check("chip_smoke.profiled_fit" in names,
+          "the annotate span is not in the trace")
+    walks = bit_walks(device)
+    check_bit_walks(walks, steps, launches, "profiled fit")
+    busy = sum(ms for _, ms in device)
+    top = top_by_name(device)
+    log(f"  fit(max_iter={steps}) under trace(): {t_fit_prof:.2f} s "
+        f"(+{t_trace:.2f} s to stop and write the trace, {nbytes / 1e6:.1f} "
+        f"MB), without the profiler {t_first:.2f} s before, {t_fit:.2f} s "
+        f"after; launches "
+        f"{launches['bit_expand_matmul']} + {launches['bit_reduce_matmul']}, "
+        f"trace: {walks}; device time in the trace {busy:.1f} ms; top device "
+        "operations: " + "; ".join(f"{n[:90]} {ms:.2f} ms x{c}"
+                                   for n, ms, c in top) + f" [{card}]")
+    rs = trainer.data_iter.rating_sampler(
+        batch_size=trainer.s.rating_batch_size, segment="train")
+    recon = trainer.data_iter.recon_nodes_sampler(
+        batch_size=trainer.s.recon_batch_size)
+    batches = [next_batches(trainer, rs, recon) for _ in range(11)]
+    trainer.train_iteration(*batches[0])
+
+    def five(bs):
+        times = []
+        for b in bs:
+            times.append(host_s(lambda: trainer.train_iteration(*b))[1]
+                         * 1e3)
+        return times
+
+    with trace(os.path.join(save_dir, "profile16_steps")):
+        prof_ms = five(batches[1:6])
+    plain_ms = five(batches[6:11])
+    log(f"  train_iteration, 5 steps under the profiler: "
+        f"{', '.join(f'{x:.2f}' for x in prof_ms)} ms (median "
+        f"{median(prof_ms):.2f}); 5 without: "
+        f"{', '.join(f'{x:.2f}' for x in plain_ms)} ms (median "
+        f"{median(plain_ms):.2f}) [{card}]")
+    torch.cuda.synchronize()
+    return launches, dict(
+        fit_s_profiled=t_fit_prof, fit_s_before=t_first, fit_s=t_fit,
+        trace_write_s=t_trace,
+        trace_mb=nbytes / 1e6, walks=walks, trace_device_ms=busy,
+        top_device_ops=[[n, ms, c] for n, ms, c in top],
+        step_ms_profiled=median(prof_ms), step_ms=median(plain_ms),
+        step_times_profiled_ms=prof_ms, step_times_ms=plain_ms)
+
+
+def flop_rate(bd, trainer, card):
+    """Phase 16 (b): 10 steps timed by ``StepTimer`` (each ending in a
+    synchronise), ``stargcn_step_flops`` at each step's active edges (the
+    train graph less the batch's removed edges) and batch, the useful
+    TFLOP/s and ``mfu`` against the H100 peak."""
+    import torch
+
+    from stargcn_tpu_torch.utils.flops import (H100_SXM_BF16_PEAK_FLOPS,
+                                               mfu, stargcn_step_flops)
+    from stargcn_tpu_torch.utils.profiling import StepTimer
+
+    it = trainer.data_iter
+    n_train = it.train_graph[it.name_user, it.name_item].nnz
+    rs = it.rating_sampler(batch_size=trainer.s.rating_batch_size,
+                           segment="train")
+    recon = it.recon_nodes_sampler(batch_size=trainer.s.recon_batch_size)
+    batches = [next_batches(trainer, rs, recon) for _ in range(11)]
+    trainer.train_iteration(*batches[0])
+    torch.cuda.synchronize()
+    timer = StepTimer(window=10)
+    flops, active = [], []
+    zero_launches(bd)
+    timer.start()
+    for rb, cb in batches[1:]:
+        prepped = trainer._prep_host_arrays(rb, cb)
+        trainer._step(*trainer._to_device(prepped))
+        torch.cuda.synchronize()
+        timer.tick()
+        e_active = n_train - int(prepped[1][2].sum())
+        active.append(e_active)
+        flops.append(stargcn_step_flops(trainer.model_cfg, e_active,
+                                        rb[1].size))
+    launches = dict(bd.LAUNCHES)
+    step_s = timer.mean_step_s
+    step_flops = sum(f["step"] for f in flops) / len(flops)
+    rate = step_flops / step_s
+    util = mfu(step_flops, step_s)
+    log(f"  10 steps by StepTimer: {step_s * 1e3:.2f} ms a step; "
+        f"e_active {min(active):,}-{max(active):,} of {n_train:,} train "
+        f"edges, batch {batches[1][0][1].size:,}; useful work "
+        f"{step_flops / 1e9:.2f} GFLOP a step (forward "
+        f"{flops[-1]['fwd'] / 1e9:.2f}, {flops[-1]['edge_msgs']:,} edge "
+        f"messages): {rate / 1e12:.3f} TFLOP/s, mfu {util:.5f} of the "
+        f"{H100_SXM_BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s dense bf16 peak; "
+        f"launches {launches['bit_expand_matmul']} + "
+        f"{launches['bit_reduce_matmul']} [{card}]")
+    check(0 < util < 1, f"mfu {util} outside (0, 1)")
+    check(launches["bit_expand_matmul"] == launches["bit_reduce_matmul"]
+          == 40, f"StepTimer steps launched {launches}")
+    return launches, dict(step_ms=step_s * 1e3, gflop_per_step=step_flops
+                          / 1e9, tflops=rate / 1e12, mfu=util,
+                          e_active=active, edge_msgs=flops[-1]["edge_msgs"])
+
+
+def cpu_model():
+    """The host CPU's name: ``model name`` of ``/proc/cpuinfo``, else
+    ``lscpu``'s, else (a virtual machine may read "unknown" there) its
+    vendor, family and model fields."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip().lower(), value.strip())
+    except OSError:
+        pass
+    if fields.get("model name", "unknown") != "unknown":
+        return fields["model name"]
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+        for line in out.splitlines():
+            name = line.split(":", 1)[1].strip() if ":" in line else ""
+            if line.lower().startswith("model name") and name not in (
+                    "", "unknown"):
+                return name
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return ", ".join(f"{k} {fields[k]}" for k in (
+        "vendor_id", "cpu family", "model", "cpu implementer", "cpu part")
+        if k in fields) or "not readable"
+
+
+def reference_estimate(card):
+    """Phase 16 (c): ``measure_host_ms`` at the ``ml-100k`` and ``ml-1m``
+    shapes (3 iterations) and at ``ml-10m`` (1), then ``estimate`` on
+    these medians and ``estimate_all`` on the recorded ones; every
+    ``rate_bound`` inside (1e5, 7.2e8)."""
+    from stargcn_tpu_torch.utils import refestimate as ref
+
+    cpu = cpu_model()
+    measured, seconds = {}, {}
+    for name, iters in (("ml-100k", 3), ("ml-1m", 3), ("ml-10m", 1)):
+        got, seconds[name] = host_s(
+            lambda: ref.measure_host_ms(ref.DATASETS[name], iters=iters))
+        measured[name] = got["host_ms_measured"]
+    est = {name: ref.estimate(ref.DATASETS[name], ms)
+           for name, ms in measured.items()}
+    log(f"  measure_host_ms on {cpu} ({os.cpu_count()} logical CPUs): "
+        + "; ".join(f"{n} {ms} ms (the call {seconds[n]:.1f} s)"
+                    for n, ms in measured.items()) + f" [{card}]")
+    for name, e in est.items():
+        log(f"  estimate {name}: step {e['step_ms_bound']} ms bound / "
+            f"{e['step_ms_realistic']} ms realistic, rate "
+            f"{e['rate_bound']:.4g} / {e['rate_realistic']:.4g} edge-msgs/s "
+            f"(host {e['host_ms_credited']} ms credited, pcie "
+            f"{e['pcie_ms']}, device {e['device_ms_bound']}, launch "
+            f"{e['launch_ms_bound']} ms)")
+        check(1e5 < e["rate_bound"] < 7.2e8,
+              f"{name} rate_bound {e['rate_bound']} outside (1e5, 7.2e8)")
+    for name, e in ref.estimate_all(measure=False).items():
+        check(1e5 < e["rate_bound"] < 7.2e8,
+              f"recorded {name} rate_bound {e['rate_bound']}")
+    return dict(cpu=cpu, cpus=os.cpu_count(), host_ms=measured,
+                call_s=seconds, estimate=est)
+
+
+def run_profile_cli(save_dir, card):
+    """Phase 16 (d): ``python -m stargcn_tpu_torch.train`` in a process of
+    its own on ``transductive_ml_10m.yml`` with ``--dataset synthetic
+    --backend bitdense --max_iter 20 --profile DIR``: rc 0, a trace under
+    DIR whose bit kernels are 4 + 4 a step of the profiled ``fit``."""
+    from stargcn_tpu_torch.utils import cfg_from_file
+
+    cfg_path = os.path.join(ROOT, "configs", "transductive_ml_10m.yml")
+    steps = int(cfg_from_file(cfg_path).TRAIN.VALID_INTERVAL)
+    prof = os.path.join(save_dir, "cli16_profile")
+    out, t_cli = host_s(lambda: subprocess.run(
+        [sys.executable, "-m", "stargcn_tpu_torch.train", "--cfg", cfg_path,
+         "--dataset", "synthetic", "--backend", "bitdense", "--max_iter",
+         "20", "--profile", prof, "--save_dir",
+         os.path.join(save_dir, "cli16"), "--device", DEVICE, "--silent"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT))
+    check(out.returncode == 0, f"the train CLI with --profile failed: "
+          f"{out.stderr[-2000:]}")
+    device, _, nbytes = trace_device_events(prof)
+    walks = bit_walks(device)
+    check_bit_walks(walks, steps, None, "train CLI --profile")
+    log(f"  python -m stargcn_tpu_torch.train --cfg "
+        f"configs/transductive_ml_10m.yml --dataset synthetic --backend "
+        f"bitdense --max_iter 20 --profile DIR: rc 0 in {t_cli:.2f} s, trace "
+        f"{nbytes / 1e6:.1f} MB: {walks} [{card}]")
+    return dict(cli_s=t_cli, walks=walks)
+
+
+def host_library_ml10m(trainer, card):
+    """Phase 16 (e): ``CSRMat.sample_neighbors(symm=True,
+    use_multi_link=True)`` on the ML-10M train CSR in both directions; the
+    per-level counts of ``multi_link_split`` add up to the nnz."""
+    it = trainer.data_iter
+    csr = it.train_graph[it.name_user, it.name_item]
+    numbers = {}
+    csr_t, t_t = host_s(lambda: csr.T)
+    for what, mat in (("user -> item", csr), ("item -> user", csr_t)):
+        (ep, vals, ptr, sup), t = host_s(
+            lambda: mat.sample_neighbors(symm=True, use_multi_link=True))
+        counts = [int(p[-1]) for p in ptr]
+        check(len(ptr) == len(mat.multi_link) and sum(counts) == mat.nnz
+              and [len(e) for e in ep] == counts
+              and [len(s) for s in sup] == counts,
+              f"{what}: per-level counts {counts} against nnz {mat.nnz}")
+        check(all((v == r).all() for v, r in zip(vals, mat.multi_link)),
+              f"{what}: a level holds another rating")
+        log(f"  sample_neighbors({what}, {mat.nnz:,} edges, "
+            f"{mat.shape[0]:,} rows): {t:.2f} s, per level "
+            f"{counts} [{card}]")
+        numbers[what] = dict(s=t, per_level=counts)
+    log(f"  the transpose for the item side: {t_t:.2f} s [{card}]")
+    numbers["transpose_s"] = t_t
+    return numbers
+
+
+def run_phase16(bd, trainer, cfg, save_dir, card):
+    """Phase 16: the profiler, the FLOP count, the reference estimate, the
+    train CLI's ``--profile`` and the host graph library at ML-10M, on
+    phase 4's trainer (its parameters and optimizer state restored after,
+    its fits' files in a directory of their own).  Returns the launch
+    counts of its paths and its numbers."""
+    import torch
+
+    t0 = time.perf_counter()
+    numbers, launches = {}, {}
+    params0 = copy.deepcopy(trainer.model.state_dict())
+    opt0 = copy.deepcopy(trainer.opt.state_dict())
+    own_dir = trainer.save_dir
+    trainer.save_dir = os.path.join(save_dir, "phase16")
+    os.makedirs(trainer.save_dir, exist_ok=True)
+    try:
+        log("  (a) a profiled fit")
+        launches["profiled fit(10)"], numbers["profiled_fit"] = \
+            profiled_fit(bd, trainer, cfg, save_dir, card)
+        log("  (b) the FLOP count")
+        launches["StepTimer steps(10)"], numbers["flops"] = flop_rate(
+            bd, trainer, card)
+    finally:
+        trainer.save_dir = own_dir
+        trainer.model.load_state_dict(params0)
+        trainer.opt.load_state_dict(opt0)
+    torch.cuda.empty_cache()
+    log("  (c) the reference step estimate")
+    numbers["refestimate"] = reference_estimate(card)
+    log("  (d) the train CLI with --profile")
+    numbers["cli"] = run_profile_cli(save_dir, card)
+    log("  (e) the host graph library at ML-10M")
+    numbers["host_library"] = host_library_ml10m(trainer, card)
+    numbers["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 16 took {numbers['phase_s']:.1f} s on the host clock "
+        f"[{card}]")
+    return launches, numbers
+
+
 def kernel_row(name, source, replaces, launches, worst, shapes):
     """One entry of the ``kernels`` line: the times are means over the
     directions measured (``shapes`` holds each)."""
@@ -5564,7 +5930,7 @@ def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--phases", default=None,
-        help="comma-separated phases out of 11, 12, 13, 14 and 15 (those "
+        help="comma-separated phases out of 11 to 16 (those "
              "that build their own data) to run alone after phases 1 and 2, "
              "in a process that ran no other phase (13b: phase 13's ML-1M "
              "part alone, which phase 13 runs so; 15b: phase 15's query "
@@ -5575,15 +5941,15 @@ def parse_args(argv):
         return None
     phases = {p.strip() for p in args.phases.split(",")}
     if not phases or not phases <= {"11", "12", "13", "13b", "14", "15",
-                                    "15b"}:
-        ap.error("--phases takes 11, 12, 13, 13b, 14, 15 or 15b, "
+                                    "15b", "16"}:
+        ap.error("--phases takes 11, 12, 13, 13b, 14, 15, 15b or 16, "
                  "comma-separated")
     return phases
 
 
 def run_phases_alone(bd, ek, card, phases):
-    """``--phases``: phases 11, 12 and 13 without the phases before them
-    (phase 13 builds phase 4's ML-10M graph and trainer first); their
+    """``--phases``: phases 11 to 16 without the phases before them
+    (phases 13 to 16 build phase 4's ML-10M graph and trainer first); their
     numbers on one line."""
     import torch
 
@@ -5608,10 +5974,10 @@ def run_phases_alone(bd, ek, card, phases):
             numbers["inductive_ml1m"], _ = run_inductive_slice(
                 bd, ek, card, save_dir)
             torch.cuda.empty_cache()
-        if phases & {"13", "14", "15"}:
+        if phases & {"13", "14", "15", "16"}:
             from stargcn_tpu_torch.train import Trainer, TrainSettings
 
-            log("== 4. set-up (for phases 13, 14 and 15): ML-10M graph, "
+            log("== 4. set-up (for phases 13 to 16): ML-10M graph, "
                 "iterator, trainer")
             (cfg, it, model_cfg), t_graph = host_s(build_ml10m)
             trainer = Trainer(model_cfg, it, TrainSettings.from_cfg(cfg),
@@ -5633,6 +5999,12 @@ def run_phases_alone(bd, ek, card, phases):
             log("== 15. slice: ranking, the ell backend and resilience at "
                 "ML-10M")
             numbers["phase15"] = run_phase15(bd, ek, trainer, save_dir, card)
+        if "16" in phases:
+            log("== 16. slice: the profiler, the FLOP count, the reference "
+                "step estimate and the host graph library at ML-10M")
+            launches, numbers["phase16"] = run_phase16(bd, trainer, cfg,
+                                                       save_dir, card)
+            numbers["phase16"]["launches_by_path"] = launches
     if numbers:
         log(json.dumps(numbers))
 
@@ -5781,6 +6153,12 @@ def main(argv=None):
         phase15_numbers = run_phase15(bd, ek, trainer, save_dir, card)
         torch.cuda.empty_cache()
 
+        log("== 16. slice: the profiler, the FLOP count, the reference step "
+            "estimate and the host graph library at ML-10M")
+        phase16_launches, phase16_numbers = run_phase16(bd, trainer, cfg,
+                                                        save_dir, card)
+        torch.cuda.empty_cache()
+
         log("== 10. probes: probe_bitcast and probe_int8_mma")
         probe_launches, probe_worst, probe_shapes = run_probes(card)
 
@@ -5896,8 +6274,16 @@ def main(argv=None):
             if counts.get(row["name"]):
                 row.setdefault("launches_by_path", {})[path] = counts[
                     row["name"]]
+    # Phase 16's paths, each with the counts set to 0 just before it: the
+    # profiled fit and the StepTimer's steps.
+    for row in rows:
+        for path, counts in phase16_launches.items():
+            if counts.get(row["name"]):
+                row.setdefault("launches_by_path", {})[path] = counts[
+                    row["name"]]
     for row, kind in ((rows[0], "expand"), (rows[1], "reduce")):
         row["walk_by_f"] = {str(F): walks[F][kind] for F in walks}
+    log(json.dumps({"phase16": phase16_numbers}))
     log(json.dumps({"phase15": phase15_numbers}))
     log(json.dumps({"model_options": option_numbers}))
     log(json.dumps({"sampling_on_card": card_numbers}))

@@ -1,15 +1,17 @@
 """Host-side CSR matrix with global node ids and multi-link (rating) values.
 
-The port's copy of ``stargcn_tpu/graph/csr.py``, cut to what building a
-graph, splitting it into train/valid/test variants (transductive, or by
-node subsets for inductive splits), exporting it for serving, planning
-sampled neighborhoods and saving it need.  Every array it returns is
-identical to the JAX package's for the same input.
+The port's copy of ``stargcn_tpu/graph/csr.py``: ``CSRMat`` (building a
+graph, splitting it into train/valid/test variants, transductive or by node
+subsets for inductive splits, exporting it for serving, sampling
+neighborhoods and splitting them by rating, saving it), ``NodeFeatures``,
+``merge_nodes`` and ``merge_node_ids_dict``.  Every array it returns is
+identical to the JAX package's for the same input and seed.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from stargcn_tpu_torch.graph import kernels as K
 
@@ -47,6 +49,88 @@ class NodeIDRMap:
         return inds.astype(np.int32)
 
 
+# The reference names its dense-array reverse map ``NodeIDRMapFast``.
+NodeIDRMapFast = NodeIDRMap
+
+
+def empty_as_zero(arrays, dtype):
+    """Each array as ``dtype``, a zero-length one replaced by ``[0]`` (a
+    rating level with no edges still ships one entry)."""
+    return [np.zeros(1, dtype=dtype) if np.asarray(a).size == 0
+            else np.asarray(a, dtype=dtype) for a in arrays]
+
+
+def merge_nodes(node_ids_list):
+    """Dedup a list of id arrays into unique ids (first-occurrence order)
+    and, per array, the index of each id in them (int32, the array's
+    shape)."""
+    sizes = [np.asarray(ids).size for ids in node_ids_list]
+    flat = np.concatenate(
+        [np.asarray(ids, dtype=np.int32).ravel() for ids in node_ids_list]
+    ) if sizes else np.array([], dtype=np.int32)
+    uniq, inverse = K.unique_inverse(flat)
+    out, start = [], 0
+    for ids, size in zip(node_ids_list, sizes):
+        shaped = inverse[start:start + size].reshape(np.asarray(ids).shape)
+        out.append(shaped.astype(np.int32))
+        start += size
+    return uniq, out
+
+
+def merge_node_ids_dict(node_ids_dicts):
+    """``merge_nodes`` per key over a list of ``{key: ids}`` dicts.
+    Returns ``(uniq_ids_dict, [per-input {key: inverse_indices}])``."""
+    keys = []
+    for d in node_ids_dicts:
+        for k in d:
+            if k not in keys:
+                keys.append(k)
+    uniq_dict, inv_dicts = {}, [dict() for _ in node_ids_dicts]
+    for key in keys:
+        arrays, owners = [], []
+        for i, d in enumerate(node_ids_dicts):
+            if key in d:
+                arrays.append(d[key])
+                owners.append(i)
+        uniq, inverses = merge_nodes(arrays)
+        uniq_dict[key] = uniq
+        for owner, inv in zip(owners, inverses):
+            inv_dicts[owner][key] = inv
+    return uniq_dict, inv_dicts
+
+
+class NodeFeatures:
+    """Feature rows bound to explicit node ids, with a reverse map made on
+    first use.  ``data`` is a NumPy array or a ``torch.Tensor``;
+    ``take_by_id`` gathers its rows by global id (a tensor's on the
+    tensor's own device) and raises ``ValueError`` for an unknown id."""
+
+    def __init__(self, data, node_ids):
+        self.data = data
+        self.node_ids = np.asarray(node_ids, dtype=np.int32)
+        if self.data.shape[0] != self.node_ids.shape[0]:
+            raise ValueError(f"{self.data.shape[0]} feature rows for "
+                             f"{self.node_ids.shape[0]} node ids")
+        self._rmap = None
+
+    @property
+    def rmap(self):
+        if self._rmap is None:
+            self._rmap = NodeIDRMap(self.node_ids)
+        return self._rmap
+
+    def take_by_id(self, node_ids):
+        idx = self.rmap.strict(node_ids)
+        if isinstance(self.data, torch.Tensor):
+            return self.data.index_select(0, torch.as_tensor(
+                idx, dtype=torch.long, device=self.data.device))
+        return self.data[idx]
+
+    def __repr__(self):
+        return (f"NodeFeatures(num={self.node_ids.size}, "
+                f"dim={tuple(self.data.shape[1:])})")
+
+
 class CSRMat:
     """CSR matrix keyed by global row/col node ids with float edge values.
 
@@ -71,6 +155,19 @@ class CSRMat:
         self._cached_node_pair_ids = None
         self._cached_col_degrees = None
         self._cached_support = {}
+
+    @staticmethod
+    def from_spy(mat, multi_link=None):
+        """Build from a ``scipy.sparse`` matrix (made CSR) with identity
+        ids."""
+        mat = mat.tocsr()
+        return CSRMat(
+            ind_ptr=mat.indptr.astype(np.int32),
+            end_points=mat.indices.astype(np.int32),
+            values=mat.data.astype(np.float32),
+            row_ids=np.arange(mat.shape[0], dtype=np.int32),
+            col_ids=np.arange(mat.shape[1], dtype=np.int32),
+            multi_link=multi_link)
 
     @staticmethod
     def from_coo(rows, cols, values, num_rows, num_cols, multi_link=None):
@@ -110,10 +207,30 @@ class CSRMat:
         """Edge count (alias of ``nnz``)."""
         return self.end_points.size
 
+    def to_spy(self):
+        """A ``scipy.sparse.csr_matrix`` of copies of this matrix's arrays:
+        writing into it leaves this matrix as it was."""
+        import scipy.sparse as sp
+
+        return sp.csr_matrix((self.values.copy(), self.end_points.copy(),
+                              self.ind_ptr.copy()), shape=self.shape)
+
+    def save_edges_txt(self, fname):
+        """One ``row_id\\tcol_id\\tvalue`` line per edge, in CSR order."""
+        ids = self.node_pair_ids
+        with open(fname, "w") as f:
+            for r, c, v in zip(ids[0], ids[1], self.values):
+                f.write(f"{r}\t{c}\t{v:g}\n")
+
     @property
     def row_indices(self):
         """COO row index per edge."""
         return K.row_indices_from_indptr(self.ind_ptr, self.nnz)
+
+    @property
+    def node_pair_indices(self):
+        """(2, nnz) [row_index; col_index] per edge."""
+        return np.stack([self.row_indices, self.end_points], axis=0)
 
     @property
     def node_pair_ids(self):
@@ -190,6 +307,63 @@ class CSRMat:
         row_indices = None if row_ids is None else self.row_id_to_ind(row_ids)
         col_indices = None if col_ids is None else self.col_id_to_ind(col_ids)
         return self.submat(row_indices, col_indices)
+
+    def sample_submat(self, row_indices=None, ncols=5, seed=None):
+        """Per-row fixed-fanout sampled submatrix: at most ``ncols`` edges
+        of each row (all rows when ``row_indices`` is None), drawn without
+        replacement, its columns the sampled ones in first-occurrence
+        order."""
+        if row_indices is None:
+            row_indices = np.arange(self.shape[0], dtype=np.int32)
+        row_indices = np.asarray(row_indices, dtype=np.int32)
+        sampled_idx, ind_ptr = K.random_sample_fix_neighbor(
+            self.ind_ptr, row_indices, ncols, seed=seed)
+        end_points = self.end_points[sampled_idx]
+        col_uniq, col_inv = K.unique_inverse(end_points)
+        return CSRMat(
+            ind_ptr=ind_ptr, end_points=col_inv,
+            values=self.values[sampled_idx],
+            row_ids=self.row_ids[row_indices],
+            col_ids=self.col_ids[col_uniq],
+            multi_link=self.multi_link)
+
+    def sample_submat_by_id(self, row_ids=None, ncols=5, seed=None):
+        """``sample_submat`` with rows selected by global id."""
+        row_indices = None if row_ids is None else self.row_id_to_ind(row_ids)
+        return self.sample_submat(row_indices, ncols=ncols, seed=seed)
+
+    def sample_neighbors(self, src_ids=None, symm=True, use_multi_link=True,
+                         num_neighbors=None, seed=None):
+        """Fanout-capped neighbor sampling (every neighbor when
+        ``num_neighbors`` is None) and the split by rating level.
+
+        The support values come from ``get_support`` of this matrix, before
+        sampling.  Returns ``(end_points_ids, edge_values, ind_ptr,
+        support)``, each a list with one entry per rating level when
+        ``use_multi_link``.
+        """
+        if src_ids is not None:
+            src_inds = self.row_id_to_ind(src_ids).astype(np.int32)
+        else:
+            src_inds = np.arange(self.shape[0], dtype=np.int32)
+        if num_neighbors is None:
+            num_neighbors = -1
+        sampled_idx, dst_ind_ptr = K.random_sample_fix_neighbor(
+            self.ind_ptr, src_inds, int(num_neighbors), seed=seed)
+        end_points_ids = self.col_ids[self.end_points[sampled_idx]]
+        edge_values = self.values[sampled_idx]
+        support = self.get_support(symm)[sampled_idx]
+        if not use_multi_link:
+            return end_points_ids, edge_values, dst_ind_ptr, support
+        assert self.multi_link is not None
+        split_indices, ind_ptr_l = K.multi_link_split(
+            edge_values, dst_ind_ptr, self.multi_link)
+        return (
+            [end_points_ids[s] for s in split_indices],
+            [edge_values[s] for s in split_indices],
+            ind_ptr_l,
+            [support[s] for s in split_indices],
+        )
 
     # --------------------------- edge lookups -------------------------------
 

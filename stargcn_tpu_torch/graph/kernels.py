@@ -1,10 +1,15 @@
 """Host graph kernels (NumPy).
 
-The port's copy of the NumPy half of ``stargcn_tpu/graph/kernels.py``, cut
-to what the serving, training and sampled-planning paths read.  The JAX
-package's optional C++ extension is not built here; where the reference
-leans on it for speed (the fused block planner), the port has a vectorised
-NumPy route instead (``random_sample_fix_neighbor_vectorised``).
+The port's copy of the NumPy half of ``stargcn_tpu/graph/kernels.py``: the
+same functions, signatures, return dtypes and draws from the same seeded
+stream (``set_seed``), so each returns what the JAX package's NumPy path
+returns.  Four functions of that module are not here:
+
+* ``has_native``, ``native_module`` and ``set_omp_threads`` exist only for
+  the JAX package's optional C++ extension, which the port does not build;
+* ``sample_block_ell``, the fused block planner, raises there without that
+  extension; the port's planner takes the NumPy route that the JAX planner
+  falls back to, vectorised (``random_sample_fix_neighbor_vectorised``).
 """
 
 from __future__ import annotations
@@ -44,6 +49,19 @@ def unique_inverse(arr: np.ndarray):
     return uniq.astype(np.int32), remap[inv_sorted].astype(np.int32).ravel()
 
 
+def unique_cnt(arr: np.ndarray):
+    """Unique values (first-occurrence order) and their counts."""
+    uniq, inv = unique_inverse(arr)
+    cnt = np.zeros(uniq.size, dtype=np.int32)
+    np.add.at(cnt, inv, 1)
+    return uniq, cnt
+
+
+def take_1d(data: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """1-D gather ``data[indices]``."""
+    return np.take(data, np.ascontiguousarray(indices, dtype=np.int32))
+
+
 def row_indices_from_indptr(ind_ptr: np.ndarray, nnz: int) -> np.ndarray:
     """CSR -> COO row expansion."""
     ind_ptr = np.ascontiguousarray(ind_ptr, dtype=np.int32)
@@ -51,6 +69,32 @@ def row_indices_from_indptr(ind_ptr: np.ndarray, nnz: int) -> np.ndarray:
     return np.repeat(
         np.arange(ind_ptr.size - 1, dtype=np.int32),
         np.diff(ind_ptr)).astype(np.int32)
+
+
+def seg_sum(data: np.ndarray, indptr: np.ndarray) -> np.ndarray:
+    """Sum of each CSR segment of ``data`` (float32)."""
+    data = np.ascontiguousarray(data, dtype=np.float32)
+    indptr = np.ascontiguousarray(indptr, dtype=np.int32)
+    seg_ids = np.repeat(np.arange(indptr.size - 1), np.diff(indptr))
+    out = np.zeros(indptr.size - 1, dtype=np.float32)
+    np.add.at(out, seg_ids, data)
+    return out
+
+
+def seg_add(lhs: np.ndarray, rhs: np.ndarray, indptr: np.ndarray):
+    """``out[j] = lhs[j] + rhs[seg(j)]`` (float32)."""
+    lhs = np.ascontiguousarray(lhs, dtype=np.float32)
+    rhs = np.ascontiguousarray(rhs, dtype=np.float32)
+    indptr = np.ascontiguousarray(indptr, dtype=np.int32)
+    return lhs + np.repeat(rhs, np.diff(indptr))
+
+
+def seg_mul(lhs: np.ndarray, rhs: np.ndarray, indptr: np.ndarray):
+    """``out[j] = lhs[j] * rhs[seg(j)]`` (float32)."""
+    lhs = np.ascontiguousarray(lhs, dtype=np.float32)
+    rhs = np.ascontiguousarray(rhs, dtype=np.float32)
+    indptr = np.ascontiguousarray(indptr, dtype=np.int32)
+    return lhs * np.repeat(rhs, np.diff(indptr))
 
 
 def get_support(row_degrees, col_degrees, ind_ptr, end_points, symm=True):
@@ -104,6 +148,28 @@ def csr_submat(ind_ptr, end_points, row_indices, col_indices, num_cols):
     np.cumsum(counts, out=new_ind_ptr[1:])
     return (new_ind_ptr, cols[keep].astype(np.int32),
             pos[keep].astype(np.int64))
+
+
+def multi_link_split(edge_values, ind_ptr, multi_link):
+    """Partition edges into per-rating-value index lists + per-value indptr.
+
+    Returns ``(split_indices, ind_ptr_l)``: for each rating value ``v`` in
+    ``multi_link``, the edge positions with that value (int32, in CSR
+    order) and the per-row indptr (int32) of the resulting sub-CSR.
+    """
+    edge_values = np.ascontiguousarray(edge_values, dtype=np.float32)
+    ind_ptr = np.ascontiguousarray(ind_ptr, dtype=np.int32)
+    multi_link = np.ascontiguousarray(multi_link, dtype=np.float32)
+    num_rows = ind_ptr.size - 1
+    row_per_edge = np.repeat(np.arange(num_rows), np.diff(ind_ptr))
+    split_indices, ind_ptr_l = [], []
+    for v in multi_link:
+        sel = np.nonzero(edge_values == v)[0].astype(np.int32)
+        split_indices.append(sel)
+        counts = np.bincount(row_per_edge[sel], minlength=num_rows)
+        ind_ptr_l.append(np.concatenate([[0], np.cumsum(counts)])
+                         .astype(np.int32))
+    return split_indices, ind_ptr_l
 
 
 def _take_counts(ind_ptr, sel_indices, num_neighbors):
@@ -173,3 +239,153 @@ def random_sample_fix_neighbor_vectorised(ind_ptr, sel_indices,
                  + np.arange(k, dtype=np.int64)[None, :])
         offs[slots.ravel()] = chosen.ravel()
     return np.repeat(beg, take) + offs, new_ind_ptr
+
+
+def random_walk(end_points, ind_ptr, initial_node=-1, walk_length=100,
+                return_prob=0.15, max_node_num=10**9, max_edge_num=10**12):
+    """Random-walk-with-restart subgraph sampling from ``initial_node`` (a
+    random node when negative): each step returns to the start with
+    ``return_prob``, else moves to a uniform neighbor.  Returns the
+    ``(src, dst)`` arrays (int32) of the distinct edges walked, in order."""
+    end_points = np.ascontiguousarray(end_points, dtype=np.int32)
+    ind_ptr = np.ascontiguousarray(ind_ptr, dtype=np.int32)
+    rng = _rng()
+    node_num = ind_ptr.size - 1
+    if initial_node < 0:
+        initial_node = rng.randint(node_num)
+    cur, edges, nodes = initial_node, set(), {initial_node}
+    src, dst = [], []
+    for _ in range(walk_length):
+        if rng.rand() < return_prob:
+            cur = initial_node
+            continue
+        beg, end = ind_ptr[cur], ind_ptr[cur + 1]
+        if end <= beg:
+            break
+        nxt = int(end_points[rng.randint(beg, end)])
+        if (cur, nxt) not in edges:
+            if len(edges) >= max_edge_num:
+                break
+            nodes.add(nxt)
+            if len(nodes) > max_node_num:
+                break
+            edges.add((cur, nxt))
+            src.append(cur)
+            dst.append(nxt)
+        cur = nxt
+    return (np.asarray(src, np.int32), np.asarray(dst, np.int32))
+
+
+def get_random_walk_nodes(end_points, ind_ptr, initial_node,
+                          max_node_num, walk_length):
+    """The distinct nodes (int32, in visiting order) of a plain random walk
+    from ``initial_node``, stopping at ``max_node_num`` of them."""
+    end_points = np.ascontiguousarray(end_points, dtype=np.int32)
+    ind_ptr = np.ascontiguousarray(ind_ptr, dtype=np.int32)
+    rng = _rng()
+    seen = [int(initial_node)]
+    seen_set = {int(initial_node)}
+    cur = int(initial_node)
+    for _ in range(walk_length):
+        beg, end = ind_ptr[cur], ind_ptr[cur + 1]
+        if end <= beg:
+            break
+        cur = int(end_points[rng.randint(beg, end)])
+        if cur not in seen_set:
+            seen_set.add(cur)
+            seen.append(cur)
+        if len(seen_set) >= max_node_num:
+            break
+    return np.asarray(seen, np.int32)
+
+
+def uniform_neg_sampling(end_points, ind_ptr, target_indices, node_num,
+                         neg_sample_scale=1.0, replace=False):
+    """Each target row's positive edges, then uniform negatives among the
+    columns it has no edge to (``ceil(pos * neg_sample_scale)`` of them, as
+    many as exist without ``replace``).  Returns ``(end_points, ind_ptr,
+    edge_label (+1/-1), edge_count)``, all int32; with ``replace`` a
+    negative drawn twice is one entry of count 2."""
+    end_points = np.ascontiguousarray(end_points, dtype=np.int32)
+    ind_ptr = np.ascontiguousarray(ind_ptr, dtype=np.int32)
+    target_indices = np.ascontiguousarray(target_indices, dtype=np.int32)
+    rng = _rng()
+    out_ep, out_label, out_cnt = [], [], []
+    out_ptr = [0]
+    for ind in target_indices:
+        beg, end = ind_ptr[ind], ind_ptr[ind + 1]
+        pos = end - beg
+        if pos > 0:
+            pos_set = set(end_points[beg:end].tolist())
+            want = min(int(np.ceil(pos * neg_sample_scale)), int(node_num))
+            out_ep.extend(end_points[beg:end].tolist())
+            out_label.extend([1] * pos)
+            out_cnt.extend([1] * pos)
+            candidates = np.setdiff1d(np.arange(node_num),
+                                      np.asarray(sorted(pos_set)))
+            if candidates.size:
+                k = min(want, candidates.size) if not replace else want
+                negs = rng.choice(candidates, size=k, replace=replace)
+                if replace:
+                    vals, cnts = np.unique(negs, return_counts=True)
+                    out_ep.extend(vals.tolist())
+                    out_cnt.extend(cnts.tolist())
+                    out_label.extend([-1] * vals.size)
+                else:
+                    out_ep.extend(negs.tolist())
+                    out_cnt.extend([1] * k)
+                    out_label.extend([-1] * k)
+        out_ptr.append(len(out_ep))
+    return (np.asarray(out_ep, np.int32), np.asarray(out_ptr, np.int32),
+            np.asarray(out_label, np.int32), np.asarray(out_cnt, np.int32))
+
+
+def random_sel_neighbor_and_merge(end_points, ind_ptr, node_ids,
+                                  sel_indices, num_neighbors):
+    """Fanout-sample the neighbors of the selected rows and merge (selected
+    + neighbors) into a first-occurrence-unique frontier.
+
+    Returns ``(dst_end_points [positions in merged], dst_ind_ptr,
+    merged_node_ids, indices_in_merged)``, all int32.
+    """
+    end_points = np.ascontiguousarray(end_points, dtype=np.int32)
+    ind_ptr = np.ascontiguousarray(ind_ptr, dtype=np.int32)
+    node_ids = np.ascontiguousarray(node_ids, dtype=np.int32)
+    sel_indices = np.ascontiguousarray(sel_indices, dtype=np.int32)
+    rng = _rng()
+    merged, merged_map = [], {}
+
+    def intern(nid):
+        nid = int(nid)
+        if nid not in merged_map:
+            merged_map[nid] = len(merged)
+            merged.append(nid)
+        return merged_map[nid]
+
+    dst_ep, dst_ptr, sel_in_merged = [], [0], []
+    for ind in sel_indices:
+        sel_in_merged.append(intern(node_ids[ind]))
+        beg, end = ind_ptr[ind], ind_ptr[ind + 1]
+        deg = end - beg
+        take = deg if num_neighbors < 0 else min(deg, num_neighbors)
+        picks = (np.arange(beg, end) if take == deg else
+                 rng.choice(np.arange(beg, end), take, replace=False))
+        for j in picks:
+            dst_ep.append(intern(node_ids[end_points[j]]))
+        dst_ptr.append(len(dst_ep))
+    return (np.asarray(dst_ep, np.int32), np.asarray(dst_ptr, np.int32),
+            np.asarray(merged, np.int32),
+            np.asarray(sel_in_merged, np.int32))
+
+
+def remove_edges_by_indices(ind_ptr, end_points, remove_edge_idx):
+    """A CSR without the edges at the given positions: returns
+    ``(new_ind_ptr (int32), keep_mask)``."""
+    ind_ptr = np.ascontiguousarray(ind_ptr, dtype=np.int32)
+    nnz = int(ind_ptr[-1])
+    keep = np.ones(nnz, dtype=bool)
+    keep[np.asarray(remove_edge_idx, dtype=np.int64)] = False
+    row_per_edge = np.repeat(np.arange(ind_ptr.size - 1), np.diff(ind_ptr))
+    new_ptr = np.zeros(ind_ptr.size, dtype=np.int32)
+    np.add.at(new_ptr[1:], row_per_edge[keep], 1)
+    return np.cumsum(new_ptr).astype(np.int32), keep

@@ -55,6 +55,7 @@
 // launches give the same bits.  A dense P is still exact, only slower.  F
 // above 256 is cut into column tiles (grid.y), each walking the pack again.
 
+#define BITWALK_NS bit_expand
 #include "bit_walk.cuh"
 
 // Plain C entry point (loaded with ctypes).  The caller has checked that P
@@ -70,7 +71,7 @@ extern "C" int bit_expand_matmul_launch(const void* P, const void* x,
                                         void* sync, int m8, int s_pad, int f,
                                         int fp, int k, int np, int tiles,
                                         int d8, int ril, void* stream) {
-  bitwalk::Walk w{};
+  bit_expand::Walk w{};
   w.P = static_cast<const uint8_t*>(P);
   w.tab = static_cast<const __nv_bfloat16*>(tab);
   w.out = static_cast<float*>(out);
@@ -86,7 +87,7 @@ extern "C" int bit_expand_matmul_launch(const void* P, const void* x,
   w.level_step = 0;
   w.out_level = 8ll * d8 * f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int e = bitwalk::make_table(x, x_is_bf16, 0, f, w, 1, st);
+  const int e = bit_expand::make_table(x, x_is_bf16, 0, f, w, 1, st);
   if (e != 0) return e;
-  return bitwalk::run(w, k, np, tiles, false, st);
+  return bit_expand::run(w, k, np, tiles, false, st);
 }

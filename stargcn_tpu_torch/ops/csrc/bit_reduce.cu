@@ -55,6 +55,7 @@
 // order, so two launches give the same bits; no atomic adds a value.  F
 // above 256 is cut into column tiles (grid.y), each walking the pack again.
 
+#define BITWALK_NS bit_reduce
 #include "bit_walk.cuh"
 
 // Plain C entry point (loaded with ctypes).  The caller has checked that P
@@ -73,7 +74,7 @@ extern "C" int bit_reduce_matmul_launch(const void* P, const void* g,
                                         int levels, int s_pad, int f, int fp,
                                         int k, int np, int tiles, int d8,
                                         int ril, void* stream) {
-  bitwalk::Walk w{};
+  bit_reduce::Walk w{};
   w.P = static_cast<const uint8_t*>(P);
   w.tab = static_cast<const __nv_bfloat16*>(tab);
   w.out = static_cast<float*>(out);
@@ -89,8 +90,8 @@ extern "C" int bit_reduce_matmul_launch(const void* P, const void* g,
   w.level_step = s_pad;
   w.out_level = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int e = bitwalk::make_table(g, g_is_bf16, g_stride_r, g_stride_s, w,
-                                    num_links, st);
+  const int e = bit_reduce::make_table(g, g_is_bf16, g_stride_r,
+                                       g_stride_s, w, num_links, st);
   if (e != 0) return e;
-  return bitwalk::run(w, k, np, tiles, levels < num_links, st);
+  return bit_reduce::run(w, k, np, tiles, levels < num_links, st);
 }

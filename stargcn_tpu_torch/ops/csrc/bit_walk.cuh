@@ -51,11 +51,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The including file names the outer namespace (BITWALK_NS: bit_expand or
+// bit_reduce), so each kernel's name in a profiler trace says which op
+// launched it.
+#ifndef BITWALK_NS
+#error "define BITWALK_NS before including bit_walk.cuh"
+#endif
+
 // Internal linkage: bit_expand.cu and bit_reduce.cu are separate shared
 // libraries, and a template's function-local static with external linkage
 // would be one object across both once loaded (a GNU unique symbol), so one
 // library's kernel would skip the other's shared-memory attribute.
-namespace bitwalk {
+namespace BITWALK_NS {
 namespace {
 
 constexpr int kWarps = 8;
@@ -573,4 +580,4 @@ inline int run(const Walk& w, int k, int np, int tiles, bool chain,
 }
 
 }  // namespace
-}  // namespace bitwalk
+}  // namespace BITWALK_NS

@@ -33,6 +33,10 @@ each level of the forward in the backward.  The model options of a YAML
 (``MODEL.USE_FEA_PROJ``, ``MODEL.USE_EMBED``, ``MODEL.COMPUTE_DTYPE``,
 ``GCN.DROPOUT_PER_EDGE``, ``GCN.USE_RECURRENT``) run in both modes.
 
+``--profile DIR`` first runs ``fit(max_iter=TRAIN.VALID_INTERVAL)`` under
+``utils.profiling.trace(DIR)``, which writes a Chrome-trace JSON there (the
+card's kernels too on ``cuda``), then the normal ``fit``.
+
 Writes ``cfg{id}.yml``, ``log{id}.log``, ``train_loss{id}.csv``,
 ``valid_loss{id}.csv``, ``test_loss{id}.csv`` and the checkpoints
 ``ckpt_best_{id}.pt`` / ``ckpt_last_{id}.pt`` into ``--save_dir``, and logs
@@ -110,6 +114,9 @@ def main(argv=None):
     parser.add_argument("--prefetch", action="store_true",
                         help="sampled mode: build batches in a producer "
                              "thread one ahead of the step")
+    parser.add_argument("--profile", default=None, type=str,
+                        help="write a torch.profiler trace of the first "
+                             "valid interval into this directory")
     parser.add_argument("--device", default="cuda", type=str,
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
@@ -173,6 +180,12 @@ def main(argv=None):
     if args.resume:
         trainer.restore_checkpoint(args.resume)
         logging.info("resumed from %s", args.resume)
+    if args.profile:
+        from stargcn_tpu_torch.utils.profiling import trace
+
+        with trace(args.profile):
+            trainer.fit(max_iter=cfg.TRAIN.VALID_INTERVAL)
+        logging.info("profile trace written to %s", args.profile)
     result = trainer.fit(**({"prefetch": True}
                             if fanout > 0 and args.prefetch else {}))
     logging.info("result: %s", result)
