@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 14      # phase 14 on its own ML-10M set-up
     python3 chip_smoke.py --phases 15      # phase 15 on its own ML-10M set-up
     python3 chip_smoke.py --phases 16      # phase 16 on its own ML-10M set-up
+    python3 chip_smoke.py --phases 17      # phase 17 on its own ML-10M set-up
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -250,6 +251,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    a step; (e) ``sample_neighbors(symm,
    use_multi_link)`` on the ML-10M train CSR in both directions, seconds,
    the per-level counts adding up to the nnz.
+17. full-graph training on a device mesh (after phase 16, on phase 4's
+   graph and trainer, its state restored after), every step from one
+   checkpoint of that trainer and one batch, held against the same step
+   without a mesh (loss, ``sq_err``, every gradient and the parameters
+   after it; phase 11's float32 tolerances, 1e-4, through the plain
+   float32 pools; through the kernels, whose step has a new outcome at
+   each repeat, against the nearest of 12 repeats within twice their
+   spread, the parameters' worst entry within 5e-3): (a) a 1 x 1 mesh over
+   NCCL (a world of one): 4 + 4 bit launches as without a mesh, the
+   step's collectives (count, MB, their time alone), its time beside the
+   step without a mesh, ``evaluate('valid')`` and ``export_serving`` equal
+   to one process's; (b) two processes on this card over gloo
+   (``--phases 17b`` twice; NCCL refuses two ranks on one device), on a 1 x
+   2 and then a 2 x 1 mesh: each rank's 4 + 4 bit launches on its half of
+   the packs (1 x 2), its step against the step without a mesh, its peak
+   memory; (c) ``python -m stargcn_tpu_torch.train --mesh 1x1`` on
+   ``transductive_ml_10m.yml`` (the CLI's synthetic graph, ``bitdense``, 4
+   steps) and ``python -m stargcn_tpu_torch.parallel.multiprocess_train``,
+   each in a process of its own.
 
 Phase 3 also checks the three ELL kernels on small cases (K = 1, 8, 32;
 F = 1, 65, 250, 256; padded slots with in-range and out-of-range indices;
@@ -267,7 +287,7 @@ index; negative and too-large indices; every slot padded), each within
 and slots that name one index bit-equal.  Every time printed carries the
 card's name and power limit.
 
-Phases 13, 14, 15, 16, 10, 11, 11b and 12 run inside phase 4's temporary
+Phases 13, 14, 15, 16, 17, 10, 11, 11b and 12 run inside phase 4's temporary
 directory, after phase 8, in that order.  The line before the last is the card's name
 and power limit, the one before it ``{"kernels": [...]}`` (all nine
 kernels: the ``dense``, ``xla`` and ``plan_device`` paths launch none of
@@ -279,7 +299,9 @@ fit(20)`` to the bit pair, ``sampled fit(10) prefetch=False`` and
 the ``USE_FEA_PROJ`` step at F = 81 to the bit pair, the ``USE_FEA_PROJ``
 sampled step and the ``remat`` step to the ELL pair, and the bit pair's
 F = 65 / 81 times as ``walk_by_f``; phase 16 the profiled ``fit(10)``
-and the ``StepTimer``'s 10 steps to the bit pair); the last is ``{"ok":
+and the ``StepTimer``'s 10 steps to the bit pair; phase 17 the mesh
+paths, ``mesh 1x1 ...``, ``mesh 1x2 rank r ...``, ``mesh 2x1 rank r ...``
+and ``mesh 1x1 train CLI``, to the bit pair); the last is ``{"ok":
 true, "device": {...}}``.  Needs one card; imports nothing of JAX and
 nothing of the JAX package.
 """
@@ -5910,6 +5932,665 @@ def run_phase16(bd, trainer, cfg, save_dir, card):
     return launches, numbers
 
 
+# ------------------------------- phase 17 -------------------------------
+
+# Phase 11's float32 tolerances: loss, all gradients together, the
+# worst single parameter, each relative.
+MESH_TOL = (1e-4, 1e-4, 1e-4)
+MESH_SHAPES_B = ((1, 2), (2, 1))
+
+
+COLLECTIVES = ("all_reduce", "all_gather", "broadcast")
+
+
+@contextlib.contextmanager
+def counted_collectives(calls):
+    """While open, every ``torch.distributed`` all-reduce, all-gather and
+    broadcast appends ``(kind, elements, bytes)`` of the tensor it gives
+    (an all-gather's: the whole list it fills) to ``calls``."""
+    import torch.distributed as dist
+
+    real = {k: getattr(dist, k) for k in COLLECTIVES}
+
+    def counting(kind):
+        def call(first, *args, **kw):
+            t = args[0] if kind == "all_gather" else first
+            n = t.numel() * (len(first) if kind == "all_gather" else 1)
+            calls.append((kind, n, n * t.element_size()))
+            return real[kind](first, *args, **kw)
+        return call
+
+    for k in COLLECTIVES:
+        setattr(dist, k, counting(k))
+    try:
+        yield
+    finally:
+        for k, fn in real.items():
+            setattr(dist, k, fn)
+
+
+def replay_collective(kind, n, group, device):
+    """A function that issues one collective of ``kind`` giving ``n``
+    float32 elements on ``group`` (for timing)."""
+    import torch
+    import torch.distributed as dist
+
+    world = dist.get_world_size(group)
+    buf = torch.zeros(n // world if kind == "all_gather" else n,
+                      device=device)
+    if kind == "all_gather":
+        outs = [torch.empty_like(buf) for _ in range(world)]
+        return lambda: dist.all_gather(outs, buf, group=group)
+    if kind == "broadcast":
+        src = dist.get_global_rank(group, 0)
+        return lambda: dist.broadcast(buf, src, group=group)
+    return lambda: dist.all_reduce(buf, group=group)
+
+
+def params_diff(ref, got):
+    """Parameters after a step against a reference's: per parameter the
+    largest difference over its largest entry; returns ``(all parameters
+    together, the worst of those, its parameter)``, relative."""
+    worst, worst_name, diff2, norm2 = 0.0, "", 0.0, 0.0
+    for k, r in ref.items():
+        r = r.detach().double().cpu()
+        d = got[k].detach().double().cpu() - r
+        rel = float(d.abs().max()) / max(float(r.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, k
+        diff2 += float(d.pow(2).sum())
+        norm2 += float(r.pow(2).sum())
+    return (diff2 / norm2) ** 0.5, worst, worst_name
+
+
+def params_held(name, ref, got):
+    """The parameters after a mesh step against those after the nearest of
+    the step without a mesh's outcomes (``mesh_reference``), within
+    ``PARAM_TOL``."""
+    diffs = [params_diff(o["after"], got) for o in ref["outcomes"]]
+    i = min(range(len(diffs)), key=lambda j: diffs[j][1])
+    glob, worst, worst_name = diffs[i]
+    log(f"  {name}: parameters after the step against outcome {i} of the "
+        f"step without a mesh: {glob:.3e} relative all together (tol "
+        f"{PARAM_TOL[0]:g}), worst {worst:.3e} ({worst_name}; tol "
+        f"{PARAM_TOL[1]:g}); against the others "
+        + (", ".join(f"{d[1]:.3e}" for j, d in enumerate(diffs) if j != i)
+           or "none"))
+    check(glob <= PARAM_TOL[0] and worst <= PARAM_TOL[1],
+          f"{name}: the parameters after the step disagree")
+    return dict(all=glob, worst=worst, worst_name=worst_name, outcome=i)
+
+
+def stats_held(name, ref, got, tol):
+    """Loss and ``sq_err`` of one step against the step without a mesh."""
+    rel = {k: float((got[k].double().cpu() - ref[k].double().cpu()).abs()
+                    .max() / ref[k].double().abs().max().cpu())
+           for k in ("loss", "sq_err")}
+    log(f"  {name}: loss rel diff {rel['loss']:.3e}, sq_err rel diff "
+        f"{rel['sq_err']:.3e} (tol {tol:g})")
+    check(max(rel.values()) <= tol, f"{name}: the step's loss or sq_err "
+          "disagree")
+    return rel
+
+
+def plain_mesh_twin(mt):
+    """The mesh trainer ``mt`` (a shallow copy: the same operands, mesh and
+    dropout stream) with its model on the plain float32 bit pools, its
+    embedding rows split as ``mt``'s."""
+    from stargcn_tpu_torch.models import STARGCN
+    from stargcn_tpu_torch.models.stargcn import feature_dims
+
+    twin = copy.copy(mt)
+    twin.model = STARGCN(dataclasses.replace(mt.model_cfg, bit_impl="xla"),
+                         feature_dims=feature_dims(mt.data_iter))
+    twin.model.to(mt.device)
+    mt.shardings.place_params(twin.model)
+    twin.model.load_state_dict(mt.model.state_dict())
+    return twin
+
+
+def whole_grads(owner, batch):
+    """``loss_and_grads`` of ``owner`` (dropout from seed 123), gradients
+    whole (gathered over 'model' on a mesh)."""
+    owner.seed_dropout(SEED)
+    stats, grads = owner.loss_and_grads(*batch)
+    if getattr(owner, "mesh", None) is not None:
+        grads = {k: owner._whole(k, g) for k, g in grads.items()}
+    return stats, grads
+
+
+# The step without a mesh, repeated from one checkpoint on one batch: its
+# kernels' step has many outcomes (``index_add_`` adds with atomics, and a
+# last-bit change upstream can flip a bf16 table entry of the bit kernels;
+# PR 2's repeat spread; 8 repeats gave 8 outcomes, PERF.md PR 17), so a
+# mesh step's gradients are held against the nearest of the outcomes these
+# repeats find, within twice the largest difference between two of them
+# (``MESH_TOL`` where that is wider), as phase 14 holds its bf16 step.
+REF_REPEATS = 12
+# The parameters after the step, against the nearest outcome's: all
+# together, and the worst parameter's largest difference over its largest
+# entry.  Adam moves an entry whose gradient nearly cancels by up to
+# ``lr`` on a last-bit change of that gradient, which splits the outcomes
+# in two clusters 1.4e-1 apart in one bias; within a cluster the worst
+# readings were 3.7e-5 to 9.5e-4 (PERF.md, PR 17).
+PARAM_TOL = (MESH_TOL[1], 5e-3)
+
+
+def mesh_reference(trainer, batch, ckpt):
+    """The step without a mesh from the checkpoint ``ckpt``:
+    ``REF_REPEATS`` times ``loss_and_grads`` through the kernels (dropout
+    from seed 123) and the optimiser's step on those gradients, as
+    ``train_iteration`` takes it; its distinct outcomes (stats, gradients,
+    parameters after), and the largest difference between two of them;
+    once through the plain float32 bit pools.  The trainer's own state
+    comes back."""
+    import torch
+
+    params0 = copy.deepcopy(trainer.model.state_dict())
+    opt0 = copy.deepcopy(trainer.opt.state_dict())
+    lr0 = trainer.lr
+    outcomes = []
+    try:
+        for _ in range(REF_REPEATS):
+            trainer.restore_checkpoint(ckpt)
+            stats, grads = whole_grads(trainer, batch)
+            trainer.opt.step(grads)
+            after = {k: v.detach().clone()
+                     for k, v in trainer.model.state_dict().items()}
+            same = [o for o in outcomes
+                    if all(torch.equal(o["grads"][k], g)
+                           for k, g in grads.items())
+                    and all(torch.equal(o["after"][k], v)
+                            for k, v in after.items())]
+            if same:
+                same[0]["repeats"] += 1
+                continue
+            outcomes.append(dict(stats=stats, grads=grads, after=after,
+                                 repeats=1))
+        trainer.restore_checkpoint(ckpt)
+        plain = whole_grads(plain_twin(trainer), batch)
+    finally:
+        trainer.model.load_state_dict(params0)
+        trainer.opt.load_state_dict(opt0)
+        trainer.set_lr(lr0)
+    spread = [(compare_grads((a["stats"], a["grads"]),
+                             (b["stats"], b["grads"])),
+               params_diff(a["after"], b["after"]))
+              for i, a in enumerate(outcomes) for b in outcomes[i + 1:]]
+    log(f"  the step without a mesh {REF_REPEATS} times: "
+        f"{len(outcomes)} outcomes ({[o['repeats'] for o in outcomes]} "
+        f"repeats); between two of them the gradients differ by up to "
+        f"{max([x[0][3] for x in spread], default=0.0):.3e} all together, "
+        f"{max([x[0][1] for x in spread], default=0.0):.3e} worst, the "
+        f"parameters after by up to "
+        f"{max([x[1][1] for x in spread], default=0.0):.3e} worst")
+    return dict(outcomes=outcomes, plain=plain, spread=dict(
+        grads_all=max([x[0][3] for x in spread], default=0.0),
+        grads_worst=max([x[0][1] for x in spread], default=0.0),
+        params_worst=max([x[1][1] for x in spread], default=0.0),
+        repeats=[o["repeats"] for o in outcomes]))
+
+
+def mesh_grads_held(what, ref, got, numbers):
+    """The mesh step's gradients against the step without a mesh: through
+    the kernels against the nearest of its outcomes, within twice their
+    spread (``MESH_TOL`` where that is wider); through the plain float32
+    pools against its one plain step, within ``MESH_TOL``."""
+    got_kernel, got_plain = got
+    spread = ref["spread"]
+    tol = (MESH_TOL[0], max(MESH_TOL[1], 2 * spread["grads_all"]),
+           max(MESH_TOL[2], 2 * spread["grads_worst"]))
+    fits = [compare_grads((o["stats"], o["grads"]), got_kernel)
+            for o in ref["outcomes"]]
+    i = min(range(len(fits)), key=lambda j: max(
+        fits[j][0] / tol[0], fits[j][3] / tol[1], fits[j][1] / tol[2]))
+    o = ref["outcomes"][i]
+    numbers["grads"] = held_against(
+        f"{what} vs no mesh (loss_and_grads, kernels; outcome {i} of "
+        f"{len(fits)})", (o["stats"], o["grads"]), got_kernel, tol)
+    numbers["grads"]["outcome"] = i
+    numbers["grads_plain"] = held_against(
+        f"{what} vs no mesh (loss_and_grads, plain float32 pools)",
+        ref["plain"], got_plain, MESH_TOL)
+
+
+def mesh_step(bd, mt, batch, calls):
+    """``loss_and_grads`` of the mesh trainer ``mt`` through the kernels
+    and through the plain float32 pools, and one ``train_iteration``
+    (dropout from seed 123): the kernel routes' bit launches counted from
+    0, the step's collectives appended to ``calls``; the gradients and the
+    parameters after the step whole."""
+    zero_launches(bd)
+    grads = whole_grads(mt, batch)
+    grad_launches = dict(bd.LAUNCHES)
+    plain = whole_grads(plain_mesh_twin(mt), batch)
+    mt.seed_dropout(SEED)
+    zero_launches(bd)
+    with counted_collectives(calls):
+        stats, t_step = host_s(lambda: mt.train_iteration(*batch))
+    return (grads, plain), stats, mt.whole_params(), grad_launches, dict(
+        bd.LAUNCHES), t_step
+
+
+def run_mesh_1x1(bd, trainer, cfg, it, model_cfg, ckpt, batch, ref,
+                 save_dir, card):
+    """Phase 17 (a): the ML-10M bitdense trainer on a 1 x 1 mesh over NCCL
+    (a world of one): one step against the step without a mesh, the launch
+    counts, the evaluation and the export against one process's, step
+    times and what the collectives cost."""
+    import numpy as np
+    import torch
+
+    from stargcn_tpu_torch.parallel import make_mesh
+    from stargcn_tpu_torch.serve import export_serving
+    from stargcn_tpu_torch.train import Trainer, TrainSettings
+
+    numbers, launches = {}, {}
+    mesh = make_mesh(1, 1, device=DEVICE)
+    check(mesh.backend == ("nccl" if DEVICE == "cuda" else "gloo"),
+          f"the 1x1 mesh runs on {mesh.backend}")
+    mt, t_build = host_s(lambda: Trainer(
+        model_cfg, it, TrainSettings.from_cfg(cfg),
+        save_dir=os.path.join(save_dir, "phase17"), device=DEVICE,
+        mesh=mesh))
+    mt.restore_checkpoint(ckpt)
+    log(f"  1x1 mesh trainer (NCCL): {t_build:.2f} s [{card}]")
+    calls = []
+    got_grads, stats, after, grad_l, step_l, _ = mesh_step(bd, mt, batch,
+                                                            calls)
+    for path, counts in (("mesh 1x1 loss_and_grads", grad_l),
+                         ("mesh 1x1 train_iteration", step_l)):
+        launches[path] = counts
+        check(counts["bit_expand_matmul"] == 4
+              and counts["bit_reduce_matmul"] == 4,
+              f"{path}: {counts} bit launches, not the 4 + 4 of the step "
+              "without a mesh")
+    numbers["held"] = {
+        "stats": stats_held("mesh 1x1 vs no mesh (train_iteration)",
+                            ref["outcomes"][0]["stats"], stats, MESH_TOL[0]),
+        "params": params_held("mesh 1x1 vs no mesh", ref, after)}
+    mesh_grads_held("mesh 1x1", ref, got_grads, numbers["held"])
+    per_step = len(calls)
+    numbers["collectives_per_step"] = per_step
+    numbers["collective_mb_per_step"] = sum(b for _, _, b in calls) / 1e6
+    numbers["collectives_by_kind"] = {
+        k: [sum(1 for c in calls if c[0] == k),
+            sum(c[2] for c in calls if c[0] == k) / 1e6]
+        for k in COLLECTIVES}
+    log(f"  one mesh step issues {per_step} collectives over NCCL, "
+        f"{numbers['collective_mb_per_step']:.1f} MB (count, MB by kind: "
+        f"{numbers['collectives_by_kind']}) [{card}]")
+
+    # Step times in turns, the parameters moving on in both (phase 17
+    # restores phase 4's trainer after).
+    times = {"mesh": [], "no_mesh": []}
+    mt.restore_checkpoint(ckpt)
+    trainer.restore_checkpoint(ckpt)
+    for _ in range(3):
+        for name, owner in (("no_mesh", trainer), ("mesh", mt)):
+            times[name].append(host_s(
+                lambda: owner.train_iteration(*batch))[1] * 1e3)
+    numbers["step_ms"] = {k: median(v) for k, v in times.items()}
+    # The collectives of one step alone: one of each kind and size the
+    # step issued, back to back by CUDA events.
+    group = mesh.group("model")
+    coll_ms = 0.0
+    for kind, n in sorted({(k, n) for k, n, _ in calls}):
+        coll_ms += cuda_ms(replay_collective(kind, n, group, DEVICE), 5) \
+            * sum(1 for c in calls if c[:2] == (kind, n))
+    torch.cuda.empty_cache()
+    numbers["collectives_ms"] = coll_ms
+    log(f"  step on the 1x1 mesh {numbers['step_ms']['mesh']:.1f} ms, "
+        f"without a mesh {numbers['step_ms']['no_mesh']:.1f} ms (host "
+        f"clock, median of 3 in turns); the step's collectives alone "
+        f"{coll_ms:.2f} ms on the card [{card}]")
+
+    # Evaluation and export of the same parameters, against one process's.
+    mt.restore_checkpoint(ckpt)
+    trainer.restore_checkpoint(ckpt)
+    zero_launches(bd)
+    rmse_mesh, t_eval = host_s(lambda: mt.evaluate("valid"))
+    launches["mesh 1x1 evaluate"] = dict(bd.LAUNCHES)
+    rmse_one = trainer.evaluate("valid")
+    err = float(np.abs(rmse_mesh - rmse_one).max())
+    log(f"  evaluate('valid') on the mesh {rmse_mesh.tolist()} vs one "
+        f"process {rmse_one.tolist()}: diff {err:.2e} (tol 1e-5), "
+        f"{t_eval:.2f} s [{card}]")
+    check(err <= 1e-5, "the mesh's evaluation disagrees")
+    zero_launches(bd)
+    art = export_serving(mt)
+    launches["mesh 1x1 export"] = dict(bd.LAUNCHES)
+    one = export_serving(trainer)
+    exp_err = max(rel_err(art.user_feats, one.user_feats),
+                  rel_err(art.item_feats, one.item_feats))
+    log(f"  export_serving on the mesh vs one process: {exp_err:.2e} "
+        f"relative (tol 1e-5)")
+    check(exp_err <= 1e-5, "the mesh's export disagrees")
+    numbers.update(valid_rmse=rmse_mesh.tolist(), eval_s=t_eval,
+                   eval_diff=err, export_rel=exp_err)
+    del mt
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def run_mesh_ranks_on_one_card(bd, trainer, cfg, it, model_cfg, ckpt, batch,
+                               ref, save_dir, card):
+    """Phase 17 (b): two processes on the one card over gloo (NCCL refuses
+    two ranks on one device), on a 1 x 2 and then a 2 x 1 mesh of the
+    ML-10M ``bitdense`` trainer (``--phases 17b``, the data iterator
+    passed pickled): each rank's step against the step without a mesh,
+    its launches and its rows of the packs, each process's peak memory."""
+    import pickle
+
+    import torch
+
+    work = os.path.join(save_dir, "phase17b")
+    os.makedirs(work, exist_ok=True)
+    with open(os.path.join(work, "iterator.pkl"), "wb") as f:
+        pickle.dump((cfg, it, model_cfg), f, protocol=5)
+    torch.save({"ckpt": ckpt, "batch": batch}, os.path.join(work, "in.pt"))
+    env = {**os.environ, "CHIP_SMOKE_MESH_DIR": work}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--phases",
+         "17b"], cwd=ROOT, env={**env, "CHIP_SMOKE_RANK": str(r)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith("  "):
+                log(f"  [rank {r}] {line.strip()}")
+        check(p.returncode == 0, f"--phases 17b rank {r} failed: "
+              f"{err[-3000:]}")
+    numbers, launches = {}, {}
+    for d, m in MESH_SHAPES_B:
+        for r in range(2):
+            got = torch.load(os.path.join(work, f"{d}x{m}_r{r}.pt"),
+                             weights_only=False)
+            what = f"mesh {d}x{m} rank {r} (gloo, one card)"
+            entry = {
+                "stats": stats_held(f"{what} vs no mesh",
+                                    ref["outcomes"][0]["stats"],
+                                    got["stats"], MESH_TOL[0]),
+                "params": params_held(what, ref, got["params"]),
+                "pack_rows": got["pack_rows"],
+                "peak_gib": got["peak_gib"], "step_ms": got["step_ms"],
+                "collectives_per_step": got["collectives_per_step"]}
+            mesh_grads_held(what, ref, got["grads"], entry)
+            whole = {t: trainer.variants.bit_pack("train")[t]["pf"].shape[0]
+                     for t in ("user", "item")}
+            for t in ("user", "item"):
+                check(got["pack_rows"][t] * m == whole[t],
+                      f"{what}: {got['pack_rows'][t]} of {whole[t]} "
+                      f"packed rows of the {t} pack, not 1/{m}")
+            for path, counts in (("loss_and_grads", got["grad_launches"]),
+                                 ("train_iteration", got["step_launches"])):
+                check(counts["bit_expand_matmul"] == 4
+                      and counts["bit_reduce_matmul"] == 4,
+                      f"{what} {path}: {counts}")
+                launches[f"mesh {d}x{m} rank {r} {path}"] = counts
+            log(f"  {what}: holds {got['pack_rows']} packed rows, peak "
+                f"{got['peak_gib']:.2f} GiB, step {got['step_ms']:.1f} ms "
+                f"[{card}]")
+            numbers[f"{d}x{m}_r{r}"] = entry
+    with open(os.path.join(work, "gloo_r0.json")) as f:
+        numbers["gloo_cuda_collectives"] = json.load(f)
+    log(f"  gloo on CUDA tensors: {numbers['gloo_cuda_collectives']} "
+        f"[{card}]")
+    return launches, numbers
+
+
+def mesh_rank_main(bd, card):
+    """``--phases 17b``: one rank of phase 17 (b), ``CHIP_SMOKE_RANK`` of
+    two on this card, joined over gloo through a file in
+    ``CHIP_SMOKE_MESH_DIR``; for each mesh of ``MESH_SHAPES_B`` the step of
+    ``mesh_step`` from the parent's checkpoint and batch, written there."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from stargcn_tpu_torch.parallel import initialize_distributed, make_mesh
+    from stargcn_tpu_torch.train import Trainer, TrainSettings
+
+    work = os.environ["CHIP_SMOKE_MESH_DIR"]
+    rank = int(os.environ["CHIP_SMOKE_RANK"])
+    initialize_distributed("file://" + os.path.join(work, "rendezvous"), 2,
+                           rank, device=DEVICE, backend="gloo")
+    with open(os.path.join(work, "iterator.pkl"), "rb") as f:
+        cfg, it, model_cfg = pickle.load(f)
+    inputs = torch.load(os.path.join(work, "in.pt"), weights_only=False)
+    for d, m in MESH_SHAPES_B:
+        mesh = make_mesh(d, m, device=DEVICE)
+        torch.cuda.reset_peak_memory_stats()
+        mt, t_build = host_s(lambda: Trainer(
+            model_cfg, it, TrainSettings.from_cfg(cfg), device=DEVICE,
+            mesh=mesh))
+        mt.restore_checkpoint(inputs["ckpt"])
+        calls = []
+        grads, stats, params, grad_l, step_l, t_step = mesh_step(
+            bd, mt, inputs["batch"], calls)
+        pack = mt.variants.bit_pack("train")
+        torch.save({
+            "grads": grads, "stats": stats, "params": params,
+            "grad_launches": grad_l, "step_launches": step_l,
+            "pack_rows": {t: pack[t]["pf"].local.shape[0]
+                          for t in ("user", "item")},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "step_ms": t_step * 1e3,
+            "collectives_per_step": len(calls),
+        }, os.path.join(work, f"{d}x{m}_r{rank}.pt"))
+        log(f"  {d}x{m}: trainer {t_build:.2f} s, train_iteration "
+            f"{t_step:.2f} s [{card}]")
+        del mt, pack
+        torch.cuda.empty_cache()
+    with open(os.path.join(work, f"gloo_r{rank}.json"), "w") as f:
+        json.dump(gloo_cuda_collectives(), f)
+    dist.destroy_process_group()
+
+
+def gloo_cuda_collectives():
+    """Which ``torch.distributed`` collectives gloo runs on CUDA tensors:
+    each tried once on a group with a 30 s timeout, ``"ok"`` or the error's
+    first line."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    group = dist.new_group(timeout=datetime.timedelta(seconds=30))
+    world = dist.get_world_size()
+    t = torch.ones(4 * world, device=DEVICE)
+    cases = {
+        "all_reduce": lambda: dist.all_reduce(t.clone(), group=group),
+        "broadcast": lambda: dist.broadcast(t.clone(), 0, group=group),
+        "reduce": lambda: dist.reduce(t.clone(), 0, group=group),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(t) for _ in range(world)], t, group=group),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            t.new_empty(world * t.numel()), t, group=group),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            t.new_empty(4), t, group=group),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(t), t, group=group),
+        "barrier": lambda: dist.barrier(group=group),
+    }
+    out = {}
+    for name, fn in cases.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 - the error is the finding
+            out[name] = f"{type(e).__name__}: " + (
+                str(e).strip().splitlines() or [""])[0][:160]
+    return out
+
+
+def run_mesh_cli(bd, save_dir, card):
+    """Phase 17 (c): ``python -m stargcn_tpu_torch.train --mesh 1x1`` on
+    ``transductive_ml_10m.yml`` (the CLI's synthetic graph, ``bitdense``, 4
+    steps) in a process of its own, its bit launches counted there; then
+    the multiprocess twin, whose two ranks share this card over gloo."""
+    out_dir = os.path.join(save_dir, "phase17_cli")
+    code = (
+        "import json, sys; sys.path.insert(0, %r)\n"
+        "from stargcn_tpu_torch.ops import bitdense as bd\n"
+        "from stargcn_tpu_torch.train.__main__ import main\n"
+        "r = main(sys.argv[1:])\n"
+        "print(json.dumps({'launches': bd.LAUNCHES, 'result': r}))\n"
+        % ROOT)
+    args = ["--cfg", os.path.join(ROOT, "configs", "transductive_ml_10m.yml"),
+            "--dataset", "synthetic", "--backend", "bitdense", "--mesh",
+            "1x1", "--max_iter", "4", "--save_dir", out_dir, "--silent",
+            "--device", DEVICE]
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code, *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    t_cli = time.perf_counter() - t0
+    check(out.returncode == 0, f"the train CLI with --mesh 1x1 failed: "
+          f"{out.stderr[-3000:]}")
+    last = json.loads(out.stdout.strip().splitlines()[-1])
+    counts = last["launches"]
+    # 4 steps of 4 + 4 and the closing test evaluation's expands.
+    check(counts["bit_reduce_matmul"] == 16
+          and counts["bit_expand_matmul"] >= 16,
+          f"the --mesh 1x1 CLI launched {counts}")
+    log(f"  train CLI --mesh 1x1: {t_cli:.1f} s in a process of its own, "
+        f"{counts['bit_expand_matmul']} + {counts['bit_reduce_matmul']} bit "
+        f"launches, result {last['result']} [{card}]")
+    t0 = time.perf_counter()
+    twin = subprocess.run(
+        [sys.executable, "-m", "stargcn_tpu_torch.parallel.multiprocess_train",
+         "--device", DEVICE],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    t_twin = time.perf_counter() - t0
+    check(twin.returncode == 0 and "MULTIPROCESS RUN PASSED" in twin.stdout,
+          f"the multiprocess twin failed: {twin.stdout[-2000:]}"
+          f"{twin.stderr[-2000:]}")
+    log(f"  {twin.stdout.strip().splitlines()[-1]}: {t_twin:.1f} s [{card}]")
+    return {"mesh 1x1 train CLI": counts}, {"cli_s": t_cli,
+                                            "twin_s": t_twin}
+
+
+def shard_kernel_checks(bd, card):
+    """The four bit kernels on row shards of a pack (``row0``): shards that
+    cross rating levels, shards of whole 128-row blocks of a
+    row-interleaved pack, a shard of one level and the whole pack as one
+    shard; each against its plain version on the same shard fed the
+    bf16-rounded operand, the shards' expands (each its own rows) stacked
+    equal bit for bit to the whole pack's expand and their reduces adding
+    up to its reduce within 1e-5 of its largest entry.  Returns ``{kernel: worst max abs error}``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(SEED)
+    worst = {k: 0.0 for k in bd.LAUNCHES}
+    for R, D, S, F, route, cuts in (
+            (5, 2000, 1500, 65, "", (0, 640, 1280)),
+            (5, 2000, 1500, 65, "", (0, 300, 700, 1280)),
+            (10, 300, 70000, 65, "", (0, 1280)),
+            (10, 300, 70000, 65, "", (0, 640, 1280)),
+            (5, 2000, 1500, 81, "16", (0, 640, 1280)),
+            (10, 2000, 1500, 65, "16", (0, 1280, 2560)),
+            (3, 2000, 1500, 300, "", (0, 256, 768))):
+        e = 40000
+        P, d8 = bd.pack_bits(rng.randint(0, D, e), rng.randint(0, S, e),
+                             rng.randint(0, R, e), R, D, S,
+                             row_interleave=128 if route else 0)
+        P = torch.from_numpy(P).to(DEVICE)
+        s_pad = P.shape[1]
+        check(cuts[-1] == R * d8, f"cuts {cuts} of {R * d8} rows")
+        x = torch.from_numpy(rng.randn(s_pad, F).astype(np.float32)).to(
+            DEVICE)
+        g = torch.from_numpy(rng.randn(R, s_pad, F).astype(np.float32)).to(
+            DEVICE)
+        expand = getattr(bd, f"bit_expand_matmul{route}")
+        reduce = getattr(bd, f"bit_reduce_matmul{route}")
+        pe = getattr(bd, f"xla_expand_matmul{route}")
+        pr = getattr(bd, f"xla_reduce_matmul{route}")
+        xr, gr = x.to(torch.bfloat16).float(), g.to(torch.bfloat16).float()
+        whole_e, whole_r = expand(P, x, R, d8), reduce(P, g, R, d8)
+        # (R, 8, d8, F) -> packed rows (R * d8, 8, F), a shard's layout.
+        whole_e = whole_e.permute(0, 2, 1, 3).reshape(R * d8, 8, F)
+        parts_e = []
+        sum_r = torch.zeros_like(whole_r)
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            shard = P[lo:hi].contiguous()
+            got_e = expand(shard, x, R, d8, row0=lo)
+            got_r = reduce(shard, g, R, d8, row0=lo)
+            again = reduce(shard, g, R, d8, row0=lo)
+            check(torch.equal(got_r, again), "a shard's reduce repeated "
+                  "gave other bits")
+            for name, got, want in (
+                    (f"bit_expand_matmul{route}", got_e,
+                     pe(shard, xr, R, d8, row0=lo)),
+                    (f"bit_reduce_matmul{route}", got_r,
+                     pr(shard, gr, R, d8, row0=lo))):
+                err, tol, scale = _sub_err(got, want)
+                worst[name] = max(worst[name], err)
+                check(err <= tol, f"{name} on rows [{lo}, {hi}) of R={R} "
+                      f"d8={d8} F={F}: max_abs_err {err:.3e} > {tol:.3e}")
+            parts_e.append(got_e)
+            sum_r += got_r
+        check(torch.equal(torch.cat(parts_e), whole_e), f"R={R} F={F} "
+              f"route {route or 'natural'}: the shards' expands stacked are "
+              "not the whole pack's")
+        err, _, scale = _sub_err(sum_r, whole_r)
+        check(err <= 1e-5 * max(scale, 1.0), f"R={R} F={F}: the shards' "
+              f"reduces add up to {err:.3e} off the whole pack's")
+        log(f"  row shards {list(zip(cuts[:-1], cuts[1:]))} of an R={R} "
+            f"d8={d8} S_pad={s_pad} F={F} "
+            f"{'row-interleaved ' if route else ''}pack: kernels = plain "
+            f"versions, expands stack bit for bit, reduces to {err:.2e} "
+            f"[{card}]")
+    return worst
+
+
+def run_phase17(bd, trainer, cfg, it, model_cfg, save_dir, card):
+    """Phase 17: full-graph training on a device mesh at ML-10M width on
+    phase 4's graph (its trainer's state restored after).  Returns the
+    launch counts of its paths and its numbers."""
+    import torch
+
+    t0 = time.perf_counter()
+    numbers, launches = {}, {}
+    log("  the bit kernels on row shards of a pack")
+    numbers["shard_worst"] = shard_kernel_checks(bd, card)
+    ckpt = trainer.save_checkpoint("phase17")
+    rs = it.rating_sampler(batch_size=trainer.s.rating_batch_size,
+                           segment="train")
+    recon = it.recon_nodes_sampler(batch_size=trainer.s.recon_batch_size)
+    batch = next_batches(trainer, rs, recon)
+    ref = mesh_reference(trainer, batch, ckpt)
+    numbers["reference_spread"] = ref["spread"]
+    log("  (a) a 1x1 mesh over NCCL")
+    got, numbers["mesh_1x1"] = run_mesh_1x1(
+        bd, trainer, cfg, it, model_cfg, ckpt, batch, ref, save_dir, card)
+    launches.update(got)
+    log("  (b) two ranks on the one card over gloo: 1x2, then 2x1")
+    got, numbers["ranks_on_one_card"] = run_mesh_ranks_on_one_card(
+        bd, trainer, cfg, it, model_cfg, ckpt, batch, ref, save_dir, card)
+    launches.update(got)
+    del ref
+    torch.cuda.empty_cache()
+    log("  (c) the train CLI with --mesh 1x1, and the multiprocess twin")
+    got, numbers["cli"] = run_mesh_cli(bd, save_dir, card)
+    launches.update(got)
+    trainer.restore_checkpoint(ckpt)
+    numbers["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 17 took {numbers['phase_s']:.1f} s on the host clock "
+        f"[{card}]")
+    return launches, numbers
+
+
 def kernel_row(name, source, replaces, launches, worst, shapes):
     """One entry of the ``kernels`` line: the times are means over the
     directions measured (``shapes`` holds each)."""
@@ -5930,30 +6611,34 @@ def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--phases", default=None,
-        help="comma-separated phases out of 11 to 16 (those "
+        help="comma-separated phases out of 11 to 17 (those "
              "that build their own data) to run alone after phases 1 and 2, "
              "in a process that ran no other phase (13b: phase 13's ML-1M "
              "part alone, which phase 13 runs so; 15b: phase 15's query "
-             "timing on saved artifacts, which phase 15 runs so); default: "
+             "timing on saved artifacts, which phase 15 runs so; 17b: one "
+             "rank of phase 17 (b), which phase 17 runs so); default: "
              "every phase")
     args = ap.parse_args(argv)
     if args.phases is None:
         return None
     phases = {p.strip() for p in args.phases.split(",")}
     if not phases or not phases <= {"11", "12", "13", "13b", "14", "15",
-                                    "15b", "16"}:
-        ap.error("--phases takes 11, 12, 13, 13b, 14, 15, 15b or 16, "
-                 "comma-separated")
+                                    "15b", "16", "17", "17b"}:
+        ap.error("--phases takes 11, 12, 13, 13b, 14, 15, 15b, 16, 17 or "
+                 "17b, comma-separated")
     return phases
 
 
 def run_phases_alone(bd, ek, card, phases):
-    """``--phases``: phases 11 to 16 without the phases before them
-    (phases 13 to 16 build phase 4's ML-10M graph and trainer first); their
+    """``--phases``: phases 11 to 17 without the phases before them
+    (phases 13 to 17 build phase 4's ML-10M graph and trainer first); their
     numbers on one line."""
     import torch
 
     numbers = {}
+    if "17b" in phases:
+        mesh_rank_main(bd, card)
+        return
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as save_dir:
         if "15b" in phases:
             log("== 15 (b). recommend latency on saved artifacts")
@@ -5974,10 +6659,10 @@ def run_phases_alone(bd, ek, card, phases):
             numbers["inductive_ml1m"], _ = run_inductive_slice(
                 bd, ek, card, save_dir)
             torch.cuda.empty_cache()
-        if phases & {"13", "14", "15", "16"}:
+        if phases & {"13", "14", "15", "16", "17"}:
             from stargcn_tpu_torch.train import Trainer, TrainSettings
 
-            log("== 4. set-up (for phases 13 to 16): ML-10M graph, "
+            log("== 4. set-up (for phases 13 to 17): ML-10M graph, "
                 "iterator, trainer")
             (cfg, it, model_cfg), t_graph = host_s(build_ml10m)
             trainer = Trainer(model_cfg, it, TrainSettings.from_cfg(cfg),
@@ -6005,6 +6690,12 @@ def run_phases_alone(bd, ek, card, phases):
             launches, numbers["phase16"] = run_phase16(bd, trainer, cfg,
                                                        save_dir, card)
             numbers["phase16"]["launches_by_path"] = launches
+        if "17" in phases:
+            log("== 17. slice: full-graph training on a device mesh at "
+                "ML-10M (1x1 over NCCL; 1x2 and 2x1 over gloo on one card)")
+            launches, numbers["mesh"] = run_phase17(
+                bd, trainer, cfg, it, model_cfg, save_dir, card)
+            numbers["mesh"]["launches_by_path"] = launches
     if numbers:
         log(json.dumps(numbers))
 
@@ -6159,6 +6850,12 @@ def main(argv=None):
                                                         save_dir, card)
         torch.cuda.empty_cache()
 
+        log("== 17. slice: full-graph training on a device mesh at ML-10M "
+            "(1x1 over NCCL; 1x2 and 2x1 over gloo on one card)")
+        phase17_launches, phase17_numbers = run_phase17(
+            bd, trainer, cfg, it, model_cfg, save_dir, card)
+        torch.cuda.empty_cache()
+
         log("== 10. probes: probe_bitcast and probe_int8_mma")
         probe_launches, probe_worst, probe_shapes = run_probes(card)
 
@@ -6275,14 +6972,17 @@ def main(argv=None):
                 row.setdefault("launches_by_path", {})[path] = counts[
                     row["name"]]
     # Phase 16's paths, each with the counts set to 0 just before it: the
-    # profiled fit and the StepTimer's steps.
+    # profiled fit and the StepTimer's steps; phase 17's: the 1x1 mesh's
+    # step, evaluation and export, each rank's step on 1x2 and 2x1, and the
+    # --mesh 1x1 train CLI.
     for row in rows:
-        for path, counts in phase16_launches.items():
+        for path, counts in {**phase16_launches, **phase17_launches}.items():
             if counts.get(row["name"]):
                 row.setdefault("launches_by_path", {})[path] = counts[
                     row["name"]]
     for row, kind in ((rows[0], "expand"), (rows[1], "reduce")):
         row["walk_by_f"] = {str(F): walks[F][kind] for F in walks}
+    log(json.dumps({"mesh": phase17_numbers}))
     log(json.dumps({"phase16": phase16_numbers}))
     log(json.dumps({"phase15": phase15_numbers}))
     log(json.dumps({"model_options": option_numbers}))

@@ -20,8 +20,10 @@ on the ``bitdense`` backend; and sampled mini-batch
 training (``graph.sampling.BlockSampler`` -> ``models.sampled.StackedPlan``
 -> ``train.SampledTrainer``), whose ``pallas`` backend pools every frontier
 through the three ELL kernels of ``ops.ell_kernels`` (``ell_spmm_fwd_only``,
-``ell_spmm_transpose``, ``ell_sddmm``).  Entry points run on
-``device="cuda"`` unless the caller asks for ``device="cpu"``.
+``ell_spmm_transpose``, ``ell_sddmm``).  Full-graph training also runs on
+a device mesh of ranks over ``torch.distributed`` (``parallel``).  Entry
+points run on ``device="cuda"`` unless the caller asks for
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"

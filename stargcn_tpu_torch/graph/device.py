@@ -121,15 +121,22 @@ class BipartiteGraphData:
         return pos, self.lookup_keys[pos] == q
 
     def edge_mask_from_pairs(self, pairs_user, pairs_item, pairs_valid,
-                             base_mask):
+                             base_mask, offset: int = 0):
         """``base_mask`` with the edges named by the valid (user, item)
         pairs set to 0: a binary search over the sorted pair keys and one
         ``amin`` scatter.  A miss writes the current value of whatever
         edge its search lands on, so misses, and pairs that repeat, leave
-        every other edge as it was."""
+        every other edge as it was.
+
+        ``base_mask`` may be one slice of the padded edges, those from
+        ``offset`` on (a rank's edge shard on a device mesh, the lookup
+        arrays whole): pairs whose edges lie outside it change nothing."""
         pos, found = self.lookup_pairs(pairs_user, pairs_item)
         hit = found & (pairs_valid > 0)
-        edge_idx = self.lookup_perm[pos].long()
+        edge_idx = self.lookup_perm[pos].long() - offset
+        inside = (edge_idx >= 0) & (edge_idx < base_mask.shape[0])
+        hit = hit & inside
+        edge_idx = torch.where(inside, edge_idx, torch.zeros_like(edge_idx))
         current = base_mask.index_select(0, edge_idx)
         return base_mask.scatter_reduce(
             0, edge_idx, torch.where(hit, torch.zeros_like(current),
@@ -149,7 +156,14 @@ class EdgeSet:
     ``xla`` backend, and of ``dense`` when no adjacency was built.
     ``mask`` is ``(E_pad,)`` float, 1 for the edges of the step's graph
     (the variant's mask, with any per-batch removal already applied); the
-    forward multiplies in the pad mask itself."""
+    forward multiplies in the pad mask itself.
+
+    On a device mesh ``graph`` holds one rank's slice of the edges and
+    ``mask`` its slice of the mask, and ``shard`` is the
+    ``parallel.shardings.ShardedGraph`` that places them (the 'model'
+    group, the slice's offset, the padded edge count): the forward sums
+    the rank's edges and adds the ranks' sums over the group."""
 
     graph: BipartiteGraphData
     mask: torch.Tensor
+    shard: object = None

@@ -18,7 +18,11 @@ The port of ``MultiLinkGCNAggregator`` and ``GCNAggregator`` from
   (``xla``) only;
 * with a compute ``dtype`` (``MODEL.COMPUTE_DTYPE``) the source features,
   weight and bias are cast to it on every call; the parameters stay
-  float32.
+  float32;
+* on a device mesh whose ranks hold slices of the edge arrays
+  (``Relation.shard``), the replicated projection enters through
+  ``parallel.collectives.enter`` and the rank's partial sums leave
+  through ``leave``; the bit pool carries its own collectives.
 
 Parameters: ``weight`` ``(num_links, in_units, link_units)`` and ``bias``
 ``(num_links, link_units)``, the flax layout.
@@ -45,6 +49,7 @@ from stargcn_tpu_torch.ops.agg import (
 from stargcn_tpu_torch.ops.gather import take_rows
 from stargcn_tpu_torch.ops.bitdense import bit_multi_link_aggregate
 from stargcn_tpu_torch.ops.chunked_ell import ell_multi_link_aggregate
+from stargcn_tpu_torch.parallel.collectives import enter, leave
 
 
 class MultiLinkGCNAggregator(nn.Module):
@@ -121,12 +126,17 @@ class MultiLinkGCNAggregator(nn.Module):
             out = (pooled.reshape(pooled.shape[0], -1)
                    if self.accum == "stack" else pooled.sum(dim=1))
         else:
+            shard = rel.shard
+            if shard is not None:
+                proj = enter(proj, shard.group)
             out = multi_link_aggregate(
                 proj, rel.edge_src, rel.edge_dst, rel.edge_rating,
                 rel.support, num_dst, accum=self.accum,
                 backend=self.backend, dense_support=rel.dense_support,
                 dense_transposed=rel.dense_transposed,
                 edge_chunk=self.edge_chunk)
+            if shard is not None:
+                out = leave(out, shard.group)
         return act(out)
 
     def _per_edge(self, x_src, weight, bias, rel, num_dst, train,
@@ -144,13 +154,27 @@ class MultiLinkGCNAggregator(nn.Module):
             raise ValueError("GCN.DROPOUT_PER_EDGE reads the flat edge "
                              "arrays (the xla backend)")
         R = self.weight.shape[0]
-        msg = dropout(take_rows(x_src, rel.edge_src.long()),
-                      self.dropout_rate, train, generator)
+        shard = rel.shard
+        if shard is None:
+            msg = dropout(take_rows(x_src, rel.edge_src.long()),
+                          self.dropout_rate, train, generator)
+        else:
+            # The rank's edges: its rows of the mask the whole edge set
+            # draws, so every edge keeps the mask it has on one process.
+            msg = take_rows(enter(x_src, shard.group), rel.edge_src.long())
+            if train and self.dropout_rate > 0.0:
+                keep = msg.new_empty((shard.num_edges, msg.shape[1])) \
+                    .bernoulli_(1.0 - self.dropout_rate, generator=generator)
+                lo = shard.offset
+                msg = msg * keep[lo:lo + msg.shape[0]] \
+                    / (1.0 - self.dropout_rate)
         msg = torch.cat([msg, msg.new_ones(msg.shape[0], 1)], dim=1) \
             * rel.support[:, None]
         seg = rel.edge_dst.long() * R + rel.edge_rating.long()
         pooled = msg.new_zeros(num_dst * R, msg.shape[1]).index_add_(
             0, seg, msg).reshape(num_dst, R, -1)
+        if shard is not None:
+            pooled = leave(pooled, shard.group)
         w_aug = torch.cat([weight, bias[:, None, :]], dim=1)
         if self.ordinal_sharing:
             w_aug = torch.cumsum(w_aug, dim=0)

@@ -85,6 +85,13 @@ class BitStatic:
     d8_dst: int = 0
     d8_src: int = 0
     impl: str = "kernel"                # 'kernel' | 'kernel16' | 'plain'
+    # On a device mesh, the 'model' group of each pack split by rows over
+    # it (None: that pack is whole), and the first packed row of this
+    # rank's p_fwd and p_bwd.
+    fwd_group: object = None
+    bwd_group: object = None
+    fwd_row0: int = 0
+    bwd_row0: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,7 +103,10 @@ class Relation:
     removed and padded edges).  ``dense_support`` is a prebuilt ``(R,
     num_dst, num_src)`` support, or ``(R, num_src, num_dst)`` with
     ``dense_transposed``.  Where ``dense_static``, ``bit_static`` or
-    ``ell_static`` is set, the aggregation reads only that.
+    ``ell_static`` is set, the aggregation reads only that.  On a device
+    mesh ``shard`` (a ``parallel.shardings.ShardedGraph``) says that the
+    edge arrays are one rank's slice, whose partial sums are added over
+    its group.
     """
 
     num_links: int
@@ -109,6 +119,7 @@ class Relation:
     dense_static: Optional[DenseStatic] = None
     bit_static: Optional[BitStatic] = None
     ell_static: Optional[EllStatic] = None
+    shard: object = None
 
 
 class HeterGCNLayer(nn.Module):

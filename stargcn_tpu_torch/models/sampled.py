@@ -393,8 +393,9 @@ def _named(params):
 def _check_supported(cfg, row_sharding):
     if row_sharding is not None:
         raise NotImplementedError(
-            "row_sharding (the device mesh) is not ported yet: the sampled "
-            "forward runs on one device")
+            "row_sharding (the device mesh) is not ported yet: it comes "
+            "with the slice that ports SampledTrainer(mesh=), after the "
+            "full-graph mesh; the sampled forward runs on one device")
 
 
 class _Replay:

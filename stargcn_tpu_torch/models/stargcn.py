@@ -26,6 +26,12 @@ at every depth (``GCN.USE_RECURRENT``).  PyTorch states every input width
 where flax infers it, so the model takes the raw feature widths
 (``feature_dims``) when it projects features.
 
+On a device mesh (``parallel/shardings.py``) the same forward runs on
+every rank: embedding tables split by rows (``row_shards``, set by
+``GraphShardings.place_params``) are gathered whole, and the operands say
+what else is split (an ``EdgeSet`` with a ``shard``, bit packs of
+``Shard``s); everything after the aggregations is replicated.
+
 ``build_model_config``, ``resolve_backend`` and ``resolve_edge_chunk`` are
 the port of ``stargcn_tpu/train/loop.py:40-115``.
 """
@@ -58,6 +64,8 @@ from stargcn_tpu_torch.ops.agg import (
 )
 from stargcn_tpu_torch.ops.bitdense import pack_row_interleave, resolve_impl
 from stargcn_tpu_torch.ops.gather import onehot_segment_sum, take_rows
+from stargcn_tpu_torch.parallel.collectives import (all_reduce_, enter,
+                                                    gather_rows)
 
 BACKENDS = ("bitdense", "ell", "dense", "xla")
 
@@ -218,6 +226,19 @@ class STARGCN(nn.Module):
                     self.add_module(f"embed_map_b{p}_{key}_l1",
                                     dense(out_emb, out_emb, g, self.cdt))
         self.gen_ratings = InnerProductLayer()
+        # Parameter name -> parallel.shardings.Shard of the embedding
+        # tables split by rows over a mesh ('model'); empty on one process.
+        self.row_shards = {}
+
+    def embedding_table(self, key: str) -> torch.Tensor:
+        """The whole ``(N, E)`` embedding table of ``key`` ('user' or
+        'item'): the parameter, or on a mesh the rows of every rank
+        gathered (``collectives.gather_rows``)."""
+        w = getattr(self, f"embed_{key}").weight
+        shard = self.row_shards.get(f"embed_{key}.weight")
+        if shard is None:
+            return w
+        return gather_rows(w, shard.group)
 
     def project_features(self, user_features, item_features):
         """``{'user', 'item'}``: the raw features through their two-layer
@@ -235,7 +256,7 @@ class STARGCN(nn.Module):
                 variant_degrees, operands, removed_pairs=None, *,
                 graph=None, train: bool = False, generator=None,
                 return_rating_feats: bool = False, user_features=None,
-                item_features=None):
+                item_features=None, batch_group=None):
         """Forward over one graph variant.
 
         Args:
@@ -269,6 +290,12 @@ class STARGCN(nn.Module):
             ``generator``, a ``torch.Generator`` on the model's device.
           user_features / item_features: the raw feature matrices, read
             with ``use_fea_proj`` (never noise-masked).
+          batch_group: on a device mesh whose 'data' axis splits the
+            pairs, its process group: each block's rating projection then
+            runs on every node and enters the pairs' gather through
+            ``collectives.enter``, so the ranks' partial cotangents are
+            summed into the node states there and every step before it
+            (and every parameter's gradient) is whole on every rank.
 
         Returns a dict with ``pred_ratings`` ``(nblocks, B)`` (float32),
         ``pred_embed`` (per block ``{'user', 'item'}`` reconstructed
@@ -329,12 +356,12 @@ class STARGCN(nn.Module):
 
         gt_embed, feats = {}, {}
         if cfg.use_embed:
-            gt_embed = {"user": self.embed_user.weight,
-                        "item": self.embed_item.weight}
+            gt_embed = {"user": self.embedding_table("user"),
+                        "item": self.embedding_table("item")}
             feats = {
-                "user": _masked_embed(self.embed_user.weight, noise_user,
+                "user": _masked_embed(gt_embed["user"], noise_user,
                                       cfg.self_noise_only),
-                "item": _masked_embed(self.embed_item.weight, noise_item,
+                "item": _masked_embed(gt_embed["item"], noise_item,
                                       cfg.self_noise_only),
             }
         fea_proj = {}
@@ -355,9 +382,16 @@ class STARGCN(nn.Module):
                 feats, relations, train=train, generator=generator)
             user_proj = getattr(self, f"rating_user_proj_b{p}")
             item_proj = getattr(self, f"rating_item_proj_b{p}")
-            score = self.gen_ratings(
-                user_proj(take_rows(output["user"], pairs_user)),
-                item_proj(take_rows(output["item"], pairs_item)))
+            if batch_group is None:
+                score = self.gen_ratings(
+                    user_proj(take_rows(output["user"], pairs_user)),
+                    item_proj(take_rows(output["item"], pairs_item)))
+            else:
+                score = self.gen_ratings(
+                    take_rows(enter(user_proj(output["user"]), batch_group),
+                              pairs_user),
+                    take_rows(enter(item_proj(output["item"]), batch_group),
+                              pairs_item))
             pred_ratings.append(score[:, 0])
             if return_rating_feats and block_id == cfg.nblocks - 1:
                 rating_feats = {"user": user_proj(output["user"]),
@@ -421,11 +455,19 @@ def _edge_relations(cfg, edges: EdgeSet):
     """Relations over the edge arrays: degrees and per-edge support of the
     masked graph, and for ``dense`` the per-step dense support (one tensor,
     shared transposed between the two directions under the symmetric
-    norm)."""
+    norm).  On an edge shard the degrees are the ranks' partial sums added
+    over the shard's group (no gradient flows through them)."""
     g = edges.graph
+    shard = edges.shard
+    if shard is not None and cfg.backend == "dense":
+        raise ValueError("on a mesh the dense backend reads its adjacency, "
+                         "not an edge shard")
     mask = edges.mask * g.edge_pad_mask
     deg_u, deg_i = masked_degrees(g.edge_user, g.edge_item, mask,
                                   g.num_users, g.num_items)
+    if shard is not None:
+        deg_u, deg_i = (all_reduce_(d.detach().clone(), shard.group)
+                        for d in (deg_u, deg_i))
     if cfg.agg_norm_symm:
         sup_u = sup_i = edge_support(deg_u, deg_i, g.edge_user, g.edge_item,
                                      mask, symm=True)
@@ -453,11 +495,12 @@ def _edge_relations(cfg, edges: EdgeSet):
         ("user", "item"): Relation(
             g.num_links, edge_src=g.edge_item, edge_dst=g.edge_user,
             edge_rating=g.edge_rating, support=sup_u,
-            dense_support=dense_u),
+            dense_support=dense_u, shard=shard),
         ("item", "user"): Relation(
             g.num_links, edge_src=g.edge_user, edge_dst=g.edge_item,
             edge_rating=g.edge_rating, support=sup_i,
-            dense_support=dense_i, dense_transposed=transposed),
+            dense_support=dense_i, dense_transposed=transposed,
+            shard=shard),
     }
 
 
@@ -503,12 +546,21 @@ def _build_bit_static_operands(cfg, bit_pack, deg_u, deg_i,
     def make(t):
         p = bit_pack[t]
         rs, rd, rr, rw = rem[t]
+        pf, pb = p["pf"], p["pb"]
+        # On a mesh the layouts are parallel.shardings.Shard placements,
+        # each split by rows or replicated on its own.
+        split = [getattr(q, "sharded", False) for q in (pf, pb)]
+        rows_f, rows_b = (q.global_shape[0] if hasattr(q, "global_shape")
+                          else q.shape[0] for q in (pf, pb))
         return BitStatic(
-            p_fwd=p["pf"], p_bwd=p["pb"],
+            p_fwd=getattr(pf, "local", pf), p_bwd=getattr(pb, "local", pb),
             dst_scale=scales[t][0], src_scale=scales[t][1],
             rem_src=rs, rem_dst=rd, rem_rating=rr, rem_weight=rw,
-            d8_dst=p["pf"].shape[0] // cfg.num_links,
-            d8_src=p["pb"].shape[0] // cfg.num_links, impl=impl)
+            d8_dst=rows_f // cfg.num_links, d8_src=rows_b // cfg.num_links,
+            impl=impl, fwd_group=pf.group if split[0] else None,
+            bwd_group=pb.group if split[1] else None,
+            fwd_row0=pf.offset if split[0] else 0,
+            bwd_row0=pb.offset if split[1] else 0)
 
     return make("user"), make("item")
 

@@ -33,9 +33,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 SIGNATURES = {
     "bit_expand": ("bit_expand_matmul_launch",
-                   [_P, _P, _I, _P, _P, _P] + [_I] * 9 + [_P]),
+                   [_P, _P, _I, _P, _P, _P] + [_I] * 11 + [_P]),
     "bit_reduce": ("bit_reduce_matmul_launch",
-                   [_P, _P, _I, _L, _L, _P, _P, _P] + [_I] * 10 + [_P]),
+                   [_P, _P, _I, _L, _L, _P, _P, _P] + [_I] * 12 + [_P]),
     "ell_spmm": ("ell_spmm_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "ell_sddmm": ("ell_sddmm_launch", [_P, _P, _P, _P] + [_I] * 6 + [_P]),
     "ell_spmm_t": ("ell_spmm_t_launch",

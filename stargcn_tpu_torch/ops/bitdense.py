@@ -31,6 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from stargcn_tpu_torch.ops.gather import take_rows
+from stargcn_tpu_torch.parallel.collectives import (all_gather_rows,
+                                                    all_reduce_)
 
 _BM = 128
 _BS = 1024
@@ -183,8 +185,10 @@ _L2_TABLE = 24 << 20
 
 
 def walk_plan(s_pad: int, f: int, num_links: int = 1,
-              reduce: bool = False) -> dict:
-    """The launch plan of the bit kernels, from the shape alone.
+              reduce: bool = False, shard: bool = False) -> dict:
+    """The launch plan of the bit kernels, from the shape alone (and, for
+    the reduce, whether the pack is a row shard, whose units take one
+    level each).
 
     ``fp``: the bf16 table's padded width (a multiple of 8, so its rows are
     16-byte aligned); ``k`` register rounds of 128 columns per column tile
@@ -197,7 +201,7 @@ def walk_plan(s_pad: int, f: int, num_links: int = 1,
     fp = _round_up(max(f, 1), 8)
     k = 1 if fp <= _ROUND else 2
     stages = -(-s_pad // _STAGE)
-    whole = reduce and num_links * s_pad * fp * 2 <= _L2_TABLE
+    whole = reduce and not shard and num_links * s_pad * fp * 2 <= _L2_TABLE
     levels = num_links if whole else 1
     chain = reduce and levels < num_links
     np_ = _WARPS if chain or levels * stages >= 64 else 1
@@ -220,16 +224,18 @@ def bf16_table(v: torch.Tensor) -> torch.Tensor:
     return tab
 
 
-def _launch(name, lib, P, v, out, num_links, d8, ril):
+def _launch(name, lib, P, v, out, num_links, d8, ril, row0):
     """Launch ``ops/csrc/<lib>.cu`` on P's stream with ``walk_plan``'s
     geometry: it rounds ``v`` into a bf16 table (scratch allocated here),
-    then walks the pack.  Raise on a launch error, count the launch."""
+    then walks the pack (P's rows, from ``row0`` of the whole; None: the
+    whole pack).  Raise on a launch error, count the launch."""
     from stargcn_tpu_torch.ops import _build
 
     fn = _build.load(lib)
     reduce = lib == "bit_reduce"
     s_pad, f = P.shape[1], out.shape[-1]
-    plan = walk_plan(s_pad, f, num_links, reduce)
+    rows, shard = P.shape[0], row0 is not None
+    plan = walk_plan(s_pad, f, num_links, reduce, shard=shard)
     if num_links * s_pad >= 2**32:
         raise ValueError(f"{name}: num_links * S_pad exceeds uint32")
     tab = torch.empty(((num_links if reduce else 1) * s_pad, plan["fp"]),
@@ -239,12 +245,14 @@ def _launch(name, lib, P, v, out, num_links, d8, ril):
     operand = (v.data_ptr(), int(v.dtype == torch.bfloat16))
     if reduce:
         operand += (v.stride(0), v.stride(1))
-    head = (num_links, plan["levels"]) if reduce else (num_links * d8,)
+    head = (num_links, plan["levels"]) if reduce else (rows,)
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream(P.device).cuda_stream
         err = fn(P.data_ptr(), *operand, tab.data_ptr(), out.data_ptr(),
                  sync.data_ptr(), *head, s_pad, f, plan["fp"], plan["k"],
-                 plan["np"], plan["tiles"], d8, ril, stream)
+                 plan["np"], plan["tiles"], d8, ril,
+                 *((rows, row0 or 0) if reduce else (row0 or 0, int(shard))),
+                 stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
@@ -272,81 +280,112 @@ def _check_operands(name, P, v, what, dims):
         raise ValueError(f"{name}: dimension exceeds int32")
 
 
-def _expand(name, P, x, num_links, d8, ril):
+def check_rows(name, rows, num_links, d8, row0, ril=0):
+    """Check that a pack of ``rows`` packed rows is the whole ``(num_links
+    * d8)``-row pack (``row0`` None) or its rows ``[row0, row0 + rows)``,
+    in whole blocks of ``ril`` rows (the 16-bit route's interleave, which
+    permutes rows inside those blocks only)."""
+    total = num_links * d8
+    lo = 0 if row0 is None else row0
+    if (row0 is None and rows != total) or lo < 0 or rows <= 0 \
+            or lo + rows > total:
+        raise ValueError(
+            f"{name}: packed rows [{lo}, {lo + rows}) are not "
+            + ("the" if row0 is None else "within the")
+            + f" {total} rows of num_links={num_links}, d8={d8}")
+    if row0 is not None and ril and (row0 % ril or rows % ril):
+        raise ValueError(f"{name}: a row shard of a row_interleave={ril} "
+                         f"pack must hold whole blocks of {ril} rows")
+
+
+def _expand(name, P, x, num_links, d8, ril, row0):
     """``bit_expand_matmul`` (ril 0) or ``bit_expand_matmul16`` (ril = bm)
     on the card."""
     _check_operands(name, P, x, "x", 2)
     m8, s_pad = P.shape
     f = x.shape[1]
-    if m8 != num_links * d8 or x.shape[0] != s_pad:
+    if x.shape[0] != s_pad:
         raise ValueError(
             f"{name}: P {tuple(P.shape)} and x {tuple(x.shape)} do not fit "
             f"num_links={num_links}, d8={d8}")
+    check_rows(name, m8, num_links, d8, row0, ril)
     if not x.is_contiguous():
         raise ValueError(f"{name} takes contiguous x")
-    out = torch.empty((num_links, 8, d8, f), dtype=torch.float32,
-                      device=P.device)
+    out = torch.empty((num_links, 8, d8, f) if row0 is None else (m8, 8, f),
+                      dtype=torch.float32, device=P.device)
     if out.numel() == 0:
         return out
-    return _launch(name, "bit_expand", P, x, out, num_links, d8, ril)
+    return _launch(name, "bit_expand", P, x, out, num_links, d8, ril, row0)
 
 
-def _reduce(name, P, g, num_links, d8, ril):
+def _reduce(name, P, g, num_links, d8, ril, row0):
     """``bit_reduce_matmul`` (ril 0) or ``bit_reduce_matmul16`` (ril = bm)
     on the card."""
     _check_operands(name, P, g, "g", 3)
     m8, s_pad = P.shape
     f = g.shape[2]
-    if m8 != num_links * d8 or tuple(g.shape[:2]) != (num_links, s_pad):
+    if tuple(g.shape[:2]) != (num_links, s_pad):
         raise ValueError(
             f"{name}: P {tuple(P.shape)} and g {tuple(g.shape)} do not fit "
             f"num_links={num_links}, d8={d8}")
+    check_rows(name, m8, num_links, d8, row0, ril)
     if (f > 1 and g.stride(2) != 1) or min(g.stride()[:2]) < 0:
         raise ValueError(f"{name}: the last dimension of g must be "
                          f"contiguous (strides {g.stride()})")
-    out = torch.empty((8, d8, f), dtype=torch.float32, device=P.device)
+    # A shard leaves the rows m it holds no level of unwritten.
+    out = (torch.empty if row0 is None else torch.zeros)(
+        (8, d8, f), dtype=torch.float32, device=P.device)
     if out.numel() == 0:
         return out
-    return _launch(name, "bit_reduce", P, g, out, num_links, d8, ril)
+    return _launch(name, "bit_reduce", P, g, out, num_links, d8, ril, row0)
 
 
 def bit_expand_matmul(P: torch.Tensor, x: torch.Tensor, num_links: int,
-                      d8: int) -> torch.Tensor:
+                      d8: int, *, row0=None) -> torch.Tensor:
     """``out[r, b, m, f] = sum_s bit_b(P[r*d8+m, s]) x[s, f]``.
 
     Args:
-      P: ``(num_links * d8, S_pad)`` uint8, contiguous.
+      P: ``(num_links * d8, S_pad)`` uint8, contiguous; or with ``row0``
+        a row shard of that pack, its packed rows ``[row0, row0 +
+        P.shape[0])`` (one rank's rows on a device mesh).
       x: ``(S_pad, F)`` float32 or bfloat16, contiguous.
 
-    Returns ``(num_links, 8, d8, F)`` float32.  On the card
+    Returns ``(num_links, 8, d8, F)`` float32; on a row shard ``(rows, 8,
+    F)``, the shard's packed rows ``p`` (``out[p - row0, b] = out_whole[p
+    // d8, b, p % d8]``), so the ranks' outputs stacked in row order are
+    the whole pack's in packed-row-major order.  On the card
     ``ops/csrc/bit_expand.cu`` rounds x to bf16 once (into the table of
     ``bf16_table``) and sums in f32, as the TPU kernel does.  On the CPU it
     is ``xla_expand_matmul`` in x's own precision, as the JAX package's CPU
     path is.
     """
     if P.device.type == "cpu" and x.device.type == "cpu":
-        return xla_expand_matmul(P, x, num_links, d8)
-    return _expand("bit_expand_matmul", P, x, num_links, d8, 0)
+        return xla_expand_matmul(P, x, num_links, d8, row0=row0)
+    return _expand("bit_expand_matmul", P, x, num_links, d8, 0, row0)
 
 
 def bit_expand_matmul16(P: torch.Tensor, x: torch.Tensor, num_links: int,
-                        d8: int, *, bm: int = _BM) -> torch.Tensor:
-    """``bit_expand_matmul`` on a pack built with ``row_interleave=bm``:
-    the output is ``(num_links, 8, d8, F)`` float32 in natural destination
-    order.  On the card this launches ``ops/csrc/bit_expand.cu`` with the
-    row map, which gives the bits ``bit_expand_matmul`` gives on the
-    natural pack; on the CPU it is ``xla_expand_matmul16``."""
+                        d8: int, *, bm: int = _BM,
+                        row0=None) -> torch.Tensor:
+    """``bit_expand_matmul`` on a pack built with ``row_interleave=bm``
+    (or on a row shard of it in whole blocks of ``bm`` rows): the output
+    is ``bit_expand_matmul``'s in natural destination order.  On
+    the card this launches ``ops/csrc/bit_expand.cu`` with the row map,
+    which gives the bits ``bit_expand_matmul`` gives on the natural pack;
+    on the CPU it is ``xla_expand_matmul16``."""
     _check_ril("bit_expand_matmul16", d8, bm)
     if P.device.type == "cpu" and x.device.type == "cpu":
-        return xla_expand_matmul16(P, x, num_links, d8, bm=bm)
-    return _expand("bit_expand_matmul16", P, x, num_links, d8, bm)
+        return xla_expand_matmul16(P, x, num_links, d8, bm=bm, row0=row0)
+    return _expand("bit_expand_matmul16", P, x, num_links, d8, bm, row0)
 
 
 def xla_expand_matmul(P: torch.Tensor, x: torch.Tensor, num_links: int,
-                      d8: int, chunk_bytes: int = 1 << 29) -> torch.Tensor:
+                      d8: int, chunk_bytes: int = 1 << 29, *,
+                      row0=None) -> torch.Tensor:
     """Plain PyTorch version of ``bit_expand_matmul`` (the counterpart of
     ``stargcn_tpu.ops.bitdense.xla_expand_matmul``): unpack the eight bit
-    planes and contract with x, in x's own precision with an f32 sum.
+    planes and contract with x, in x's own precision with an f32 sum; on a
+    row shard (``row0``) the shard's rows alone, in its layout.
 
     Works over blocks of packed rows whose f32 planes stay under
     ``chunk_bytes``, so it also runs at the full ML-10M shape, where all
@@ -355,6 +394,7 @@ def xla_expand_matmul(P: torch.Tensor, x: torch.Tensor, num_links: int,
     """
     m8, s_pad = P.shape
     f = x.shape[1]
+    check_rows("xla_expand_matmul", m8, num_links, d8, row0)
     # bf16 values are exact in f32, so an f32 contraction is the JAX
     # function's bf16 product with f32 accumulation.
     xf = x.float()
@@ -365,25 +405,39 @@ def xla_expand_matmul(P: torch.Tensor, x: torch.Tensor, num_links: int,
         blk = P[lo:lo + rows]
         planes = ((blk[None] >> shifts[:, None, None]) & 1).float()
         out[:, lo:lo + rows] = torch.matmul(planes, xf)
+    if row0 is not None:
+        return out.transpose(0, 1)
     return out.reshape(8, num_links, d8, f).permute(1, 0, 2, 3)
 
 
 def xla_expand_matmul16(P: torch.Tensor, x: torch.Tensor, num_links: int,
-                        d8: int, *, bm: int = _BM) -> torch.Tensor:
+                        d8: int, *, bm: int = _BM,
+                        row0=None) -> torch.Tensor:
     """Plain PyTorch version of ``bit_expand_matmul16``: the natural plain
     version on the physical rows, then the inverse of the row map on the
-    ``d8`` axis of its output (the pack itself is never copied)."""
-    out = xla_expand_matmul(P, x, num_links, d8)
-    phys = natural_to_physical(torch.arange(d8, device=P.device), bm)
-    return out.index_select(2, phys)
+    ``d8`` axis of its output, or on a shard's rows (the pack itself is
+    never copied)."""
+    check_rows("xla_expand_matmul16", P.shape[0], num_links, d8, row0, bm)
+    out = xla_expand_matmul(P, x, num_links, d8, row0=row0)
+    if row0 is None:
+        phys = natural_to_physical(torch.arange(d8, device=P.device), bm)
+        return out.index_select(2, phys)
+    # Natural row q of the shard is physical row r * d8 + phys(q % d8);
+    # a shard of whole blocks holds both.
+    q = torch.arange(row0, row0 + P.shape[0], device=P.device)
+    src = q - q % d8 + natural_to_physical(q % d8, bm) - row0
+    return out.index_select(0, src)
 
 
 def bit_reduce_matmul(P: torch.Tensor, g: torch.Tensor, num_links: int,
-                      d8: int) -> torch.Tensor:
+                      d8: int, *, row0=None) -> torch.Tensor:
     """``out[b, m, f] = sum_{r, s} bit_b(P[r*d8+m, s]) g[r, s, f]``.
 
     Args:
-      P: ``(num_links * d8, S_pad)`` uint8, contiguous.
+      P: ``(num_links * d8, S_pad)`` uint8, contiguous; or with ``row0``
+        a row shard of that pack, its packed rows ``[row0, row0 +
+        P.shape[0])``, when the sum runs over the shard's rows alone (one
+        rank's partial sum on a device mesh).
       g: ``(num_links, S_pad, F)`` float32 or bfloat16, rating-major as in
         the JAX package.  Its last dimension must be contiguous; the two
         row strides are free, so a ``permute(1, 0, 2)`` view of an
@@ -396,54 +450,67 @@ def bit_reduce_matmul(P: torch.Tensor, g: torch.Tensor, num_links: int,
     path is.
     """
     if P.device.type == "cpu" and g.device.type == "cpu":
-        return xla_reduce_matmul(P, g, num_links, d8)
-    return _reduce("bit_reduce_matmul", P, g, num_links, d8, 0)
+        return xla_reduce_matmul(P, g, num_links, d8, row0=row0)
+    return _reduce("bit_reduce_matmul", P, g, num_links, d8, 0, row0)
 
 
 def bit_reduce_matmul16(P: torch.Tensor, g: torch.Tensor, num_links: int,
-                        d8: int, *, bm: int = _BM) -> torch.Tensor:
-    """``bit_reduce_matmul`` on a pack built with ``row_interleave=bm``:
-    the output is ``(8, d8, F)`` float32 in natural order at every F.  On
-    the card this launches ``ops/csrc/bit_reduce.cu`` with the row map; on
-    the CPU it is ``xla_reduce_matmul16``."""
+                        d8: int, *, bm: int = _BM,
+                        row0=None) -> torch.Tensor:
+    """``bit_reduce_matmul`` on a pack built with ``row_interleave=bm``
+    (or on a row shard of it in whole blocks of ``bm`` rows): the output
+    is ``(8, d8, F)`` float32 in natural order at every F.  On the card
+    this launches ``ops/csrc/bit_reduce.cu`` with the row map; on the CPU
+    it is ``xla_reduce_matmul16``."""
     _check_ril("bit_reduce_matmul16", d8, bm)
     if P.device.type == "cpu" and g.device.type == "cpu":
-        return xla_reduce_matmul16(P, g, num_links, d8, bm=bm)
-    return _reduce("bit_reduce_matmul16", P, g, num_links, d8, bm)
+        return xla_reduce_matmul16(P, g, num_links, d8, bm=bm, row0=row0)
+    return _reduce("bit_reduce_matmul16", P, g, num_links, d8, bm, row0)
 
 
 def xla_reduce_matmul(P: torch.Tensor, g: torch.Tensor, num_links: int,
-                      d8: int, chunk_bytes: int = 1 << 29) -> torch.Tensor:
+                      d8: int, chunk_bytes: int = 1 << 29, *,
+                      row0=None) -> torch.Tensor:
     """Plain PyTorch version of ``bit_reduce_matmul`` (the counterpart of
     ``stargcn_tpu.ops.bitdense.xla_reduce_matmul``, same rating-major
     ``(R, S_pad, F)`` cotangent): unpack the eight bit planes and contract
-    with g over (r, s), in g's own precision with an f32 sum.
+    with g over (r, s), in g's own precision with an f32 sum; on a row
+    shard (``row0``) over the shard's rows alone.
 
     Works over blocks of packed rows whose f32 planes stay under
     ``chunk_bytes``, like ``xla_expand_matmul``.  Returns ``(8, d8, F)``
     float32.
     """
-    s_pad = P.shape[1]
+    m8, s_pad = P.shape
     f = g.shape[2]
+    check_rows("xla_reduce_matmul", m8, num_links, d8, row0)
+    row0 = row0 or 0
     gf = g.float()
     shifts = torch.arange(8, dtype=torch.uint8, device=P.device)
     rows = max(1, chunk_bytes // max(1, 8 * s_pad * 4))
     out = torch.zeros((8, d8, f), dtype=torch.float32, device=P.device)
+    # Every output row adds its levels in the order r = 0, 1, ...
     for lo in range(0, d8, rows):
         hi = min(lo + rows, d8)
         for r in range(num_links):
-            blk = P[r * d8 + lo:r * d8 + hi]
+            a = max(r * d8 + lo, row0)
+            b = min(r * d8 + hi, row0 + m8)
+            if a >= b:
+                continue
+            blk = P[a - row0:b - row0]
             planes = ((blk[None] >> shifts[:, None, None]) & 1).float()
-            out[:, lo:hi] += torch.matmul(planes, gf[r])
+            out[:, a - r * d8:b - r * d8] += torch.matmul(planes, gf[r])
     return out
 
 
 def xla_reduce_matmul16(P: torch.Tensor, g: torch.Tensor, num_links: int,
-                        d8: int, *, bm: int = _BM) -> torch.Tensor:
+                        d8: int, *, bm: int = _BM,
+                        row0=None) -> torch.Tensor:
     """Plain PyTorch version of ``bit_reduce_matmul16``: the natural plain
     version on the physical rows, then the inverse of the row map on the
     ``d8`` axis of its output."""
-    out = xla_reduce_matmul(P, g, num_links, d8)
+    check_rows("xla_reduce_matmul16", P.shape[0], num_links, d8, row0, bm)
+    out = xla_reduce_matmul(P, g, num_links, d8, row0=row0)
     phys = natural_to_physical(torch.arange(d8, device=P.device), bm)
     return out.index_select(1, phys)
 
@@ -463,32 +530,54 @@ class _BitPoolRated(torch.autograd.Function):
     """Forward = expand over ``p_fwd``, backward = reduce over ``p_bwd``.
     Only ``p_bwd`` is kept for the backward: the function is linear in x,
     and plain autograd through ``xla_expand_matmul`` would keep the
-    unpacked planes."""
+    unpacked planes.
+
+    With a ``fwd_group``, ``p_fwd`` is this rank's row shard (from packed
+    row ``fwd_row0``): the forward expands the rank's rows and gathers the
+    ranks' rows over the group.  With a ``bwd_group``, ``p_bwd`` is: the
+    backward reduces over the rank's transpose rows and adds the ranks'
+    partial sums over the group.  ``x`` and the output are replicated over
+    both groups, so no other collective pairs with these, and each pack is
+    split or whole on its own."""
 
     @staticmethod
-    def forward(ctx, x, p_fwd, p_bwd, num_links, d8_dst, d8_src, impl):
-        out = _engine(impl)[0](p_fwd, x, num_links, d8_dst)
+    def forward(ctx, x, p_fwd, p_bwd, num_links, d8_dst, d8_src, impl,
+                fwd_group, bwd_group, fwd_row0, bwd_row0):
+        expand = _engine(impl)[0]
         ctx.save_for_backward(p_bwd)
-        ctx.static = (num_links, d8_src, impl, x.dtype)
-        # (R, 8, d8, F) -> (8*d8, R, F), natural dst index.
-        return out.permute(1, 2, 0, 3).reshape(8 * d8_dst, num_links, -1)
+        ctx.static = (num_links, d8_src, impl, x.dtype, bwd_group, bwd_row0)
+        if fwd_group is None:
+            out = expand(p_fwd, x, num_links, d8_dst)
+            # (R, 8, d8, F) -> (8*d8, R, F), natural dst index.
+            return out.permute(1, 2, 0, 3).reshape(8 * d8_dst, num_links, -1)
+        # The ranks' rows, (R*d8, 8, F) packed-row-major, -> (8*d8, R, F).
+        out = all_gather_rows(expand(p_fwd, x, num_links, d8_dst,
+                                     row0=fwd_row0), fwd_group)
+        return out.reshape(num_links, d8_dst, 8, -1).permute(2, 1, 0, 3) \
+            .reshape(8 * d8_dst, num_links, -1)
 
     @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return (None,) * 7
+            return (None,) * 11
         (p_bwd,) = ctx.saved_tensors
-        num_links, d8_src, impl, x_dtype = ctx.static
+        num_links, d8_src, impl, x_dtype, group, row0 = ctx.static
         if g.stride(2) != 1:
             g = g.contiguous()
         # g: (D_pad, R, F); the reduce reads it rating-major, as a view.
         g_rm = g.permute(1, 0, 2)
-        d_x = _engine(impl)[1](p_bwd, g_rm, num_links, d8_src)
-        return (d_x.reshape(8 * d8_src, -1).to(x_dtype),) + (None,) * 6
+        reduce = _engine(impl)[1]
+        if group is None:
+            d_x = reduce(p_bwd, g_rm, num_links, d8_src)
+        else:
+            d_x = all_reduce_(reduce(p_bwd, g_rm, num_links, d8_src,
+                                     row0=row0), group)
+        return (d_x.reshape(8 * d8_src, -1).to(x_dtype),) + (None,) * 10
 
 
 def bit_pool_rated(x, p_fwd, p_bwd, num_links, d8_dst, d8_src,
-                   impl="kernel"):
+                   impl="kernel", fwd_group=None, bwd_group=None,
+                   fwd_row0=0, bwd_row0=0):
     """Differentiable per-rating pooled aggregation over packed bits.
 
     Args:
@@ -500,12 +589,17 @@ def bit_pool_rated(x, p_fwd, p_bwd, num_links, d8_dst, d8_src,
       impl: ``'kernel'`` | ``'kernel16'`` | ``'plain'`` (see
         ``resolve_impl``); ``'kernel16'`` reads packs built with
         ``row_interleave=_BM``, the others natural packs.
+      fwd_group / bwd_group: on a device mesh, the 'model' process group
+        over which ``p_fwd`` / ``p_bwd`` is split by rows (None: that pack
+        is whole); the pack is then this rank's rows, from packed row
+        ``fwd_row0`` / ``bwd_row0`` of the whole.
 
     Returns ``(8 * d8_dst, num_links, F)`` f32, indexed by the natural
     destination id.
     """
     return _BitPoolRated.apply(x, p_fwd, p_bwd, num_links, d8_dst, d8_src,
-                               impl)
+                               impl, fwd_group, bwd_group, fwd_row0,
+                               bwd_row0)
 
 
 def bit_multi_link_aggregate(x, bit_static, weight, bias,
@@ -531,8 +625,9 @@ def bit_multi_link_aggregate(x, bit_static, weight, bias,
     if s_pad > num_src:
         x_aug = F.pad(x_aug, (0, 0, 0, s_pad - num_src))
     pooled = bit_pool_rated(x_aug.contiguous(), bs.p_fwd, bs.p_bwd, R,
-                            bs.d8_dst, bs.d8_src,
-                            bs.impl)[:num_dst].to(x.dtype)
+                            bs.d8_dst, bs.d8_src, bs.impl, bs.fwd_group,
+                            bs.bwd_group, bs.fwd_row0,
+                            bs.bwd_row0)[:num_dst].to(x.dtype)
     if bs.rem_src is not None:
         # One row per batch pair, subtracted from its (dst, rating) slot
         # of the pooled table: no (B, num_dst * R) one-hot is formed.

@@ -59,8 +59,12 @@
 #include "bit_walk.cuh"
 
 // Plain C entry point (loaded with ctypes).  The caller has checked that P
-// rows are 16-byte aligned (s_pad % 16 == 0, P 16-byte aligned), that
-// m8 = R*d8 and f are positive, that x is a contiguous (s_pad, f) f32
+// rows are 16-byte aligned (s_pad % 16 == 0, P 16-byte aligned), that P
+// holds m8 packed rows starting at row unit0 of the whole (R*d8, s_pad)
+// pack (unit0 = 0 and m8 = R*d8 for a whole pack, out (R, 8, d8, f); a row
+// shard aligned to ril with compact = 1, out (m8, 8, f): the shard's rows in
+// natural order, a row's eight planes together), that m8 and f are
+// positive, that x is a contiguous (s_pad, f) f32
 // (x_is_bf16 = 0) or bf16 (1) table, that tab holds s_pad * fp bf16 with fp
 // a multiple of 8, that k, np and tiles are the plan of ops/bitdense.py:
 // walk_plan, that sync holds tiles * (1 + d8) ints, and that ril is 0 or an
@@ -70,13 +74,15 @@ extern "C" int bit_expand_matmul_launch(const void* P, const void* x,
                                         int x_is_bf16, void* tab, void* out,
                                         void* sync, int m8, int s_pad, int f,
                                         int fp, int k, int np, int tiles,
-                                        int d8, int ril, void* stream) {
+                                        int d8, int ril, int unit0,
+                                        int compact, void* stream) {
   bit_expand::Walk w{};
   w.P = static_cast<const uint8_t*>(P);
   w.tab = static_cast<const __nv_bfloat16*>(tab);
   w.out = static_cast<float*>(out);
   w.sync = static_cast<int*>(sync);
   w.units = m8;
+  w.unit0 = unit0;
   w.levels = 1;
   w.s_pad = s_pad;
   w.f = f;
@@ -86,6 +92,9 @@ extern "C" int bit_expand_matmul_launch(const void* P, const void* x,
   w.row_step = 1;
   w.level_step = 0;
   w.out_level = 8ll * d8 * f;
+  w.out_m = compact ? 8ll * f : f;
+  w.out_b = compact ? f : static_cast<long long>(d8) * f;
+  w.out_shift = compact ? 8ll * unit0 * f : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int e = bit_expand::make_table(x, x_is_bf16, 0, f, w, 1, st);
   if (e != 0) return e;

@@ -52,15 +52,22 @@
 //    ten rows of its m and writes once.
 // 4. Units of 64 stages or more are a block's (8 warps, stages in turn).
 // The adds into out follow r = 0..R-1 and each unit's own sum has a fixed
-// order, so two launches give the same bits; no atomic adds a value.  F
+// order, so two launches give the same bits; no atomic adds a value.
+// On a device mesh a rank walks its row shard of the pack alone (one level
+// a unit, chained from the first level it holds of each m) and the ranks'
+// partial sums are added by an all-reduce (parallel/collectives.py).  F
 // above 256 is cut into column tiles (grid.y), each walking the pack again.
 
 #define BITWALK_NS bit_reduce
 #include "bit_walk.cuh"
 
 // Plain C entry point (loaded with ctypes).  The caller has checked that P
-// rows are 16-byte aligned (s_pad % 16 == 0, P 16-byte aligned), that
-// num_links, d8 and f are positive, that g is f32 (g_is_bf16 = 0) or bf16
+// rows are 16-byte aligned (s_pad % 16 == 0, P 16-byte aligned), that P
+// holds `rows` packed rows starting at row unit0 of the whole (num_links *
+// d8, s_pad) pack (a whole pack: unit0 = 0, rows = num_links * d8; a row
+// shard, aligned to ril, walks one level a unit, levels = 1, and out is
+// zeroed by the caller: an m with no row in the shard is not written),
+// that num_links, d8 and f are positive, that g is f32 (g_is_bf16 = 0) or bf16
 // (1) with a contiguous inner dimension and row strides g_stride_r,
 // g_stride_s (elements), that tab holds num_links * s_pad * fp bf16 with fp
 // a multiple of 8, that levels (1 or num_links), k, np and tiles are the
@@ -73,13 +80,15 @@ extern "C" int bit_reduce_matmul_launch(const void* P, const void* g,
                                         void* out, void* sync, int num_links,
                                         int levels, int s_pad, int f, int fp,
                                         int k, int np, int tiles, int d8,
-                                        int ril, void* stream) {
+                                        int ril, int rows, int unit0,
+                                        void* stream) {
   bit_reduce::Walk w{};
   w.P = static_cast<const uint8_t*>(P);
   w.tab = static_cast<const __nv_bfloat16*>(tab);
   w.out = static_cast<float*>(out);
   w.sync = static_cast<int*>(sync);
-  w.units = num_links / levels * d8;
+  w.units = rows / levels;
+  w.unit0 = unit0;
   w.levels = levels;
   w.s_pad = s_pad;
   w.f = f;
@@ -89,6 +98,9 @@ extern "C" int bit_reduce_matmul_launch(const void* P, const void* g,
   w.row_step = 1;  // the table is (R, S_pad, fp): one level is contiguous
   w.level_step = s_pad;
   w.out_level = 0;
+  w.out_m = f;
+  w.out_b = static_cast<long long>(d8) * f;
+  w.out_shift = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int e = bit_reduce::make_table(g, g_is_bf16, g_stride_r,
                                        g_stride_s, w, num_links, st);

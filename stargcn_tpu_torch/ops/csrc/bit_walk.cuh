@@ -21,6 +21,14 @@
 // unit and adds the units of one m into its output in the order r = 0, 1,
 // ..., R-1 (the item gradient).
 //
+// A launch may walk a row shard of the pack alone (one rank's rows on a
+// device mesh, parallel/shardings.py): P then points at the shard's first
+// packed row, and units unit0 .. unit0 + units - 1 (one level each) are
+// walked.  Output element (unit of level rr and row m, plane b) lies at
+// rr * out_level + m * out_m + b * out_b - out_shift: the whole pack's
+// layout, or for an expand on a shard the shard's own rows, one after
+// another (out_shift takes the shard's first row off).
+//
 // The walk (persistent blocks of 8 warps; groups of NP warps take units
 // from a counter, NP = 1 for short rows, 8 for long ones):
 // - a unit is cut into 512-byte stages, one 16-byte piece per lane; the
@@ -92,12 +100,16 @@ struct Walk {
                              // level * level_step holds source s, level
   float* out;
   int* sync;                 // tiles counters, then tiles * d8 turn flags
-  int units;                 // num_links / levels * d8
+  int units;                 // units of this launch
+  int unit0;                 // the first unit's global id (a row shard)
   int levels;                // packed rows (rating levels) per unit
   int s_pad, f, fp, d8, ril;
   int row_step;              // table rows between sources s and s + 1
   int level_step;            // table rows between levels (0: one table)
   long long out_level;       // elements between out's levels (expand)
+  long long out_m;           // elements between out's rows m
+  long long out_b;           // elements between out's bit planes b
+  long long out_shift;       // elements before the shard's first row
 };
 
 __device__ __forceinline__ uint64_t evict_first_policy() {
@@ -307,10 +319,12 @@ __global__ void __launch_bounds__(kThreads, K == 1 ? 3 : 2)
     c.st = st0;
     const int u = myq[k % kQueue];
     c.live = u < w.units;
-    const int rr = c.live ? u / w.d8 : 0;
-    const int m = c.live ? u - rr * w.d8 : 0;
+    const int ug = c.live ? u + w.unit0 : 0;
+    const int rr = ug / w.d8;
+    const int m = ug - rr * w.d8;
     c.row = w.P + (static_cast<size_t>(rr * w.levels + l0) * w.d8 +
-                   physical_row(m, w.ril)) * w.s_pad;
+                   physical_row(m, w.ril) - (c.live ? w.unit0 : 0)) *
+                      w.s_pad;
   };
   auto advance = [&](Cursor& c) {
     if (++c.z == mine) {
@@ -353,12 +367,17 @@ __global__ void __launch_bounds__(kThreads, K == 1 ? 3 : 2)
       myq[(k + kStages + 2) % kQueue] = pending;
       pending = atomicAdd(counter, 1);
     }
-    const int rr = u / w.d8;  // the unit's first level / levels
-    const int m = u - rr * w.d8;
+    const int ug = u + w.unit0;  // the unit's global id
+    const int rr = ug / w.d8;    // the unit's first level / levels
+    const int m = ug - rr * w.d8;
     const __nv_bfloat16* tab =
         w.tab + static_cast<size_t>(rr) * w.levels * w.level_step * w.fp;
-    // The turn of a chained unit, read now and needed only at its end.
-    int seen = kChain && rr > 0 && t == 0 ? load_acquire(turn + m) : 0;
+    // A chained unit adds to the sum of the unit one level before it where
+    // that unit is in this launch (all of them but the first level's on a
+    // whole pack; on a row shard, all but the first level the shard holds
+    // of this m).  Its turn is read now and needed only at its end.
+    const bool after = kChain && u >= w.d8;
+    int seen = after && t == 0 ? load_acquire(turn + m) : 0;
 
     int held = 0;  // entries in this warp's list, the same in every lane
     int l = l0, st = st0;
@@ -422,7 +441,7 @@ __global__ void __launch_bounds__(kThreads, K == 1 ? 3 : 2)
       gather_add<K, kB>(ents, bytes, 0, held, tab, w.fp, col, accw);
     __syncwarp();
 
-    float* obase = w.out + rr * w.out_level + static_cast<size_t>(m) * w.f;
+    float* obase = w.out + rr * w.out_level + m * w.out_m - w.out_shift;
     if (NP == 1) {
 #pragma unroll
       for (int b = 0; b < 8; ++b)
@@ -431,7 +450,7 @@ __global__ void __launch_bounds__(kThreads, K == 1 ? 3 : 2)
           const float4 v =
               *reinterpret_cast<const float4*>(accw + b * kTile + kk * kRound);
           const float vs[4] = {v.x, v.y, v.z, v.w};
-          float* o = obase + static_cast<size_t>(b) * w.d8 * w.f;
+          float* o = obase + b * w.out_b;
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int cc = col + kk * kRound + c;
@@ -445,7 +464,7 @@ __global__ void __launch_bounds__(kThreads, K == 1 ? 3 : 2)
 
     // The block's unit: add the warps' sums in the order 0..7.
     __syncthreads();
-    if (kChain && rr > 0) {
+    if (after) {
       if (t == 0) {
         // Unit rr-1 of this m was taken before this one by a running
         // block, so the wait ends; the bound turns a fault into an error.
@@ -465,8 +484,8 @@ __global__ void __launch_bounds__(kThreads, K == 1 ? 3 : 2)
       float s = accs[b * kTile + cc];
 #pragma unroll
       for (int q = 1; q < kWarps; ++q) s += accs[(q * 8 + b) * kTile + cc];
-      float* o = obase + static_cast<size_t>(b) * w.d8 * w.f + col0 + cc;
-      if (kChain && rr > 0) s = __ldcg(o) + s;
+      float* o = obase + b * w.out_b + col0 + cc;
+      if (after) s = __ldcg(o) + s;
       __stcg(o, s);
     }
     __syncthreads();  // the sums are read; the unit ids are visible

@@ -33,6 +33,22 @@ each level of the forward in the backward.  The model options of a YAML
 (``MODEL.USE_FEA_PROJ``, ``MODEL.USE_EMBED``, ``MODEL.COMPUTE_DTYPE``,
 ``GCN.DROPOUT_PER_EDGE``, ``GCN.USE_RECURRENT``) run in both modes.
 
+Full-graph training runs on a device mesh of ``DATAxMODEL`` ranks, one
+process each (``parallel/shardings.py``), with the JAX CLI's flags::
+
+    python -m stargcn_tpu_torch.train --cfg configs/transductive_ml_10m.yml \
+        --dataset synthetic --save_dir runs --mesh 1x2 \
+        --coordinator host0:29500 --num_processes 2 --process_id 0
+    # ... and --process_id 1 on the second rank
+
+``--coordinator`` is rank 0's ``host:port`` (or a ``file://`` rendezvous
+path); ranks run on ``cuda`` over NCCL, a card each, or with ``--device
+cpu`` over gloo (two ranks that share one card need gloo on ``cuda``:
+``python -m stargcn_tpu_torch.parallel.multiprocess_train`` runs so).
+``--mesh 1x1`` needs no coordinator.  The mesh's first rank writes the
+run's files.  Sampled mode with ``--mesh`` is refused: the sampled
+trainer's mesh is a later slice of the port.
+
 ``--profile DIR`` first runs ``fit(max_iter=TRAIN.VALID_INTERVAL)`` under
 ``utils.profiling.trace(DIR)``, which writes a Chrome-trace JSON there (the
 card's kernels too on ``cuda``), then the normal ``fit``.
@@ -53,19 +69,21 @@ import os
 import torch
 
 
-def resolve_device_sampler(cfg, device, flag=None) -> bool:
+def resolve_device_sampler(cfg, device, flag=None, mesh=False) -> bool:
     """``TRAIN.DEVICE_SAMPLER`` for a run: ``flag`` (the CLI's
     ``--device_sampler`` True / ``--no_device_sampler`` False) wins; else
     the config's setting when it is on; else on exactly where its semantics
     allow, as the JAX CLI decides it (``experiments/train.py:142-156``,
     whose "the accelerator is a TPU" reads "the run's device is cuda"
-    here): full-graph mode and no mesh."""
+    here): full-graph mode and no mesh (neither ``--mesh``, which
+    ``mesh`` says, nor mesh axes in the config)."""
     if flag is not None:
         return bool(flag)
     if cfg.TRAIN.get("DEVICE_SAMPLER", False):
         return True
     return (torch.device(device).type == "cuda"
             and int(cfg.GRAPH_SAMPLER.NUM_NEIGHBORS) <= 0
+            and not mesh
             and cfg.PARALLEL.get("DATA_AXIS", 1)
             * cfg.PARALLEL.get("MODEL_AXIS", 1) <= 1)
 
@@ -119,6 +137,15 @@ def main(argv=None):
                              "valid interval into this directory")
     parser.add_argument("--device", default="cuda", type=str,
                         help="cuda (default) or cpu")
+    parser.add_argument("--mesh", default=None, type=str,
+                        help="device mesh as DATAxMODEL, e.g. 2x4 (one "
+                             "process a rank; full-graph mode)")
+    parser.add_argument("--coordinator", default=None, type=str,
+                        help="rank 0's host:port (or a file:// rendezvous "
+                             "path); requires --num_processes and "
+                             "--process_id")
+    parser.add_argument("--num_processes", default=None, type=int)
+    parser.add_argument("--process_id", default=None, type=int)
     args = parser.parse_args(argv)
 
     from stargcn_tpu_torch.graph import kernels as graph_kernels
@@ -143,21 +170,49 @@ def main(argv=None):
         cfg.KERNEL.BACKEND = args.backend
     if args.num_neighbors is not None:
         cfg.GRAPH_SAMPLER.NUM_NEIGHBORS = args.num_neighbors
+    if args.mesh is not None:
+        d, m = (int(x) for x in args.mesh.lower().split("x"))
+        cfg.PARALLEL.DATA_AXIS = d
+        cfg.PARALLEL.MODEL_AXIS = m
     fanout = int(cfg.GRAPH_SAMPLER.NUM_NEIGHBORS)
+    on_mesh = args.mesh is not None or (
+        cfg.PARALLEL.get("DATA_AXIS", 1) * cfg.PARALLEL.get("MODEL_AXIS", 1)
+        > 1)
+    if on_mesh and fanout > 0:
+        raise NotImplementedError(
+            "--mesh in sampled mode (--num_neighbors) is not ported yet: "
+            "SampledTrainer(mesh=) comes with the slice that ports the "
+            "sampled trainer's mesh (row_sharding)")
     cfg.TRAIN.DEVICE_SAMPLER = resolve_device_sampler(
         cfg, args.device, False if args.no_device_sampler
-        else args.device_sampler)
+        else args.device_sampler, mesh=on_mesh)
+
+    mesh = None
+    if on_mesh:
+        from stargcn_tpu_torch.parallel import (initialize_distributed,
+                                                make_mesh)
+        from stargcn_tpu_torch.parallel.collectives import from_first
+
+        initialize_distributed(args.coordinator, args.num_processes,
+                               args.process_id, device=args.device)
+        mesh = make_mesh(data=cfg.PARALLEL.DATA_AXIS,
+                         model=cfg.PARALLEL.MODEL_AXIS, device=args.device)
 
     save_dir = args.save_dir
     if save_dir is None and args.cfg_file is not None:
         save_dir = os.path.splitext(args.cfg_file)[0] + "_runs"
     save_id = 0
-    if save_dir:
+    if save_dir and (mesh is None or mesh.leader):
         save_id = save_cfg_dir(save_dir, cfg)
         logging_config(save_dir, name=f"log{save_id}",
                        no_console=args.silent)
     else:
         logging.basicConfig(level=logging.INFO)
+    if mesh is not None:
+        # Every rank names the run's files by the first rank's id.
+        save_id = int(from_first(torch.tensor([float(save_id)],
+                                              device=args.device),
+                                 mesh.group("all")).item())
     logging.info(cfg)
 
     graph_kernels.set_seed(cfg.SEED)
@@ -176,19 +231,25 @@ def main(argv=None):
     else:
         trainer = Trainer(model_cfg, data_iter, TrainSettings.from_cfg(cfg),
                           save_dir=save_dir, save_id=save_id,
-                          device=args.device)
-    if args.resume:
-        trainer.restore_checkpoint(args.resume)
-        logging.info("resumed from %s", args.resume)
-    if args.profile:
-        from stargcn_tpu_torch.utils.profiling import trace
+                          device=args.device, mesh=mesh)
+    try:
+        if args.resume:
+            trainer.restore_checkpoint(args.resume)
+            logging.info("resumed from %s", args.resume)
+        if args.profile:
+            from stargcn_tpu_torch.utils.profiling import trace
 
-        with trace(args.profile):
-            trainer.fit(max_iter=cfg.TRAIN.VALID_INTERVAL)
-        logging.info("profile trace written to %s", args.profile)
-    result = trainer.fit(**({"prefetch": True}
-                            if fanout > 0 and args.prefetch else {}))
-    logging.info("result: %s", result)
+            with trace(args.profile):
+                trainer.fit(max_iter=cfg.TRAIN.VALID_INTERVAL)
+            logging.info("profile trace written to %s", args.profile)
+        result = trainer.fit(**({"prefetch": True}
+                                if fanout > 0 and args.prefetch else {}))
+        logging.info("result: %s", result)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     return result
 
 

@@ -30,6 +30,30 @@ With ``MODEL.USE_FEA_PROJ`` the raw node features go to the device once
 bf16 the model computes in bf16 while the parameters, the optimiser state
 and the loss stay float32.
 
+On a device mesh (``Trainer(mesh=parallel.make_mesh(d, m))``, one process
+a rank, the layout of ``parallel/shardings.py``): the edge arrays and masks
+(``xla``) or the bit packs' rows (``bitdense``) and the embedding rows are
+split over 'model', the batch over 'data'.  Every rank draws the same
+batches (the same seeds) and takes its slice for the rating loss, which
+divides by the valid count of the whole batch; the removed batch edges are
+those of the whole batch.  The gradients are summed over 'data' where the
+pairs' gather meets the projected node states (``STARGCN.forward``'s
+``batch_group``), as GSPMD sums the JAX package's there: every cotangent
+before it, and so every parameter's gradient, is then the whole batch's on
+every rank, rounded where the single process rounds it (bf16 adjacency
+products, the bit kernels' bf16 tables), and the replicated recon loss
+counts once.  The clip's global norm adds the row-split tables' squares
+over 'model' and counts replicated parameters once.  Dropout draws the
+same masks on every rank.  Replicated work is not bit-reproducible on the
+card (atomics), so every replica takes the first replica's gradients and
+``fit`` decides by the first rank's numbers: the ranks stay bit-equal and
+in lockstep.  The device sampler is off in ``fit`` on a mesh, as in the
+JAX package.  Evaluation splits its
+batches over 'data' and returns one process's numbers on every rank; the
+mesh's first rank writes the CSVs and checkpoints (``save_checkpoint``
+gathers the split rows first; ``restore_checkpoint`` splits them again on
+every rank).
+
 A step is eager PyTorch: forward, ``backward`` (on ``bitdense`` through
 ``ops.bitdense.bit_pool_rated``, whose backward is the
 ``bit_reduce_matmul`` kernel on the card; on ``ell`` through
@@ -61,6 +85,10 @@ from stargcn_tpu_torch.ops.agg import build_dense_adjacency
 from stargcn_tpu_torch.ops.bitdense import (build_bit_pack,
                                            pack_row_interleave, resolve_impl)
 from stargcn_tpu_torch.ops.chunked_ell import build_ell_pack
+from stargcn_tpu_torch.parallel.collectives import (all_reduce, all_reduce_,
+                                                    barrier, from_first)
+from stargcn_tpu_torch.parallel.mesh import Mesh
+from stargcn_tpu_torch.parallel.shardings import GraphShardings
 from stargcn_tpu_torch.train.prefetch import Prefetcher
 from stargcn_tpu_torch.train.resilience import (ElasticPolicy, ElasticStep,
                                                 HeartbeatMonitor)
@@ -131,15 +159,23 @@ class GraphVariants:
     (``'test'``, ``'valid'``, ``'train'``) its edge mask, degree vectors,
     and bit packs, chunked-ELL packs or dense adjacencies, each built on
     first use.
-    ``Trainer`` and ``serve.ServingState`` read them from here."""
+    ``Trainer`` and ``serve.ServingState`` read them from here.
 
-    def __init__(self, model_cfg, data_iter, device):
+    With ``shardings`` (a ``parallel.GraphShardings``) the operands are
+    this rank's: the ``xla`` edge arrays and masks split over 'model'
+    (``EdgeSet.shard``), the bit packs' rows split over 'model'
+    (``Shard`` placements); the degrees, the dense adjacencies and the
+    chunked-ELL packs stay whole."""
+
+    def __init__(self, model_cfg, data_iter, device, shardings=None):
         self.model_cfg = model_cfg
         self.data_iter = data_iter
         self.device = device
+        self.shardings = shardings
         it = data_iter
         self.all_csr = it.all_graph[it.name_user, it.name_item]
         self.graph_data = BipartiteGraphData.from_csr(self.all_csr, device)
+        self._sharded_graph = None
         g = self.graph_data
         self._edges = tuple(t.cpu().numpy() for t in (
             g.edge_user, g.edge_item, g.edge_rating, g.edge_pad_mask))
@@ -157,8 +193,14 @@ class GraphVariants:
         # The pack layout follows the kernels the model resolves to: the
         # 16-bit route reads row-interleaved packs.
         ril = pack_row_interleave(resolve_impl(cfg.bit_impl))
-        return build_bit_pack(eu, ei, er, mask, cfg.num_users, cfg.num_items,
-                              cfg.num_links, self.device, row_interleave=ril)
+        if self.shardings is None:
+            return build_bit_pack(eu, ei, er, mask, cfg.num_users,
+                                  cfg.num_items, cfg.num_links, self.device,
+                                  row_interleave=ril)
+        # Built whole on the host; only this rank's rows reach the device.
+        return self.shardings.place_bit_pack(build_bit_pack(
+            eu, ei, er, mask, cfg.num_users, cfg.num_items, cfg.num_links,
+            "cpu", row_interleave=ril), self.device)
 
     def _build_ell_pack(self, mask):
         cfg = self.model_cfg
@@ -222,12 +264,24 @@ class GraphVariants:
         return self._adjs[dtype].get(variant, self.edge_mask(variant))
 
     def device_mask(self, variant: str) -> torch.Tensor:
-        """The variant's edge mask as a float32 tensor on the device."""
+        """The variant's edge mask as a float32 tensor on the device (on a
+        mesh, this rank's slice of it)."""
         if variant not in self._device_masks:
+            m = torch.from_numpy(self.edge_mask(variant))
             with torch.inference_mode(False):
-                self._device_masks[variant] = torch.from_numpy(
-                    self.edge_mask(variant)).to(self.device)
+                self._device_masks[variant] = (
+                    m.to(self.device) if self.shardings is None
+                    else self.shardings.place(m, self.shardings.edges,
+                                              self.device).local)
         return self._device_masks[variant]
+
+    def sharded_graph(self):
+        """This rank's slice of the edge arrays
+        (``parallel.shardings.ShardedGraph``), made on first use."""
+        if self._sharded_graph is None:
+            self._sharded_graph = self.shardings.place_graph(
+                self.graph_data)
+        return self._sharded_graph
 
     def operands(self, variant: str, backend: str):
         """What ``STARGCN.forward`` aggregates through on ``backend``: the
@@ -241,7 +295,10 @@ class GraphVariants:
         if backend == "dense":
             return self.dense_adj(variant)
         if backend == "xla":
-            return EdgeSet(self.graph_data, self.device_mask(variant))
+            if self.shardings is None:
+                return EdgeSet(self.graph_data, self.device_mask(variant))
+            sg = self.sharded_graph()
+            return EdgeSet(sg.graph, self.device_mask(variant), shard=sg)
         raise ValueError(f"unknown backend: {backend!r}")
 
 
@@ -316,6 +373,12 @@ class ClipAdam:
     The moments are keyed by parameter name; ``lr`` may be changed between
     steps without touching them.
 
+    ``sharded`` maps the names of parameters split by rows over a mesh
+    axis to that axis's process group: the global norm adds their squares
+    over the group and counts every other parameter (replicated, with the
+    same gradient on every rank) once, so every rank clips by the same
+    factor.
+
     ``step(grads, keep=...)`` takes a device bool: where it is false the
     step changes nothing (parameters, moments and the count of applied
     steps), as ``jnp.where(keep, new, old)`` does in the JAX package's
@@ -325,8 +388,9 @@ class ClipAdam:
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
-    def __init__(self, named_params, lr, grad_clip, wd=0.0):
+    def __init__(self, named_params, lr, grad_clip, wd=0.0, sharded=None):
         self.params = dict(named_params)
+        self.sharded = dict(sharded or {})
         self.lr = float(lr)
         self.grad_clip = float(grad_clip)
         self.wd = float(wd)
@@ -348,8 +412,7 @@ class ClipAdam:
         """Apply one update from ``grads`` (name -> tensor), or, where the
         device bool ``keep`` is false, none; returns the global gradient
         norm before clipping, as a device scalar."""
-        gnorm = torch.sqrt(sum((g.float() ** 2).sum()
-                               for g in grads.values()))
+        gnorm = torch.sqrt(self.global_sq_norm(grads))
         under = gnorm < self.grad_clip
         if keep is None:
             self._count = self.count + 1
@@ -387,6 +450,20 @@ class ClipAdam:
                     old.copy_(torch.where(keep, new, old))
         return gnorm
 
+    def global_sq_norm(self, grads):
+        """The squared global norm of ``grads``: the replicated parameters'
+        squares, plus the row-split ones' added over their groups."""
+        rep = [g for k, g in grads.items() if k not in self.sharded]
+        total = sum((g.float() ** 2).sum() for g in rep)
+        groups = {}
+        for k, group in self.sharded.items():
+            groups.setdefault(id(group), (group, []))[1].append(grads[k])
+        for group, gs in groups.values():
+            total = total + all_reduce_(
+                sum((g.float() ** 2).sum() for g in gs).reshape(1),
+                group)[0]
+        return total
+
     def state_dict(self):
         return {"count": self.count, "mu": dict(self.mu),
                 "nu": dict(self.nu)}
@@ -402,12 +479,13 @@ class ClipAdam:
                 mine[k].copy_(torch.as_tensor(v))
 
 
-def make_optimizer(settings, named_params):
+def make_optimizer(settings, named_params, sharded=None):
     """The trainer's optimiser over ``named_params`` (name -> parameter):
     global-norm clip + Adam (+ optional weight decay) with an adjustable
-    learning rate."""
+    learning rate; ``sharded`` as ``ClipAdam``'s."""
     s = settings
-    return ClipAdam(named_params, lr=s.lr, grad_clip=s.grad_clip, wd=s.wd)
+    return ClipAdam(named_params, lr=s.lr, grad_clip=s.grad_clip, wd=s.wd,
+                    sharded=sharded)
 
 
 class _NullLogger:
@@ -455,15 +533,17 @@ class Trainer:
       save_dir / save_id: where the CSVs and checkpoints go (none without
         a ``save_dir``).
       device: where the model and its operands live (default the card).
+      mesh: a ``parallel.Mesh`` (``parallel.make_mesh``) to train on, one
+        process a rank, each calling every method alike (see the module
+        docstring); None: one process.
     """
 
     def __init__(self, model_cfg: STARGCNConfig, data_iter, settings,
                  save_dir: Optional[str] = None, save_id: int = 0,
                  device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the device mesh comes with the slice that ports "
-                "parallel/mesh.py and parallel/shardings.py")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError("mesh must be a stargcn_tpu_torch.parallel.Mesh "
+                            f"(parallel.make_mesh), not {type(mesh)!r}")
         check_feature_only_dae(model_cfg, settings.use_dae)
         self.model_cfg = model_cfg
         self.data_iter = data_iter
@@ -471,7 +551,17 @@ class Trainer:
         self.save_dir = save_dir
         self.save_id = save_id
         self.device = resolve_device(device)
-        self.variants = GraphVariants(model_cfg, data_iter, self.device)
+        self.mesh = mesh
+        self.shardings = None
+        if mesh is not None:
+            if mesh.rank not in mesh.grid:
+                raise ValueError(f"rank {mesh.rank} lies outside the "
+                                 f"{mesh.shape} mesh")
+            if mesh.backend == "nccl" and self.device.type != "cuda":
+                raise ValueError("an NCCL mesh trains on cuda tensors")
+            self.shardings = GraphShardings(mesh)
+        self.variants = GraphVariants(model_cfg, data_iter, self.device,
+                                      self.shardings)
         self._features = graph_features(data_iter, model_cfg, self.device)
         self.graph_data = self.variants.graph_data
         all_csr = self.variants.all_csr
@@ -488,7 +578,9 @@ class Trainer:
         # Batch edges are removed only when the batch is a strict subset
         # of the training edges.
         self.do_remove = self.s.remove_rating and self.train_batch < n_train
-        self.train_batch_padded = self.train_batch
+        # Pad batches to a multiple of the data-parallel axis.
+        dp = 1 if mesh is None else mesh.shape["data"]
+        self.train_batch_padded = -(-self.train_batch // dp) * dp
 
         # Host-side pair->edge lookup tables.
         keys = (all_csr.row_indices.astype(np.int64) * all_csr.shape[1]
@@ -513,10 +605,16 @@ class Trainer:
             generator=torch.Generator().manual_seed(self.s.seed),
             feature_dims=feature_dims(data_iter))
         self.model.to(self.device)
-        # Dropout masks: one stream, on the model's device.
+        sharded = {}
+        if self.shardings is not None:
+            sharded = {k: sh.group for k, sh in
+                       self.shardings.place_params(self.model).items()}
+        # Dropout masks: one stream, on the model's device (on a mesh, the
+        # same stream on every rank).
         self._dropout_gen = torch.Generator(device=self.device)
         self._dropout_gen.manual_seed(self.s.seed)
-        self.opt = make_optimizer(self.s, self.model.named_parameters())
+        self.opt = make_optimizer(self.s, self.model.named_parameters(),
+                                  sharded)
         self.lr = self.s.lr
         noise = data_iter.evaluate_embed_noise_dict
         self._eval_noise = tuple(
@@ -708,16 +806,30 @@ class Trainer:
                          if self.do_remove else None)
         operands = self._operands("train")
         if removed_pairs is not None and isinstance(operands, EdgeSet):
-            # xla: the batch's edges leave the step's edge mask.
-            operands = EdgeSet(operands.graph,
-                               operands.graph.edge_mask_from_pairs(
-                                   pairs_u, pairs_i, rem_hit, operands.mask))
-        n_valid = pairs_valid.sum().clamp_min(1.0)
+            # xla: the batch's edges leave the step's edge mask (on a mesh,
+            # each rank's slice of it).
+            offset = 0 if operands.shard is None else operands.shard.offset
+            operands = dataclasses.replace(
+                operands, mask=operands.graph.edge_mask_from_pairs(
+                    pairs_u, pairs_i, rem_hit, operands.mask, offset))
+        data = None
+        if self.mesh is not None:
+            # The whole batch left the graph above; this rank's slice of
+            # it enters the rating loss.
+            data = self.mesh.group("data")
+            pairs_u, pairs_i, gt_ratings, pairs_valid = (
+                p.local for p in self.shardings.place_batch(
+                    pairs_u, pairs_i, gt_ratings, pairs_valid))
+        n_valid = pairs_valid.sum()
+        if data is not None:
+            n_valid = all_reduce(n_valid, data)
+        n_valid = n_valid.clamp_min(1.0)
 
         out = self._forward(
             noise_u, noise_i, pairs_u, pairs_i,
             self.variants.degrees("train"), operands, removed_pairs,
-            train=True, generator=self._dropout_gen)
+            train=True, generator=self._dropout_gen,
+            **({} if data is None else {"batch_group": data}))
         target = (gt_ratings - mean) / std
         # 0.5 * mean squared error per block; padded batch slots carry
         # zero weight.
@@ -741,12 +853,49 @@ class Trainer:
         grads = {k: (torch.zeros_like(p) if g is None else g)
                  for k, p, g in zip(names, params, torch.autograd.grad(
                      loss, params, allow_unused=True))}
+        if self.mesh is not None:
+            grads = self._replica_grads(grads)
         with torch.no_grad():
             denorm = out["pred_ratings"] * std + mean
             sq_err = ((denorm - gt_ratings[None, :]) ** 2
                       * pairs_valid[None, :]).sum(dim=1)
-        return {"loss": loss.detach(), "rating_loss": rating_loss.detach(),
+            rating_loss = rating_loss.detach()
+            if data is not None:
+                nb = cfg.nblocks
+                summed = all_reduce(torch.cat([rating_loss, sq_err]), data)
+                rating_loss, sq_err = summed[:nb], summed[nb:]
+                loss = rating_loss.sum() + s.recon_lambda * recon_loss.sum() \
+                    if s.use_dae else rating_loss.sum()
+        return {"loss": loss.detach(), "rating_loss": rating_loss,
                 "recon_loss": recon_loss.detach(), "sq_err": sq_err}, grads
+
+    def _from_first(self, t, axis):
+        """The first rank's ``t`` of this rank's ``axis`` group ('all':
+        the whole mesh) on every rank of it."""
+        return from_first(t, self.mesh.group(axis))
+
+    @torch.no_grad()
+    def _replica_grads(self, grads):
+        """On a mesh, every replica of a parameter takes the same gradient:
+        each is whole on every rank that holds the parameter, but computed
+        there with atomics, so its last bits differ from rank to rank.
+        Replicated parameters take the mesh's first rank's gradients,
+        row-split tables the first 'data' rank's of their rows, so the
+        replicas stay bit-equal."""
+        out = dict(grads)
+        for axis, names in (
+                ("all", [k for k in grads if k not in self.opt.sharded]),
+                ("data", [k for k in grads if k in self.opt.sharded])):
+            if not names:
+                continue
+            flat = self._from_first(torch.cat(
+                [grads[k].reshape(-1).float() for k in names]), axis)
+            at = 0
+            for k in names:
+                g = grads[k]
+                out[k] = flat[at:at + g.numel()].reshape(g.shape).to(g.dtype)
+                at += g.numel()
+        return out
 
     def _eval_forward(self, segment, pu, pi):
         """Eval-mode ``pred_ratings`` ``(nblocks, B)``, denormalised and
@@ -763,11 +912,15 @@ class Trainer:
     @torch.no_grad()
     def evaluate(self, segment: str = "valid"):
         """Per-block RMSE on the given segment: predictions are
-        denormalised and clipped to the rating range."""
+        denormalised and clipped to the rating range.  On a mesh each
+        batch is padded to a multiple of the 'data' axis and split over
+        it, and every rank returns the whole segment's RMSE."""
         it = self.data_iter
         n_seg = (it.valid_node_pairs if segment == "valid"
                  else it.test_node_pairs).shape[1]
         B = min(self.s.rating_batch_size, max(1, n_seg))
+        if self.mesh is not None:
+            B = -(-B // self.mesh.size("data")) * self.mesh.size("data")
         sq_sum = torch.zeros(self.model_cfg.nblocks, dtype=torch.float64,
                              device=self.device)
         cnt = 0
@@ -778,16 +931,30 @@ class Trainer:
             pu = torch.from_numpy(pairs[0].astype(np.int64)).to(self.device)
             pi = torch.from_numpy(pairs[1].astype(np.int64)).to(self.device)
             gt = torch.from_numpy(ratings.astype(np.float32)).to(self.device)
-            clipped = self._eval_forward(segment, pu, pi)
-            sq_sum += ((clipped - gt[None, :]) ** 2).sum(dim=1)
+            if self.mesh is None:
+                clipped = self._eval_forward(segment, pu, pi)
+                sq_sum += ((clipped - gt[None, :]) ** 2).sum(dim=1)
+            else:
+                slot = self.shardings.place_batch(
+                    torch.arange(B, device=self.device))[0].local
+                valid = (slot < n).float()
+                take = slot.clamp_max(n - 1)
+                clipped = self._eval_forward(segment, pu[take], pi[take])
+                sq_sum += ((clipped - gt[take][None, :]) ** 2
+                           * valid[None, :]).sum(dim=1)
             cnt += n
+        if self.mesh is not None:
+            # One number on every rank: fit's schedule decides by it.
+            sq_sum = self._from_first(
+                all_reduce_(sq_sum, self.mesh.group("data")), "all")
         return np.sqrt(sq_sum.cpu().numpy() / max(cnt, 1))
 
     @torch.no_grad()
     def predict(self, pairs_user, pairs_item, segment: str = "test"):
         """Denormalised, range-clipped rating predictions (last block)
         for arbitrary (user, item) pairs, on the given graph variant with
-        the evaluation noise masking."""
+        the evaluation noise masking.  On a mesh every rank predicts every
+        pair (the batch is not split over 'data')."""
         pairs_user = np.asarray(pairs_user, np.int64)
         pairs_item = np.asarray(pairs_item, np.int64)
         n = pairs_user.size
@@ -833,10 +1000,13 @@ class Trainer:
             batch_size=s.recon_batch_size) if s.use_dae else None)
         if self.save_dir is not None:
             # net%d.txt architecture dump (reference gluon_net_info).
-            model_info(self.model.state_dict(), os.path.join(
-                self.save_dir, f"net{self.save_id}.txt"))
-        loggers = make_metric_loggers(self.save_dir, self.save_id,
-                                      self.model_cfg.nblocks)
+            whole = self.whole_params()
+            if self._writes_files:
+                model_info(whole, os.path.join(
+                    self.save_dir, f"net{self.save_id}.txt"))
+        loggers = make_metric_loggers(
+            self.save_dir if self._writes_files else None, self.save_id,
+            self.model_cfg.nblocks)
         nb = self.model_cfg.nblocks
         # Stall diagnosis and bounded restart of failed steps.
         monitor = None
@@ -874,7 +1044,12 @@ class Trainer:
             return ([self._prep_host_arrays(rb, cb) for rb, cb in chunk],
                     sum(rb[1].size for rb, _ in chunk))
 
-        use_dev = s.device_sampler
+        # Off on a mesh, as in the JAX package: the host batches go to
+        # every rank alike.
+        use_dev = s.device_sampler and self.mesh is None
+        if s.device_sampler and not use_dev:
+            log("TRAIN.DEVICE_SAMPLER is off on a device mesh: batches are "
+                "drawn on the host")
         try:
             with contextlib.ExitStack() as stack:
                 if k > 1 and not use_dev:
@@ -942,7 +1117,11 @@ class Trainer:
 
             logging_str = ""
             if iter_idx % s.log_interval == 0:
-                fetched = torch.cat(pending).double().cpu().numpy()
+                fetched = torch.cat(pending).double()
+                if self.mesh is not None:
+                    # The schedule's decisions read the mesh's first rank.
+                    fetched = self._from_first(fetched, "all")
+                fetched = fetched.cpu().numpy()
                 n_steps = fetched.shape[0]
                 last_loss = float(fetched[-1, 0])
                 gnorm_sum = fetched[:, 1].sum()
@@ -1047,23 +1226,73 @@ class Trainer:
             return None
         return os.path.join(self.save_dir, f"ckpt_{tag}_{self.save_id}.pt")
 
+    @property
+    def _writes_files(self) -> bool:
+        """Whether this process writes the CSVs and checkpoints: always on
+        one process, the mesh's first rank on a mesh."""
+        return self.mesh is None or self.mesh.leader
+
+    def _whole(self, name, t):
+        """Parameter-shaped tensor ``t`` of parameter ``name`` made whole:
+        gathered over 'model' where the parameter is split by rows (a
+        collective), as it is elsewhere."""
+        shard = self.model.row_shards.get(name)
+        return t if shard is None else shard.whole(t)
+
+    def _own(self, name, t):
+        """This rank's rows of a whole parameter-shaped tensor."""
+        shard = self.model.row_shards.get(name)
+        if shard is None:
+            return t
+        return t[shard.offset:shard.offset + shard.local.shape[0]]
+
+    def whole_params(self):
+        """The ``state_dict`` with every parameter whole (on a mesh, the
+        row-split tables gathered: every rank must call it)."""
+        return {k: self._whole(k, v)
+                for k, v in self.model.state_dict().items()}
+
     def save_checkpoint(self, tag: str = "last"):
-        """Persist parameters + optimiser state + the learning rate."""
+        """Persist parameters + optimiser state + the learning rate.  On a
+        mesh every rank calls it: the row-split tables and their moments
+        are gathered, the first rank writes, and all return once the file
+        is there."""
         path = self._checkpoint_path(tag)
         if path is None:
             return None
         from stargcn_tpu_torch.train.checkpoint import save_checkpoint
-        os.makedirs(self.save_dir, exist_ok=True)
-        save_checkpoint(path, self.model.state_dict(),
-                        self.opt.state_dict(), {"lr": self.lr})
+        opt = self.opt.state_dict()
+        opt = {**opt, **{m: {k: self._whole(k, v) for k, v in opt[m].items()}
+                         for m in ("mu", "nu")}}
+        params = self.whole_params()
+        if self._writes_files:
+            os.makedirs(self.save_dir, exist_ok=True)
+            save_checkpoint(path, params, opt, {"lr": self.lr})
+        if self.mesh is not None:
+            barrier(self.mesh.group("all"), self.device)
         return path
 
     def restore_checkpoint(self, path: str):
+        """Load a checkpoint of whole parameters (from one process or a
+        mesh); on a mesh every rank reads it and keeps its rows."""
         from stargcn_tpu_torch.train.checkpoint import restore_checkpoint
-        params, opt_state, extra = restore_checkpoint(
-            path, self.model.state_dict(), self.opt.state_dict())
-        self.model.load_state_dict(params)
-        self.opt.load_state_dict(opt_state)
+
+        def whole_like(name, t):
+            shard = self.model.row_shards.get(name)
+            return t if shard is None else t.new_empty(shard.global_shape)
+
+        params_t = {k: whole_like(k, v)
+                    for k, v in self.model.state_dict().items()}
+        opt_t = self.opt.state_dict()
+        opt_t = {**opt_t, **{m: {k: whole_like(k, v)
+                                 for k, v in opt_t[m].items()}
+                             for m in ("mu", "nu")}}
+        params, opt_state, extra = restore_checkpoint(path, params_t, opt_t)
+        self.model.load_state_dict({k: self._own(k, v)
+                                    for k, v in params.items()})
+        self.opt.load_state_dict({**opt_state, **{
+            m: {k: self._own(k, v) for k, v in opt_state[m].items()}
+            for m in ("mu", "nu")}})
         if "lr" in extra:
             self.set_lr(float(extra["lr"]))
 

@@ -123,8 +123,9 @@ class SampledTrainer:
             raise ValueError("SampledTrainer needs a positive fanout")
         if mesh is not None:
             raise NotImplementedError(
-                "not ported yet: the device mesh; the sampled trainer runs "
-                "on one device")
+                "not ported yet: the device mesh of the sampled trainer "
+                "(SampledTrainer(mesh=) and row_sharding come with the slice "
+                "after the full-graph mesh); it runs on one device")
         if model_cfg.use_dae and not model_cfg.use_embed:
             raise NotImplementedError(
                 "sampled DAE reconstruction needs embedding targets "

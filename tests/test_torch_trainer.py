@@ -338,7 +338,9 @@ def test_trainer_refuses_what_is_not_ported():
     jtrainer, ttrainer = build_trainers("sum")
     from stargcn_tpu_torch.train import Trainer, TrainSettings
 
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # The mesh is ported (tests/test_torch_mesh*.py): what is not a
+    # parallel.Mesh is refused.
+    with pytest.raises(TypeError, match="mesh"):
         Trainer(ttrainer.model_cfg, ttrainer.data_iter, ttrainer.s,
                 device="cpu", mesh=object())
     # TRAIN.DEVICE_SAMPLER is ported (tests/test_torch_device_sampler.py)
