@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 15      # phase 15 on its own ML-10M set-up
     python3 chip_smoke.py --phases 16      # phase 16 on its own ML-10M set-up
     python3 chip_smoke.py --phases 17      # phase 17 on its own ML-10M set-up
+    python3 chip_smoke.py --phases 18      # phase 18 on its own ML-10M set-up
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -270,6 +271,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``transductive_ml_10m.yml`` (the CLI's synthetic graph, ``bitdense``, 4
    steps) and ``python -m stargcn_tpu_torch.parallel.multiprocess_train``,
    each in a process of its own.
+18. sampled training on a device mesh (after phase 17, on phase 8's
+   ``pallas`` trainer, one checkpoint of it and one batch, its state
+   restored after), every step held against the same step without a mesh
+   by phase 17's rule (the nearest of 12 repeats, within twice their
+   spread), its collectives counted (``collectives.counted()``) and equal
+   to ``perfmodel.modeled_collectives``: (a) a 1 x 1 mesh over NCCL: 4
+   ``ell_spmm_fwd_only`` + 4 ``ell_spmm_transpose`` a step as without a
+   mesh, the collectives' MB and their time alone, the step's time beside
+   the step without a mesh, ``evaluate('valid')`` of the first 16,384
+   valid pairs equal to one process's from the same planner seed, then a
+   ``plan_device`` (``xla``) step; (b) two processes on this card over
+   gloo (``--phases 18b`` twice), on 1 x 2 and then 2 x 1: each rank's
+   step, its 4 + 4 ELL launches, each one's rows held element for element
+   against the rank's slice of the whole blocks that the 1 x 2 mesh
+   launched on (half of each block's rows on 2 x 1), its collectives, its
+   peak memory; (c) in processes of their own, ``python -m
+   stargcn_tpu_torch.train --mesh 1x1 --num_neighbors 8 --backend pallas``
+   on ``transductive_ml_10m.yml`` (the CLI's synthetic graph, 4 steps),
+   ``python -m stargcn_tpu_torch.parallel.scaling --meshes 1x1``, its
+   ``--project --sampled`` table fed the step without a mesh and its
+   device part (measured here on fresh batches), and ``python -m
+   stargcn_tpu_torch.parallel.mesh_scale_check`` ``1 1 1`` (NCCL) beside
+   ``2 2 1`` (two ranks on the card over gloo).
 
 Phase 3 also checks the three ELL kernels on small cases (K = 1, 8, 32;
 F = 1, 65, 250, 256; padded slots with in-range and out-of-range indices;
@@ -287,8 +311,8 @@ index; negative and too-large indices; every slot padded), each within
 and slots that name one index bit-equal.  Every time printed carries the
 card's name and power limit.
 
-Phases 13, 14, 15, 16, 17, 10, 11, 11b and 12 run inside phase 4's temporary
-directory, after phase 8, in that order.  The line before the last is the card's name
+Phases 13, 14, 15, 16, 17, 18, 10, 11, 11b and 12 run inside phase 4's
+temporary directory, after phase 8, in that order.  The line before the last is the card's name
 and power limit, the one before it ``{"kernels": [...]}`` (all nine
 kernels: the ``dense``, ``xla`` and ``plan_device`` paths launch none of
 them); each row's ``launches_by_path`` holds the count of every path that
@@ -301,7 +325,9 @@ sampled step and the ``remat`` step to the ELL pair, and the bit pair's
 F = 65 / 81 times as ``walk_by_f``; phase 16 the profiled ``fit(10)``
 and the ``StepTimer``'s 10 steps to the bit pair; phase 17 the mesh
 paths, ``mesh 1x1 ...``, ``mesh 1x2 rank r ...``, ``mesh 2x1 rank r ...``
-and ``mesh 1x1 train CLI``, to the bit pair); the last is ``{"ok":
+and ``mesh 1x1 train CLI``, to the bit pair; phase 18 ``mesh 1x1
+sampled ...``, ``mesh 1x2 rank r sampled ...``, ``mesh 2x1 rank r sampled
+...`` and ``mesh 1x1 sampled train CLI`` to the ELL pair); the last is ``{"ok":
 true, "device": {...}}``.  Needs one card; imports nothing of JAX and
 nothing of the JAX package.
 """
@@ -5940,33 +5966,37 @@ MESH_TOL = (1e-4, 1e-4, 1e-4)
 MESH_SHAPES_B = ((1, 2), (2, 1))
 
 
-COLLECTIVES = ("all_reduce", "all_gather", "broadcast")
+def collectives_numbers(counts, modeled, what, card):
+    """The counted collectives of one step (``collectives.counted()``)
+    beside ``perfmodel.modeled_collectives``: logged, checked equal call
+    for call and byte for byte, and returned."""
+    from stargcn_tpu_torch.parallel.perfmodel import total
+
+    by_kind = counts.by_kind()
+    calls, nbytes = total(by_kind)
+    m_calls, m_bytes = total(modeled)
+    log(f"  {what}: {calls} collectives, {nbytes / 1e6:.3f} MB (kind: "
+        f"axis: [count, bytes] {by_kind}); modeled {m_calls}, "
+        f"{m_bytes / 1e6:.3f} MB [{card}]")
+    check(by_kind == modeled, f"{what}: the counted collectives are not "
+          f"the modeled ones ({modeled})")
+    return {"count": calls, "mb": nbytes / 1e6, "by_kind": by_kind,
+            "equal_to_model": True}
 
 
-@contextlib.contextmanager
-def counted_collectives(calls):
-    """While open, every ``torch.distributed`` all-reduce, all-gather and
-    broadcast appends ``(kind, elements, bytes)`` of the tensor it gives
-    (an all-gather's: the whole list it fills) to ``calls``."""
-    import torch.distributed as dist
+def collectives_alone_ms(counts, mesh):
+    """One collective of each kind, axis and size the step issued, timed
+    back to back by CUDA events (float32 buffers of the same bytes), times
+    how often the step issued it."""
+    import torch
 
-    real = {k: getattr(dist, k) for k in COLLECTIVES}
-
-    def counting(kind):
-        def call(first, *args, **kw):
-            t = args[0] if kind == "all_gather" else first
-            n = t.numel() * (len(first) if kind == "all_gather" else 1)
-            calls.append((kind, n, n * t.element_size()))
-            return real[kind](first, *args, **kw)
-        return call
-
-    for k in COLLECTIVES:
-        setattr(dist, k, counting(k))
-    try:
-        yield
-    finally:
-        for k, fn in real.items():
-            setattr(dist, k, fn)
+    ms = 0.0
+    for kind, axis, nbytes in sorted(set(counts.calls)):
+        ms += cuda_ms(replay_collective(kind, max(nbytes // 4, 1),
+                                        mesh.group(axis), DEVICE), 5) \
+            * counts.calls.count((kind, axis, nbytes))
+    torch.cuda.empty_cache()
+    return ms
 
 
 def replay_collective(kind, n, group, device):
@@ -6076,24 +6106,31 @@ REF_REPEATS = 12
 PARAM_TOL = (MESH_TOL[1], 5e-3)
 
 
-def mesh_reference(trainer, batch, ckpt):
-    """The step without a mesh from the checkpoint ``ckpt``:
-    ``REF_REPEATS`` times ``loss_and_grads`` through the kernels (dropout
-    from seed 123) and the optimiser's step on those gradients, as
-    ``train_iteration`` takes it; its distinct outcomes (stats, gradients,
-    parameters after), and the largest difference between two of them;
-    once through the plain float32 bit pools.  The trainer's own state
-    comes back."""
+def mesh_reference(trainer, batch, ckpt, grads_of=None, plain=None,
+                   repeats=REF_REPEATS):
+    """The step without a mesh from the checkpoint ``ckpt``: ``repeats``
+    times ``loss_and_grads`` through the kernels (``grads_of(trainer,
+    batch)``, default ``whole_grads``: dropout from seed 123) and the
+    optimiser's step on those gradients, as ``train_iteration`` takes it;
+    its distinct outcomes (stats, gradients, parameters after), and the
+    largest difference between two of them; once through the plain
+    float32 pools (``plain(trainer, batch)``, default the plain bit
+    twin's; ``False``: no plain route).  The trainer's own state comes
+    back."""
     import torch
 
+    grads_of = grads_of or whole_grads
+    if plain is None:
+        def plain(owner, b):
+            return whole_grads(plain_twin(owner), b)
     params0 = copy.deepcopy(trainer.model.state_dict())
     opt0 = copy.deepcopy(trainer.opt.state_dict())
     lr0 = trainer.lr
     outcomes = []
     try:
-        for _ in range(REF_REPEATS):
+        for _ in range(repeats):
             trainer.restore_checkpoint(ckpt)
-            stats, grads = whole_grads(trainer, batch)
+            stats, grads = grads_of(trainer, batch)
             trainer.opt.step(grads)
             after = {k: v.detach().clone()
                      for k, v in trainer.model.state_dict().items()}
@@ -6108,7 +6145,7 @@ def mesh_reference(trainer, batch, ckpt):
             outcomes.append(dict(stats=stats, grads=grads, after=after,
                                  repeats=1))
         trainer.restore_checkpoint(ckpt)
-        plain = whole_grads(plain_twin(trainer), batch)
+        plain = plain(trainer, batch) if plain else None
     finally:
         trainer.model.load_state_dict(params0)
         trainer.opt.load_state_dict(opt0)
@@ -6117,7 +6154,7 @@ def mesh_reference(trainer, batch, ckpt):
                              (b["stats"], b["grads"])),
                params_diff(a["after"], b["after"]))
               for i, a in enumerate(outcomes) for b in outcomes[i + 1:]]
-    log(f"  the step without a mesh {REF_REPEATS} times: "
+    log(f"  the step without a mesh {repeats} times: "
         f"{len(outcomes)} outcomes ({[o['repeats'] for o in outcomes]} "
         f"repeats); between two of them the gradients differ by up to "
         f"{max([x[0][3] for x in spread], default=0.0):.3e} all together, "
@@ -6149,27 +6186,30 @@ def mesh_grads_held(what, ref, got, numbers):
         f"{what} vs no mesh (loss_and_grads, kernels; outcome {i} of "
         f"{len(fits)})", (o["stats"], o["grads"]), got_kernel, tol)
     numbers["grads"]["outcome"] = i
-    numbers["grads_plain"] = held_against(
-        f"{what} vs no mesh (loss_and_grads, plain float32 pools)",
-        ref["plain"], got_plain, MESH_TOL)
+    if ref["plain"] is not None:
+        numbers["grads_plain"] = held_against(
+            f"{what} vs no mesh (loss_and_grads, plain float32 pools)",
+            ref["plain"], got_plain, MESH_TOL)
 
 
-def mesh_step(bd, mt, batch, calls):
+def mesh_step(bd, mt, batch):
     """``loss_and_grads`` of the mesh trainer ``mt`` through the kernels
     and through the plain float32 pools, and one ``train_iteration``
     (dropout from seed 123): the kernel routes' bit launches counted from
-    0, the step's collectives appended to ``calls``; the gradients and the
-    parameters after the step whole."""
+    0, the step's collectives (``collectives.counted()``); the gradients
+    and the parameters after the step whole."""
+    from stargcn_tpu_torch.parallel import collectives as C
+
     zero_launches(bd)
     grads = whole_grads(mt, batch)
     grad_launches = dict(bd.LAUNCHES)
     plain = whole_grads(plain_mesh_twin(mt), batch)
     mt.seed_dropout(SEED)
     zero_launches(bd)
-    with counted_collectives(calls):
+    with C.counted() as counts:
         stats, t_step = host_s(lambda: mt.train_iteration(*batch))
     return (grads, plain), stats, mt.whole_params(), grad_launches, dict(
-        bd.LAUNCHES), t_step
+        bd.LAUNCHES), t_step, counts
 
 
 def run_mesh_1x1(bd, trainer, cfg, it, model_cfg, ckpt, batch, ref,
@@ -6195,9 +6235,8 @@ def run_mesh_1x1(bd, trainer, cfg, it, model_cfg, ckpt, batch, ref,
         mesh=mesh))
     mt.restore_checkpoint(ckpt)
     log(f"  1x1 mesh trainer (NCCL): {t_build:.2f} s [{card}]")
-    calls = []
-    got_grads, stats, after, grad_l, step_l, _ = mesh_step(bd, mt, batch,
-                                                            calls)
+    got_grads, stats, after, grad_l, step_l, _, coll = mesh_step(
+        bd, mt, batch)
     for path, counts in (("mesh 1x1 loss_and_grads", grad_l),
                          ("mesh 1x1 train_iteration", step_l)):
         launches[path] = counts
@@ -6210,16 +6249,11 @@ def run_mesh_1x1(bd, trainer, cfg, it, model_cfg, ckpt, batch, ref,
                             ref["outcomes"][0]["stats"], stats, MESH_TOL[0]),
         "params": params_held("mesh 1x1 vs no mesh", ref, after)}
     mesh_grads_held("mesh 1x1", ref, got_grads, numbers["held"])
-    per_step = len(calls)
-    numbers["collectives_per_step"] = per_step
-    numbers["collective_mb_per_step"] = sum(b for _, _, b in calls) / 1e6
-    numbers["collectives_by_kind"] = {
-        k: [sum(1 for c in calls if c[0] == k),
-            sum(c[2] for c in calls if c[0] == k) / 1e6]
-        for k in COLLECTIVES}
-    log(f"  one mesh step issues {per_step} collectives over NCCL, "
-        f"{numbers['collective_mb_per_step']:.1f} MB (count, MB by kind: "
-        f"{numbers['collectives_by_kind']}) [{card}]")
+    from stargcn_tpu_torch.parallel.perfmodel import modeled_collectives
+
+    numbers["collectives"] = collectives_numbers(
+        coll, modeled_collectives(model_cfg, 1, 1, model_cfg.backend),
+        "one 1x1 mesh step (NCCL)", card)
 
     # Step times in turns, the parameters moving on in both (phase 17
     # restores phase 4's trainer after).
@@ -6233,12 +6267,7 @@ def run_mesh_1x1(bd, trainer, cfg, it, model_cfg, ckpt, batch, ref,
     numbers["step_ms"] = {k: median(v) for k, v in times.items()}
     # The collectives of one step alone: one of each kind and size the
     # step issued, back to back by CUDA events.
-    group = mesh.group("model")
-    coll_ms = 0.0
-    for kind, n in sorted({(k, n) for k, n, _ in calls}):
-        coll_ms += cuda_ms(replay_collective(kind, n, group, DEVICE), 5) \
-            * sum(1 for c in calls if c[:2] == (kind, n))
-    torch.cuda.empty_cache()
+    coll_ms = collectives_alone_ms(coll, mesh)
     numbers["collectives_ms"] = coll_ms
     log(f"  step on the 1x1 mesh {numbers['step_ms']['mesh']:.1f} ms, "
         f"without a mesh {numbers['step_ms']['no_mesh']:.1f} ms (host "
@@ -6374,9 +6403,8 @@ def mesh_rank_main(bd, card):
             model_cfg, it, TrainSettings.from_cfg(cfg), device=DEVICE,
             mesh=mesh))
         mt.restore_checkpoint(inputs["ckpt"])
-        calls = []
-        grads, stats, params, grad_l, step_l, t_step = mesh_step(
-            bd, mt, inputs["batch"], calls)
+        grads, stats, params, grad_l, step_l, t_step, coll = mesh_step(
+            bd, mt, inputs["batch"])
         pack = mt.variants.bit_pack("train")
         torch.save({
             "grads": grads, "stats": stats, "params": params,
@@ -6385,7 +6413,7 @@ def mesh_rank_main(bd, card):
                           for t in ("user", "item")},
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "step_ms": t_step * 1e3,
-            "collectives_per_step": len(calls),
+            "collectives_per_step": coll.count,
         }, os.path.join(work, f"{d}x{m}_r{rank}.pt"))
         log(f"  {d}x{m}: trainer {t_build:.2f} s, train_iteration "
             f"{t_step:.2f} s [{card}]")
@@ -6591,6 +6619,536 @@ def run_phase17(bd, trainer, cfg, it, model_cfg, save_dir, card):
     return launches, numbers
 
 
+# ------------------------------- phase 18 -------------------------------
+
+# Phase 8's sampled set-up: batch 4096, recon 1024, fanout 8, pallas.
+SAMPLED_MESH = dict(batch=4096, recon=1024, fanout=8)
+# Phase 18 (a)'s evaluation compares the first 16,384 valid pairs (4
+# batches); the whole segment is 244 host-planned batches.
+EVAL_PAIRS = 16_384
+
+
+def sampled_ml10m(cfg, it, model_cfg, save_dir, **kw):
+    """Phase 8's ``SampledTrainer`` on phase 4's graph (``--phases 18``
+    builds its own)."""
+    from stargcn_tpu_torch.graph import kernels as gk
+    from stargcn_tpu_torch.train import SampledTrainer, TrainSettings
+
+    s = TrainSettings.from_cfg(cfg)
+    s.rating_batch_size = SAMPLED_MESH["batch"]
+    s.recon_batch_size = SAMPLED_MESH["recon"]
+    gk.set_seed(SEED)
+    return SampledTrainer(model_cfg, it, s,
+                          fanout=SAMPLED_MESH["fanout"], device=DEVICE,
+                          save_dir=save_dir, save_id=1,
+                          **{"backend": "pallas", **kw})
+
+
+def sampled_grads(owner, batch):
+    """``loss_and_grads`` of a ``SampledTrainer`` (or of one rank of a
+    mesh) on ``batch`` (a one-tuple), dropout and device plans from seed
+    123, gradients whole."""
+    if getattr(owner, "plan_device", False):
+        owner._plan_gen.manual_seed(SEED)
+    return whole_grads(owner, batch)
+
+
+def sampled_mesh_step(ek, mt, batch):
+    """Phase 17's ``mesh_step`` for a sampled mesh trainer: its gradients
+    through the ELL kernels and through their plain versions, then one
+    ``train_iteration`` with its collectives counted; ELL launches counted
+    from 0 for each kernel route."""
+    from stargcn_tpu_torch.parallel import collectives as C
+
+    zero_launches(ek)
+    grads = sampled_grads(mt, batch)
+    grad_l = dict(ek.LAUNCHES)
+    plain = None
+    if mt.backend == "pallas":
+        with plain_ell_versions(ek):
+            plain = sampled_grads(mt, batch)
+    mt.seed_dropout(SEED)
+    if mt.plan_device:
+        mt._plan_gen.manual_seed(SEED)
+    zero_launches(ek)
+    with C.counted() as counts:
+        stats, t_step = host_s(lambda: mt.train_iteration(*batch))
+    return (grads, plain), stats, mt.whole_params(), grad_l, dict(
+        ek.LAUNCHES), t_step, counts
+
+
+def ell_step_launches(what, counts, ell):
+    """``ell`` ELL launches of each of the pair and no ``ell_sddmm``."""
+    want = {"ell_spmm_fwd_only": ell, "ell_spmm_transpose": ell,
+            "ell_sddmm": 0}
+    check(counts == want, f"{what}: {counts}, not {want}")
+
+
+def sampled_modeled(mt, d, m):
+    from stargcn_tpu_torch.parallel.perfmodel import modeled_collectives
+
+    return modeled_collectives(
+        mt.model_cfg, d, m, mt.backend, sampled=dict(
+            caps=mt.caps, batch=mt.train_batch_pad, recon=mt.recon_cap,
+            fanout=mt.fanout, plan_device=mt.plan_device))
+
+
+def sampled_held(what, ref, stats, after, grads, numbers):
+    """A sampled mesh step against the step without a mesh, by phase 17's
+    rule (its nearest outcome, within twice the outcomes' spread)."""
+    numbers["stats"] = stats_held(f"{what} vs no mesh (train_iteration)",
+                                  ref["outcomes"][0]["stats"], stats,
+                                  MESH_TOL[0])
+    numbers["params"] = params_held(f"{what} vs no mesh", ref, after)
+    mesh_grads_held(what, ref, grads, numbers)
+    return numbers
+
+
+def run_sampled_mesh_1x1(ek, strainer, cfg, it, model_cfg, ckpt, batch, ref,
+                         save_dir, card):
+    """Phase 18 (a): the ML-10M sampled ``pallas`` trainer on a 1 x 1 mesh
+    over NCCL: one step against the step without a mesh, its launches,
+    its collectives against the model and alone, step times, the
+    evaluation against one process's; then a ``plan_device`` (``xla``)
+    step likewise."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from stargcn_tpu_torch.graph import kernels as gk
+    from stargcn_tpu_torch.parallel import make_mesh
+
+    numbers, launches = {}, {}
+    mesh = make_mesh(1, 1, device=DEVICE)
+    check(mesh.backend == ("nccl" if DEVICE == "cuda" else "gloo"),
+          f"the 1x1 mesh runs on {mesh.backend}")
+    mt, t_build = host_s(lambda: sampled_ml10m(
+        cfg, it, model_cfg, os.path.join(save_dir, "phase18"),
+        frontier_caps=strainer.caps, mesh=mesh))
+    mt.restore_checkpoint(ckpt)
+    log(f"  1x1 mesh SampledTrainer (NCCL): {t_build:.2f} s [{card}]")
+    grads, stats, after, grad_l, step_l, _, coll = sampled_mesh_step(
+        ek, mt, batch)
+    for path, got in (("mesh 1x1 sampled loss_and_grads", grad_l),
+                      ("mesh 1x1 sampled train_iteration", step_l)):
+        ell_step_launches(path, got, 4)
+        launches[path] = got
+    numbers["held"] = sampled_held("sampled mesh 1x1", ref, stats, after,
+                                   grads, {})
+    numbers["collectives"] = collectives_numbers(
+        coll, sampled_modeled(mt, 1, 1), "one 1x1 sampled mesh step "
+        "(NCCL)", card)
+    numbers["collectives_ms"] = collectives_alone_ms(coll, mesh)
+
+    # Step times in turns, from the checkpoint, the parameters moving on.
+    times = {"mesh": [], "no_mesh": []}
+    mt.restore_checkpoint(ckpt)
+    strainer.restore_checkpoint(ckpt)
+    for _ in range(3):
+        for name, owner in (("no_mesh", strainer), ("mesh", mt)):
+            times[name].append(host_s(
+                lambda: owner.train_iteration(*batch))[1] * 1e3)
+    numbers["step_ms"] = {k: median(v) for k, v in times.items()}
+    log(f"  sampled step on the 1x1 mesh {numbers['step_ms']['mesh']:.1f} "
+        f"ms, without a mesh {numbers['step_ms']['no_mesh']:.1f} ms (host "
+        f"clock, one batch replayed, median of 3 in turns); its "
+        f"collectives alone {numbers['collectives_ms']:.2f} ms on the card "
+        f"[{card}]")
+
+    # Evaluation of the same parameters and plans (the first EVAL_PAIRS
+    # valid pairs; the planners' stream from one seed each time).
+    mt.restore_checkpoint(ckpt)
+    strainer.restore_checkpoint(ckpt)
+    whole = (it.valid_node_pairs, it.valid_ratings)
+    it._valid_node_pairs = whole[0][:, :EVAL_PAIRS]
+    it._valid_ratings = whole[1][:EVAL_PAIRS]
+    try:
+        gk.set_seed(SEED + 18)
+        zero_launches(ek)
+        rmse_mesh, t_eval = host_s(lambda: mt.evaluate("valid"))
+        launches["mesh 1x1 sampled evaluate"] = dict(ek.LAUNCHES)
+        gk.set_seed(SEED + 18)
+        rmse_one = strainer.evaluate("valid")
+    finally:
+        it._valid_node_pairs, it._valid_ratings = whole
+    err = float(np.abs(rmse_mesh - rmse_one).max())
+    log(f"  evaluate('valid') of {EVAL_PAIRS} pairs on the mesh "
+        f"{rmse_mesh.tolist()} vs one process {rmse_one.tolist()}: diff "
+        f"{err:.2e} (tol 1e-5), {t_eval:.2f} s, "
+        f"{launches['mesh 1x1 sampled evaluate']} [{card}]")
+    check(err <= 1e-5, "the sampled mesh's evaluation disagrees")
+    n_eval = -(-min(EVAL_PAIRS, whole[0].shape[1]) // mt.train_batch_pad)
+    check(launches["mesh 1x1 sampled evaluate"] == {
+        "ell_spmm_fwd_only": 4 * n_eval, "ell_spmm_transpose": 0,
+        "ell_sddmm": 0},
+        "the mesh's evaluation should pool 4 blocks a batch forward only")
+    numbers.update(valid_rmse=rmse_mesh.tolist(), eval_s=t_eval,
+                   eval_diff=err)
+    del mt
+    torch.cuda.empty_cache()
+
+    # plan_device (xla): planned on the card on every rank.
+    one, t_one = host_s(lambda: sampled_ml10m(
+        cfg, it, model_cfg, None, backend="xla", plan_device=True))
+    md = sampled_ml10m(cfg, it, model_cfg, None, backend="xla",
+                       plan_device=True, mesh=mesh)
+    rs = it.rating_sampler(batch_size=one.train_batch, segment="train")
+    rc = it.recon_nodes_sampler(batch_size=one.s.recon_batch_size)
+    pd_batch = (one._make_batch(rs, rc),)
+    ref_pd = mesh_reference(one, pd_batch, ckpt, grads_of=sampled_grads,
+                            plain=False)
+    md.restore_checkpoint(ckpt)
+    grads, stats, after, grad_l, step_l, _, coll = sampled_mesh_step(
+        ek, md, pd_batch)
+    for path, got in (("mesh 1x1 plan_device loss_and_grads", grad_l),
+                      ("mesh 1x1 plan_device train_iteration", step_l)):
+        ell_step_launches(path, got, 0)
+    numbers["plan_device"] = {
+        "caps": dict(md.caps), "trainers_s": t_one,
+        "reference_spread": ref_pd["spread"],
+        "held": sampled_held("plan_device mesh 1x1", ref_pd, stats, after,
+                             grads, {}),
+        "collectives": collectives_numbers(
+            coll, sampled_modeled(md, 1, 1), "one 1x1 plan_device mesh "
+            "step (NCCL)", card)}
+    del one, md, ref_pd
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def run_sampled_mesh_ranks_on_one_card(ek, strainer, cfg, it, model_cfg,
+                                       ckpt, batch, ref, save_dir, card):
+    """Phase 18 (b): two processes on the one card over gloo (``--phases
+    18b``, the data iterator passed pickled), on a 1 x 2 and then a 2 x 1
+    mesh of the sampled ``pallas`` trainer: each rank's step against the
+    step without a mesh, its ELL launches and the rows they ran on, its
+    collectives against the model, its peak memory."""
+    import pickle
+
+    import torch
+
+    work = os.path.join(save_dir, "phase18b")
+    os.makedirs(work, exist_ok=True)
+    with open(os.path.join(work, "iterator.pkl"), "wb") as f:
+        pickle.dump((cfg, it, model_cfg), f, protocol=5)
+    torch.save({"ckpt": ckpt, "batch": batch, "caps": dict(strainer.caps)},
+               os.path.join(work, "in.pt"))
+    env = {**os.environ, "CHIP_SMOKE_MESH_DIR": work}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--phases",
+         "18b"], cwd=ROOT, env={**env, "CHIP_SMOKE_RANK": str(r)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith("  "):
+                log(f"  [rank {r}] {line.strip()}")
+        check(p.returncode == 0, f"--phases 18b rank {r} failed: "
+              f"{err[-3000:]}")
+    numbers, launches = {}, {}
+    for d, m in MESH_SHAPES_B:
+        for r in range(2):
+            got = torch.load(os.path.join(work, f"{d}x{m}_r{r}.pt"),
+                             weights_only=False)
+            what = f"sampled mesh {d}x{m} rank {r} (gloo, one card)"
+            entry = sampled_held(what, ref, got["stats"], got["params"],
+                                 got["grads"], {})
+            for path in ("loss_and_grads", "train_iteration"):
+                counts = got[f"{path}_launches"]
+                ell_step_launches(f"{what} {path}", counts, 4)
+                launches[f"mesh {d}x{m} rank {r} sampled {path}"] = counts
+            check(got["collectives"]["equal_to_model"], what)
+            rows = got["ell_rows"]
+            check(all(n == rows["want"][t] for t, n in rows["launched"]),
+                  f"{what}: ELL launches on {rows['launched']} rows, not "
+                  f"the rank's {rows['want']}")
+            check(rows["equal_to_whole"],
+                  f"{what}: the rows of its ELL launches are not its slice "
+                  f"of the whole blocks: {rows['mismatch']}")
+            log(f"  {what}: each of its 4 + 4 ELL launches of the step "
+                f"ran on rows {rows['launched']} equal, element for "
+                f"element, to rows {rows['ranges']} of the whole blocks "
+                f"that the 1x2 mesh launched on, "
+                f"{got['collectives']['count']} collectives = modeled, "
+                f"{got['collectives']['mb']:.1f} MB, peak "
+                f"{got['peak_gib']:.2f} GiB, step {got['step_ms']:.1f} ms "
+                f"[{card}]")
+            numbers[f"{d}x{m}_r{r}"] = {
+                **entry, "ell_rows": rows["ranges"],
+                "collectives": got["collectives"],
+                "peak_gib": got["peak_gib"], "step_ms": got["step_ms"]}
+    return launches, numbers
+
+
+def sampled_mesh_rank_main(ek, card):
+    """``--phases 18b``: one rank of phase 18 (b), ``CHIP_SMOKE_RANK`` of
+    two on this card, joined over gloo through a file in
+    ``CHIP_SMOKE_MESH_DIR``: for each mesh of ``MESH_SHAPES_B`` the step
+    of ``sampled_mesh_step`` from the parent's checkpoint and batch, the
+    rows of each ELL launch, written there."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from stargcn_tpu_torch.parallel import initialize_distributed, make_mesh
+    from stargcn_tpu_torch.parallel.shardings import padded_split
+
+    work = os.environ["CHIP_SMOKE_MESH_DIR"]
+    rank = int(os.environ["CHIP_SMOKE_RANK"])
+    initialize_distributed("file://" + os.path.join(work, "rendezvous"), 2,
+                           rank, device=DEVICE, backend="gloo")
+    with open(os.path.join(work, "iterator.pkl"), "rb") as f:
+        cfg, it, model_cfg = pickle.load(f)
+    inputs = torch.load(os.path.join(work, "in.pt"), weights_only=False)
+    caps = inputs["caps"]
+    real = {"fwd": ek.ell_spmm_fwd_only, "t": ek.ell_spmm_transpose}
+    whole = None        # the 1 x 2 mesh's launches: every block whole
+    check(MESH_SHAPES_B[0][0] == 1, "the first mesh must launch on whole "
+          "blocks")
+    for d, m in MESH_SHAPES_B:
+        mesh = make_mesh(d, m, device=DEVICE)
+        torch.cuda.reset_peak_memory_stats()
+        mt, t_build = host_s(lambda: sampled_ml10m(
+            cfg, it, model_cfg, None, frontier_caps=caps, mesh=mesh))
+        mt.restore_checkpoint(inputs["ckpt"])
+        batch = inputs["batch"] if mt._plans else (None,)
+        launched = {"fwd": [], "t": []}
+
+        def fwd(values, idx, weight):
+            launched["fwd"].append((idx.cpu(), weight.cpu()))
+            return real["fwd"](values, idx, weight)
+
+        def transpose(cot, idx, weight, num_src):
+            launched["t"].append((idx.cpu(), weight.cpu()))
+            return real["t"](cot, idx, weight, num_src)
+
+        ek.ell_spmm_fwd_only, ek.ell_spmm_transpose = fwd, transpose
+        try:
+            grads, stats, params, grad_l, step_l, t_step, coll = \
+                sampled_mesh_step(ek, mt, batch)
+        finally:
+            ek.ell_spmm_fwd_only, ek.ell_spmm_transpose = (real["fwd"],
+                                                           real["t"])
+        k = mesh.index("data")
+        split = {t: padded_split(caps[t], d, k) for t in ("user", "item")}
+        # The step's launches (the last four of each kernel), each named
+        # by its row count: the rank's padded rows of the user or the item
+        # block (the caps differ at ML-10M).
+        check(caps["user"] != caps["item"], "equal caps: the launches "
+              "cannot be told apart by their rows")
+        name = {split[t][2]: t for t in split}
+        step = {kind: [(name.get(int(idx.shape[0])), (idx, w))
+                       for idx, w in launched[kind][-4:]]
+                for kind in launched}
+        if whole is None:
+            whole = step
+        # Each launch's rows against the rank's rows of the whole block
+        # (the n-th launch of a kind on a type against the n-th of the
+        # whole blocks'), element for element; the padded rows empty.
+        mismatch = [f"{kind} launch on {idx.shape[0]} rows"
+                    for kind in step for t, (idx, _) in step[kind]
+                    if t is None]
+        for kind in step:
+            for t in split:
+                lo, hi, _ = split[t]
+                mine = [a for tt, a in step[kind] if tt == t]
+                theirs = [a for tt, a in whole[kind] if tt == t]
+                if len(mine) != len(theirs):
+                    mismatch.append(f"{kind} {t}: {len(mine)} launches "
+                                    f"against {len(theirs)}")
+                for j, ((idx, w), (widx, ww)) in enumerate(zip(mine,
+                                                               theirs)):
+                    if not (torch.equal(idx[:hi - lo], widx[lo:hi])
+                            and torch.equal(w[:hi - lo], ww[lo:hi])
+                            and not w[hi - lo:].any()):
+                        mismatch.append(f"{kind} {t} launch {j}")
+        torch.save({
+            "grads": grads, "stats": stats, "params": params,
+            "loss_and_grads_launches": grad_l,
+            "train_iteration_launches": step_l,
+            "ell_rows": {
+                "launched": [(t, int(idx.shape[0]))
+                             for kind in ("fwd", "t")
+                             for t, (idx, _) in step[kind]],
+                "equal_to_whole": not mismatch, "mismatch": mismatch,
+                "want": {t: split[t][2] for t in split},
+                "ranges": {t: f"[{split[t][0]}, {split[t][1]}) of "
+                              f"{caps[t]} (padded to {split[t][2]})"
+                           for t in split}},
+            "collectives": collectives_numbers(
+                coll, sampled_modeled(mt, d, m), f"{d}x{m} rank {rank} "
+                "step (gloo)", card),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "step_ms": t_step * 1e3,
+        }, os.path.join(work, f"{d}x{m}_r{rank}.pt"))
+        log(f"  {d}x{m}: trainer {t_build:.2f} s, train_iteration "
+            f"{t_step:.2f} s [{card}]")
+        del mt
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+
+def run_sampled_mesh_cli(ek, save_dir, split, card):
+    """Phase 18 (c), each in a process of its own: ``python -m
+    stargcn_tpu_torch.train --mesh 1x1 --num_neighbors 8`` on
+    ``transductive_ml_10m.yml`` (the CLI's synthetic graph, ``pallas``, 4
+    steps), its ELL launches counted there; ``python -m
+    stargcn_tpu_torch.parallel.scaling --meshes 1x1``; its ``--project``
+    table fed ``split``, the sampled step without a mesh measured whole and
+    its device part (``time_sampled_steps``); and ``python -m
+    stargcn_tpu_torch.parallel.mesh_scale_check`` on the card, ``1 1 1``
+    over NCCL beside ``2 2 1`` (two ranks on the card over gloo)."""
+    out_dir = os.path.join(save_dir, "phase18_cli")
+    code = (
+        "import json, sys; sys.path.insert(0, %r)\n"
+        "from stargcn_tpu_torch.ops import ell_kernels as ek\n"
+        "from stargcn_tpu_torch.train.__main__ import main\n"
+        "r = main(sys.argv[1:])\n"
+        "print(json.dumps({'launches': ek.LAUNCHES, 'result': r}))\n"
+        % ROOT)
+    args = ["--cfg", os.path.join(ROOT, "configs", "transductive_ml_10m.yml"),
+            "--dataset", "synthetic", "--num_neighbors", "8", "--backend",
+            "pallas", "--mesh", "1x1", "--max_iter", "4", "--save_dir",
+            out_dir, "--silent", "--device", DEVICE]
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code, *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    t_cli = time.perf_counter() - t0
+    check(out.returncode == 0, f"the sampled train CLI with --mesh 1x1 "
+          f"failed: {out.stderr[-3000:]}")
+    last = json.loads(out.stdout.strip().splitlines()[-1])
+    counts = last["launches"]
+    # 4 steps of 4 + 4; evaluation passes add forward launches only.
+    check(counts["ell_spmm_transpose"] == 16
+          and counts["ell_spmm_fwd_only"] >= 16,
+          f"the sampled --mesh 1x1 CLI launched {counts}")
+    log(f"  train CLI --mesh 1x1 --num_neighbors 8: {t_cli:.1f} s in a "
+        f"process of its own, {counts} ELL launches, result "
+        f"{last['result']} [{card}]")
+    numbers = {"cli_s": t_cli}
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "stargcn_tpu_torch.parallel.scaling",
+         "--meshes", "1x1", "--device", DEVICE, "--steps", "5"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    numbers["scaling_s"] = time.perf_counter() - t0
+    check(out.returncode == 0, f"scaling --meshes 1x1 failed: "
+          f"{out.stderr[-3000:]}")
+    row = json.loads(out.stdout.strip().splitlines()[-1])
+    check(row["full_graph"]["equal"] and row["sampled"]["equal"],
+          f"scaling --meshes 1x1: counted collectives are not the modeled "
+          f"ones: {row}")
+    numbers["scaling"] = {k: (row[k] if k not in ("full_graph", "sampled")
+                              else {kk: v for kk, v in row[k].items()
+                                    if kk not in ("counted", "modeled")})
+                          for k in row}
+    log(f"  scaling --meshes 1x1 ({numbers['scaling_s']:.1f} s): full-graph "
+        f"{row['full_graph']['step_ms']:.2f} ms a step, "
+        f"{row['full_graph']['examples_per_s']:.0f} examples/s; sampled "
+        f"{row['sampled']['step_ms']:.2f} ms, "
+        f"{row['sampled']['examples_per_s']:.0f} examples/s; collectives "
+        f"= modeled [{card}]")
+    step_ms, split_ms = split["step_ms"], split["device_step_ms"]
+    out = subprocess.run(
+        [sys.executable, "-m", "stargcn_tpu_torch.parallel.scaling",
+         "--project", "--sampled", "--step-ms", f"{step_ms:.3f}",
+         "--split-ms", f"{split_ms:.3f}",
+         "--batch", str(SAMPLED_MESH["batch"])],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"scaling --project failed: {out.stderr}")
+    numbers["projection"] = [json.loads(line)
+                             for line in out.stdout.splitlines()
+                             if line.startswith("{")]
+    numbers["projected_from"] = split
+    for row in numbers["projection"]:
+        log(f"    projected from {step_ms:.1f} ms on this card (device "
+            f"{split_ms:.1f} ms divided): {row['mesh']}"
+            f" {row['step_ms']:.2f} ms a step, {row['link_ms']:.3f} ms on "
+            f"NVLink 4 ({row['link_ms_pcie']:.3f} over PCIe Gen5), "
+            f"{row['examples_per_s']:.0f} examples/s")
+    # The mesh-scale twin on the card: NCCL on one rank, gloo on two.
+    t0 = time.perf_counter()
+    twins = {shape: subprocess.Popen(
+        [sys.executable, "-m", "stargcn_tpu_torch.parallel.mesh_scale_check",
+         *shape, "--device", DEVICE, "--timeout", "400"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for shape in (("1", "1", "1"), ("2", "2", "1"))}
+    try:
+        outs = {shape: p.communicate(timeout=480)[0]
+                for shape, p in twins.items()}
+    finally:
+        for p in twins.values():
+            p.kill()
+    numbers["mesh_scale_check_s"] = time.perf_counter() - t0
+    for shape, text in outs.items():
+        ranks, d, m = shape
+        over = "nccl" if DEVICE == "cuda" and ranks == "1" else "gloo"
+        want = f"MESH SCALE OK {ranks} ranks {d}x{m} on {DEVICE} over {over}"
+        check(twins[shape].returncode == 0 and want in text,
+              f"mesh_scale_check {' '.join(shape)} on the card: "
+              f"{text[-3000:]}")
+        line = next(x for x in text.splitlines() if x.startswith(want))
+        numbers[f"mesh_scale_check_{ranks}{d}{m}"] = line
+        log(f"  mesh_scale_check {' '.join(shape)}: {line} "
+            f"({numbers['mesh_scale_check_s']:.1f} s for both) [{card}]")
+    return {"mesh 1x1 sampled train CLI": counts}, numbers
+
+
+def run_phase18(ek, strainer, cfg, it, model_cfg, save_dir, card):
+    """Phase 18: the sampled trainer on a device mesh at ML-10M width, on
+    phase 8's trainer, one checkpoint of it and one batch (its state
+    restored after).  Returns the launch counts of its paths and its
+    numbers."""
+    import torch
+
+    t0 = time.perf_counter()
+    numbers, launches = {}, {}
+    ckpt = strainer.save_checkpoint("phase18")
+    rs = it.rating_sampler(batch_size=strainer.train_batch, segment="train")
+    recon = it.recon_nodes_sampler(batch_size=strainer.s.recon_batch_size)
+    batch = (strainer._build_batch_safe(rs, recon),)
+
+    def plain(owner, b):
+        with plain_ell_versions(ek):
+            return sampled_grads(owner, b)
+
+    ref = mesh_reference(strainer, batch, ckpt, grads_of=sampled_grads,
+                         plain=plain)
+    numbers["reference_spread"] = ref["spread"]
+    log("  (a) a 1x1 mesh over NCCL")
+    got, numbers["mesh_1x1"] = run_sampled_mesh_1x1(
+        ek, strainer, cfg, it, model_cfg, ckpt, batch, ref, save_dir, card)
+    launches.update(got)
+    log("  (b) two ranks on the one card over gloo: 1x2, then 2x1")
+    got, numbers["ranks_on_one_card"] = run_sampled_mesh_ranks_on_one_card(
+        ek, strainer, cfg, it, model_cfg, ckpt, batch, ref, save_dir, card)
+    launches.update(got)
+    del ref
+    torch.cuda.empty_cache()
+    log("  (c) the train CLI with --mesh 1x1 --num_neighbors 8, scaling "
+        "--meshes 1x1, its projection and mesh_scale_check")
+    strainer.restore_checkpoint(ckpt)
+    split, _ = time_sampled_steps(strainer, rs, recon, 3)
+    log(f"  the sampled step without a mesh, fresh batches: "
+        f"{split['step_ms']:.1f} ms = plan {split['plan_ms']:.1f} + pack "
+        f"{split['pack_ms']:.1f} + copies {split['copy_ms']:.1f} + device "
+        f"{split['device_step_ms']:.1f} (median of 3) [{card}]")
+    got, numbers["cli"] = run_sampled_mesh_cli(ek, save_dir, split, card)
+    launches.update(got)
+    strainer.restore_checkpoint(ckpt)
+    numbers["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 18 took {numbers['phase_s']:.1f} s on the host clock "
+        f"[{card}]")
+    return launches, numbers
+
+
 def kernel_row(name, source, replaces, launches, worst, shapes):
     """One entry of the ``kernels`` line: the times are means over the
     directions measured (``shapes`` holds each)."""
@@ -6611,33 +7169,36 @@ def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--phases", default=None,
-        help="comma-separated phases out of 11 to 17 (those "
+        help="comma-separated phases out of 11 to 18 (those "
              "that build their own data) to run alone after phases 1 and 2, "
              "in a process that ran no other phase (13b: phase 13's ML-1M "
              "part alone, which phase 13 runs so; 15b: phase 15's query "
-             "timing on saved artifacts, which phase 15 runs so; 17b: one "
-             "rank of phase 17 (b), which phase 17 runs so); default: "
-             "every phase")
+             "timing on saved artifacts, which phase 15 runs so; 17b / 18b: "
+             "one rank of phase 17 (b) / 18 (b), which those phases run "
+             "so); default: every phase")
     args = ap.parse_args(argv)
     if args.phases is None:
         return None
     phases = {p.strip() for p in args.phases.split(",")}
     if not phases or not phases <= {"11", "12", "13", "13b", "14", "15",
-                                    "15b", "16", "17", "17b"}:
-        ap.error("--phases takes 11, 12, 13, 13b, 14, 15, 15b, 16, 17 or "
-                 "17b, comma-separated")
+                                    "15b", "16", "17", "17b", "18", "18b"}:
+        ap.error("--phases takes 11, 12, 13, 13b, 14, 15, 15b, 16, 17, "
+                 "17b, 18 or 18b, comma-separated")
     return phases
 
 
 def run_phases_alone(bd, ek, card, phases):
-    """``--phases``: phases 11 to 17 without the phases before them
-    (phases 13 to 17 build phase 4's ML-10M graph and trainer first); their
-    numbers on one line."""
+    """``--phases``: phases 11 to 18 without the phases before them
+    (phases 13 to 18 build phase 4's ML-10M graph and trainer first, phase
+    18 phase 8's sampled trainer too); their numbers on one line."""
     import torch
 
     numbers = {}
     if "17b" in phases:
         mesh_rank_main(bd, card)
+        return
+    if "18b" in phases:
+        sampled_mesh_rank_main(ek, card)
         return
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as save_dir:
         if "15b" in phases:
@@ -6659,10 +7220,10 @@ def run_phases_alone(bd, ek, card, phases):
             numbers["inductive_ml1m"], _ = run_inductive_slice(
                 bd, ek, card, save_dir)
             torch.cuda.empty_cache()
-        if phases & {"13", "14", "15", "16", "17"}:
+        if phases & {"13", "14", "15", "16", "17", "18"}:
             from stargcn_tpu_torch.train import Trainer, TrainSettings
 
-            log("== 4. set-up (for phases 13 to 17): ML-10M graph, "
+            log("== 4. set-up (for phases 13 to 18): ML-10M graph, "
                 "iterator, trainer")
             (cfg, it, model_cfg), t_graph = host_s(build_ml10m)
             trainer = Trainer(model_cfg, it, TrainSettings.from_cfg(cfg),
@@ -6696,6 +7257,16 @@ def run_phases_alone(bd, ek, card, phases):
             launches, numbers["mesh"] = run_phase17(
                 bd, trainer, cfg, it, model_cfg, save_dir, card)
             numbers["mesh"]["launches_by_path"] = launches
+        if "18" in phases:
+            log("== 18. slice: sampled training on a device mesh at ML-10M "
+                "(1x1 over NCCL; 1x2 and 2x1 over gloo on one card)")
+            strainer, t_make = host_s(lambda: sampled_ml10m(
+                cfg, it, model_cfg, save_dir))
+            log(f"  phase 8's SampledTrainer: {t_make:.2f} s, caps "
+                f"{strainer.caps} [{card}]")
+            launches, numbers["sampled_mesh"] = run_phase18(
+                ek, strainer, cfg, it, model_cfg, save_dir, card)
+            numbers["sampled_mesh"]["launches_by_path"] = launches
     if numbers:
         log(json.dumps(numbers))
 
@@ -6836,7 +7407,6 @@ def main(argv=None):
             "projection, per-edge dropout, sampled remat)")
         option_launches, option_numbers, walks = run_model_options(
             bd, ek, cfg, it, model_cfg, trainer, save_dir, card, strainer)
-        del strainer
         torch.cuda.empty_cache()
 
         log("== 15. slice: ranking, the ell backend and resilience at "
@@ -6854,6 +7424,13 @@ def main(argv=None):
             "(1x1 over NCCL; 1x2 and 2x1 over gloo on one card)")
         phase17_launches, phase17_numbers = run_phase17(
             bd, trainer, cfg, it, model_cfg, save_dir, card)
+        torch.cuda.empty_cache()
+
+        log("== 18. slice: sampled training on a device mesh at ML-10M "
+            "(1x1 over NCCL; 1x2 and 2x1 over gloo on one card)")
+        phase18_launches, phase18_numbers = run_phase18(
+            ek, strainer, cfg, it, model_cfg, save_dir, card)
+        del strainer
         torch.cuda.empty_cache()
 
         log("== 10. probes: probe_bitcast and probe_int8_mma")
@@ -6974,14 +7551,17 @@ def main(argv=None):
     # Phase 16's paths, each with the counts set to 0 just before it: the
     # profiled fit and the StepTimer's steps; phase 17's: the 1x1 mesh's
     # step, evaluation and export, each rank's step on 1x2 and 2x1, and the
-    # --mesh 1x1 train CLI.
+    # --mesh 1x1 train CLI; phase 18's: the same of the sampled mesh (the
+    # ELL pair), its evaluation and the sampled --mesh 1x1 train CLI.
     for row in rows:
-        for path, counts in {**phase16_launches, **phase17_launches}.items():
+        for path, counts in {**phase16_launches, **phase17_launches,
+                             **phase18_launches}.items():
             if counts.get(row["name"]):
                 row.setdefault("launches_by_path", {})[path] = counts[
                     row["name"]]
     for row, kind in ((rows[0], "expand"), (rows[1], "reduce")):
         row["walk_by_f"] = {str(F): walks[F][kind] for F in walks}
+    log(json.dumps({"sampled_mesh": phase18_numbers}))
     log(json.dumps({"mesh": phase17_numbers}))
     log(json.dumps({"phase16": phase16_numbers}))
     log(json.dumps({"phase15": phase15_numbers}))

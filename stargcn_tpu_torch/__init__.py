@@ -20,8 +20,9 @@ on the ``bitdense`` backend; and sampled mini-batch
 training (``graph.sampling.BlockSampler`` -> ``models.sampled.StackedPlan``
 -> ``train.SampledTrainer``), whose ``pallas`` backend pools every frontier
 through the three ELL kernels of ``ops.ell_kernels`` (``ell_spmm_fwd_only``,
-``ell_spmm_transpose``, ``ell_sddmm``).  Full-graph training also runs on
-a device mesh of ranks over ``torch.distributed`` (``parallel``).  Entry
+``ell_spmm_transpose``, ``ell_sddmm``).  Both trainers also run on a
+device mesh of ranks over ``torch.distributed`` (``parallel``), whose
+collectives ``parallel.perfmodel`` states in advance.  Entry
 points run on ``device="cuda"`` unless the caller asks for
 ``device="cpu"``.
 """

@@ -19,6 +19,37 @@ package's default formulation); ``'pallas'`` projects first and pools the
 projected rows through ``ops.ell_kernels.ell_spmm``, the hand-written
 CUDA kernels on a card.  The names are the JAX package's.
 
+On a device mesh (``row_sharding``, a ``parallel.Mesh``) the forward
+splits its work as the JAX package's ``_constrain(x, P('data', None))``
+does, with the collectives written out (``parallel/collectives.py``):
+
+* at each level, rank k of the 'data' axis pools and projects its slice
+  of the destination rows (``shardings.padded_split``: equal slices, the
+  last ones padded with empty rows) and ``gather_rows`` makes the level's
+  output whole for the next level (the padded rows are dropped, so their
+  cotangent is zero);
+* the whole source rows enter the split work through ``enter``, so their
+  cotangent is summed over 'data' once, in float32 on the ``pallas``
+  route (after its ``.float()``), in the compute dtype on ``xla``; the
+  parameters used there (each direction's aggregator and out-FC) enter it
+  too: a bias through ``enter``, a weight through ``matmul_f32``'s
+  ``b_group`` (its float32 cotangent summed before it is rounded to the
+  compute dtype) or, on the float32 ``pallas`` projection, ``enter``;
+* the embedding tables are split by rows over 'model' (where their rows
+  divide; ``GraphShardings.place_params``): each 'model' rank looks up the
+  frontier ids that fall in its own rows, the other slots read zero, and
+  ``leave`` adds the ranks' rows; the backward scatters the whole
+  cotangent into the rank's own rows.  No table is gathered whole.  The
+  identity frontiers of ``plan_device`` read their ids the same way on a
+  split table (the frontier is then every row);
+* dropout draws each mask at the whole shape one process draws and keeps
+  the rank's rows, so every rank's masks are one process's;
+* everything else (the rating heads, the DAE decoders, the feature MLPs,
+  the losses) is replicated: each rank computes it on the whole rows.
+
+GSPMD left the placement of the 'data' sums and of the split parameters'
+cotangents to XLA; the port fixes them as above.
+
 Every differentiable row gather goes through ``ops.gather.take_rows``
 (``index_select``): its gradient is an ``index_add_``.  Advanced indexing
 (``x[idx]``) has a gradient that walks runs of equal indices serially, and
@@ -44,6 +75,9 @@ from stargcn_tpu_torch.models.common import get_activation
 from stargcn_tpu_torch.ops import ell_kernels
 from stargcn_tpu_torch.ops.agg import matmul_f32, multi_link_project
 from stargcn_tpu_torch.ops.gather import take_rows
+from stargcn_tpu_torch.parallel.collectives import enter, gather_rows, leave
+from stargcn_tpu_torch.parallel.mesh import Mesh
+from stargcn_tpu_torch.parallel.shardings import padded_split
 
 
 @dataclasses.dataclass
@@ -308,15 +342,52 @@ def unpack_tree(int_buf, float_buf, spec):
 # ------------------------------ device phase ------------------------------
 
 
-def _masked_embed_rows(table, ids, noise):
+def _masked_embed_rows(table, ids, noise, lo=None):
     """Gather embedding rows for frontier ids through the noise array
-    (-1 / padded frontier slots -> zero rows)."""
+    (-1 / padded frontier slots -> zero rows).  ``lo``: ``table`` holds
+    rows ``[lo, lo + len(table))`` of the whole table, and ids outside
+    them read zero rows too."""
     safe_ids = torch.where(ids >= 0, ids, torch.zeros_like(ids))
     redirected = noise[safe_ids.long()]
     keep = (redirected != -1) & (ids >= 0)
+    if lo is not None:
+        redirected = redirected - lo
+        keep = keep & (redirected >= 0) & (redirected < table.shape[0])
     rows = take_rows(table, torch.where(
         keep, redirected, torch.zeros_like(redirected)).long())
     return rows * keep[:, None].to(table.dtype)
+
+
+def _own_rows(table, ids, lo):
+    """Rows ``ids`` (-1 read row 0) of a whole table of which ``table``
+    holds rows ``[lo, lo + len(table))``; the other ids read zero rows."""
+    local = ids.clamp_min(0).long() - lo
+    keep = (local >= 0) & (local < table.shape[0])
+    rows = take_rows(table, torch.where(keep, local, torch.zeros_like(local)))
+    return rows * keep[:, None].to(table.dtype)
+
+
+def _block_rows(block, lo, hi, rows):
+    """Rows ``[lo, hi)`` of an ELL block, padded with empty rows (index 0,
+    weight 0) to ``rows``."""
+    pad = rows - (hi - lo)
+    return {k: F.pad(block[k][lo:hi], (0, 0, 0, pad))
+            for k in ("idx", "weight")}
+
+
+def _dropout_rows(x, rate, train, generator, n, lo):
+    """``common.dropout`` of ``x``, rows ``[lo, lo + len(x))`` of an
+    ``(n, F)`` whole (rows past ``n`` are padding): the mask is drawn at
+    the whole's shape, as one process draws it, and this slice kept."""
+    if not train or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = x.new_empty((n, x.shape[1])).bernoulli_(1.0 - rate,
+                                                    generator=generator)
+    keep = keep[lo:lo + x.shape[0]]
+    keep = F.pad(keep, (0, 0, 0, x.shape[0] - keep.shape[0]))
+    return x * keep / (1.0 - rate)
 
 
 def _take_slots(x, idx):
@@ -351,7 +422,8 @@ def _ell_aggregate(proj, block, accum, use_pallas):
     return pooled.reshape(pooled.shape[0], R * units)
 
 
-def _pool_then_project(x, weight, bias, block, accum, ordinal_sharing):
+def _pool_then_project(x, weight, bias, block, accum, ordinal_sharing,
+                       group=None):
     """Aggregate RAW source rows per rating level, then project the
     pooled result — linear-equivalent to project-then-pool (projection
     and pooling are both linear: ``pool_r(xW_r + b_r) = pool_r(x)W_r +
@@ -362,7 +434,9 @@ def _pool_then_project(x, weight, bias, block, accum, ordinal_sharing):
     slot weights are bf16, every contraction accumulates in float32, the
     pooled rows are rounded to bf16 before the projection and the bias is
     added in float32 (the JAX package's contract).  The output is
-    float32."""
+    float32.  ``group``: the process group over whose ranks the block's
+    rows are split; ``weight``'s cotangent is summed over it
+    (``matmul_f32``'s ``b_group``)."""
     if ordinal_sharing:
         weight = torch.cumsum(weight, dim=0)
         bias = torch.cumsum(bias, dim=0)
@@ -378,8 +452,10 @@ def _pool_then_project(x, weight, bias, block, accum, ordinal_sharing):
     n = raw.shape[0]
     if accum == "sum":
         return matmul_f32(raw.reshape(n, -1),
-                          weight.reshape(-1, weight.shape[-1])) + wsum @ bias
-    ch = matmul_f32(raw.transpose(0, 1), weight).transpose(0, 1)   # N,R,A
+                          weight.reshape(-1, weight.shape[-1]),
+                          b_group=group) + wsum @ bias
+    ch = matmul_f32(raw.transpose(0, 1), weight,
+                    b_group=group).transpose(0, 1)                 # N,R,A
     return (ch + wsum[:, :, None] * bias).reshape(n, -1)
 
 
@@ -388,14 +464,6 @@ def _named(params):
     if isinstance(params, torch.nn.Module):
         return dict(params.named_parameters())
     return params
-
-
-def _check_supported(cfg, row_sharding):
-    if row_sharding is not None:
-        raise NotImplementedError(
-            "row_sharding (the device mesh) is not ported yet: it comes "
-            "with the slice that ports SampledTrainer(mesh=), after the "
-            "full-graph mesh; the sampled forward runs on one device")
 
 
 class _Replay:
@@ -457,15 +525,25 @@ def sampled_forward(params, cfg, plan, noise_user, noise_item,
     ``(N, K, E)`` messages and ``(N, R, E)`` pooled rows
     (``torch.utils.checkpoint``); each level replays its own dropout masks
     (``_Replay``), so loss and gradients equal those without ``remat``.
+    On a mesh the recomputed part is the rank's own rows; the level's
+    ``gather_rows`` lies outside it, so no collective is replayed.
+
+    ``row_sharding``: a ``parallel.Mesh`` to split the work over (the
+    module docstring), every rank calling with the same plan and inputs;
+    ``params`` then hold this rank's rows of each table split over
+    'model' (a table of the whole row count is whole).  The outputs are
+    whole on every rank.
 
     Returns {'pred_ratings': (nblocks, B), 'pred_embed': per block per
     type (n_recon, emb) rows, 'recon_ok': per block per type validity,
     'gt_embed': (n_recon, emb) reconstruction targets (empty without
     embeddings)}.
     """
-    _check_supported(cfg, row_sharding)
     if backend not in ("xla", "pallas"):
         raise ValueError(f"unknown sampled backend: {backend!r}")
+    if row_sharding is not None and not isinstance(row_sharding, Mesh):
+        raise TypeError("row_sharding must be a stargcn_tpu_torch.parallel."
+                        f"Mesh (parallel.make_mesh), not {type(row_sharding)!r}")
     if train and cfg.gcn_dropout > 0.0 and generator is None:
         raise ValueError("train=True with dropout requires a generator")
     if cfg.use_fea_proj and features is None:
@@ -483,6 +561,34 @@ def sampled_forward(params, cfg, plan, noise_user, noise_item,
              "item": torch.as_tensor(noise_item, device=device)}
     fea = ({"user": features[0], "item": features[1]}
            if cfg.use_fea_proj else None)
+    mesh = row_sharding
+    data = None if mesh is None else mesh.group("data")
+    n_nodes = {"user": cfg.num_users, "item": cfg.num_items}
+
+    def table_lo(t):
+        """On a mesh, the first row of table ``t`` this rank holds when
+        the table is split over 'model' (None: whole)."""
+        if mesh is None:
+            return None
+        rows = table[t].shape[0]
+        if rows * mesh.size("model") != n_nodes[t]:
+            return None
+        return mesh.index("model") * rows
+
+    def embed_rows(t, ids):
+        """The frontier's embedding rows through the noise, whole."""
+        lo = table_lo(t)
+        if lo is None:
+            return _masked_embed_rows(table[t], ids, noise[t])
+        return leave(_masked_embed_rows(table[t], ids, noise[t], lo),
+                     mesh.group("model"))
+
+    def target_rows(t, ids):
+        """The reconstruction targets' embedding rows, whole."""
+        lo = table_lo(t)
+        if lo is None:
+            return take_rows(table[t], ids.clamp_min(0).long())
+        return leave(_own_rows(table[t], ids, lo), mesh.group("model"))
 
     def linear(x, name):
         w = p[f"{name}.weight"]
@@ -502,6 +608,8 @@ def sampled_forward(params, cfg, plan, noise_user, noise_item,
         return bool(ident.get(t)) and cfg.self_noise_only
 
     def level_body(feats_u, feats_i, layer, lvl, gen):
+        """One level on this rank's destination rows (all of them
+        without a mesh)."""
         def drop(x):
             return _dropout(x, cfg.gcn_dropout, train, gen)
 
@@ -510,33 +618,55 @@ def sampled_forward(params, cfg, plan, noise_user, noise_item,
         for t, s in (("user", "item"), ("item", "user")):
             agg_w = p[f"{layer}.agg_{t}_{s}.weight"]
             agg_b = p[f"{layer}.agg_{t}_{s}.bias"]
+            w = p[f"{layer}.out_fc_{t}.weight"]
+            b = p[f"{layer}.out_fc_{t}.bias"]
+            blk = lvl[t]
+            n_dst = blk["idx"].shape[0]
+            x = drop(fin[s])
+            if mesh is not None:
+                lo, hi, rows = padded_split(n_dst, mesh.size("data"),
+                                            mesh.index("data"))
+                blk = _block_rows(blk, lo, hi, rows)
+                agg_b, b = enter(agg_b, data), enter(b, data)
             if use_pallas:
                 # The ELL kernel pools pre-projected float32 rows (the
                 # reference kernel's contract); the 'xla' default pools
                 # raw rows first.
+                x = x.float()
+                if mesh is not None:
+                    x, agg_w = enter(x, data), enter(agg_w, data)
                 proj = multi_link_project(
-                    drop(fin[s]).float(), agg_w, agg_b,
-                    ordinal_sharing=cfg.agg_ordinal_sharing)
-                pooled = _ell_aggregate(proj, lvl[t], cfg.agg_accum, True)
+                    x, agg_w, agg_b, ordinal_sharing=cfg.agg_ordinal_sharing)
+                pooled = _ell_aggregate(proj, blk, cfg.agg_accum, True)
             else:
+                if mesh is not None:
+                    x = enter(x, data)
                 pooled = _pool_then_project(
-                    drop(fin[s]), agg_w, agg_b, lvl[t], cfg.agg_accum,
-                    cfg.agg_ordinal_sharing)
-            pooled = drop(act(pooled))  # agg_act then dropout
-            w = p[f"{layer}.out_fc_{t}.weight"]
+                    x, agg_w, agg_b, blk, cfg.agg_accum,
+                    cfg.agg_ordinal_sharing, group=data)
+            # agg_act then dropout
+            if mesh is None:
+                pooled = drop(act(pooled))
+            else:
+                pooled = _dropout_rows(act(pooled), cfg.gcn_dropout, train,
+                                       gen, n_dst, lo)
             # The out-FC in the compute dtype, accumulated in float32.
-            h = matmul_f32(pooled.to(cdt), w.to(cdt).t()) \
-                + p[f"{layer}.out_fc_{t}.bias"]
+            h = matmul_f32(pooled.to(cdt), w.to(cdt).t(), b_group=data) + b
             out[t] = act(h).to(cdt)  # the next level reads the compute dtype
         return out["user"], out["item"]
+
+    def whole(t, local, n_dst):
+        """A level's output for type ``t`` made whole over 'data'."""
+        if mesh is None:
+            return local
+        return gather_rows(local, data)[:n_dst]
 
     nblocks = len(plan["blocks"])
     pred_ratings, pred_embed, recon_ok = [], [], []
     gt_embed = {}
     if cfg.use_embed:
-        gt_embed = {
-            t: take_rows(table[t], plan["recon_ids"][t].clamp_min(0).long())
-            for t in ("user", "item")}
+        gt_embed = {t: target_rows(t, plan["recon_ids"][t])
+                    for t in ("user", "item")}
         if cfg.use_fea_proj and cfg.recon_fea:
             gt_embed = {t: torch.cat([gt_embed[t], fea_rows(
                 t, plan["recon_ids"][t])], -1) for t in ("user", "item")}
@@ -548,13 +678,12 @@ def sampled_forward(params, cfg, plan, noise_user, noise_item,
         for t in ("user", "item"):
             parts = []
             if block_id == 0:
-                if cfg.use_embed and is_ident(t):
+                if cfg.use_embed and is_ident(t) and mesh is None:
                     keep = noise[t] != -1
                     parts.append(table[t] * keep[:, None].to(
                         table[t].dtype))
                 elif cfg.use_embed:
-                    parts.append(_masked_embed_rows(table[t], f0[t],
-                                                    noise[t]))
+                    parts.append(embed_rows(t, f0[t]))
                 if cfg.use_fea_proj:
                     parts.append(fea_rows(t, None if is_ident(t)
                                           else f0[t]))
@@ -588,7 +717,8 @@ def sampled_forward(params, cfg, plan, noise_user, noise_item,
             else:
                 fu, fi = level_body(feats["user"], feats["item"], layer,
                                     lvl, gen)
-            feats = {"user": fu, "item": fi}
+            feats = {"user": whole("user", fu, lvl["user"]["idx"].shape[0]),
+                     "item": whole("item", fi, lvl["item"]["idx"].shape[0])}
 
         # rating head, in float32
         pp = plan["pairs_pos"][block_id]
@@ -636,14 +766,14 @@ def recon_losses(out):
 def sampled_loss(params, cfg, plan, noise_user, noise_item, gt_ratings,
                  pairs_valid, rating_mean, rating_std, recon_lambda,
                  *, train=False, generator=None, backend="xla",
-                 features=None, remat=False):
+                 features=None, remat=False, row_sharding=None):
     """Rating + reconstruction loss on a sampled plan — the sampled-mode
     twin of the full-graph loss.  Returns ``(loss, (rating_loss,
     pred_ratings))``."""
     out = sampled_forward(params, cfg, plan, noise_user, noise_item,
                           backend=backend, train=train,
                           generator=generator, features=features,
-                          remat=remat)
+                          remat=remat, row_sharding=row_sharding)
     target = (gt_ratings - rating_mean) / rating_std
     n_valid = pairs_valid.sum().clamp_min(1.0)
     sq = (out["pred_ratings"] - target[None, :]) ** 2

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from stargcn_tpu_torch.ops.gather import onehot_segment_sum
+from stargcn_tpu_torch.parallel.collectives import all_reduce_
 
 
 class _GatherScatter(torch.autograd.Function):
@@ -109,11 +110,13 @@ class _MatmulF32(torch.autograd.Function):
     reduced precision.  The backward is the JAX package's transpose of a
     product with ``preferred_element_type=float32``: the float32 cotangent
     times the other operand, in float32, rounded to each operand's
-    dtype."""
+    dtype.  With ``b_group`` the float32 cotangent of ``b`` is summed over
+    that process group before the rounding."""
 
     @staticmethod
-    def forward(ctx, a, b):
+    def forward(ctx, a, b, b_group=None):
         ctx.save_for_backward(a, b)
+        ctx.b_group = b_group
         return _product_f32(a, b)
 
     @staticmethod
@@ -124,18 +127,24 @@ class _MatmulF32(torch.autograd.Function):
             grad_a = torch.matmul(grad, b.float().transpose(-1, -2)).to(
                 a.dtype)
         if ctx.needs_input_grad[1]:
-            grad_b = torch.matmul(a.float().transpose(-1, -2), grad).to(
-                b.dtype)
-        return grad_a, grad_b
+            grad_b = torch.matmul(a.float().transpose(-1, -2), grad)
+            if ctx.b_group is not None:
+                grad_b = all_reduce_(grad_b.contiguous(), ctx.b_group)
+            grad_b = grad_b.to(b.dtype)
+        return grad_a, grad_b, None
 
 
-def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def matmul_f32(a: torch.Tensor, b: torch.Tensor,
+               b_group=None) -> torch.Tensor:
     """``a @ b`` (2-D, or 3-D batched) accumulated and returned in float32,
     as a JAX contraction with ``preferred_element_type=float32``: the
-    compute-dtype products of ``MODEL.COMPUTE_DTYPE``."""
-    if a.dtype == b.dtype == torch.float32:
+    compute-dtype products of ``MODEL.COMPUTE_DTYPE``.  ``b_group`` (a
+    process group of a device mesh over whose ranks ``a`` is split by
+    rows): ``b``'s cotangent is the sum of the ranks' partial cotangents,
+    added in float32 before it is rounded to ``b``'s dtype."""
+    if a.dtype == b.dtype == torch.float32 and b_group is None:
         return torch.matmul(a, b)
-    return _MatmulF32.apply(a, b)
+    return _MatmulF32.apply(a, b, b_group)
 
 
 def multi_link_project(x: torch.Tensor, weight: torch.Tensor,

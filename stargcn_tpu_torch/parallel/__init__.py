@@ -1,5 +1,6 @@
-"""Device meshes over ``torch.distributed`` and the sharding layouts of
-full-graph training (the port of ``stargcn_tpu/parallel``)."""
+"""Device meshes over ``torch.distributed``, the sharding layouts of both
+trainers, the collectives and their model (``perfmodel``), and the scaling
+and mesh-scale twins (the port of ``stargcn_tpu/parallel``)."""
 
 from stargcn_tpu_torch.parallel.mesh import (Mesh, initialize_distributed,
                                              make_mesh)

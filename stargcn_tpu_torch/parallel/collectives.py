@@ -27,8 +27,13 @@ function.
 The module issues three collectives: ``all_reduce`` where partial sums
 are added, ``all_gather`` where row shards are made whole (each rank
 sends its own rows, so a gather moves ``1/m`` of what an all-reduce of the
-whole tensor would) and ``broadcast`` for ``from_first``.  The same calls
-serve NCCL, gloo on CUDA tensors (two ranks that share one card: NCCL
+whole tensor would) and ``broadcast`` for ``from_first`` and
+``broadcast_``.  Every collective of the port goes through them, so
+``counted()`` sees them all: while it is open, each call is recorded with
+its kind, the mesh axis of its group (``make_mesh`` names them) and its
+bytes (the reduced tensor, the gathered whole, the broadcast tensor),
+which ``parallel/perfmodel.py:modeled_collectives`` states in advance.
+The same calls serve NCCL, gloo on CUDA tensors (two ranks that share one card: NCCL
 refuses two ranks on one device; gloo ran every collective it was given
 on CUDA tensors, torch 2.11) and gloo on the CPU.  A reduced-precision
 tensor is summed in float32.  Nothing is skipped on an axis of one rank.
@@ -36,16 +41,73 @@ tensor is summed in float32.  Nothing is skipped on an axis of one rank.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+
 import torch
 import torch.distributed as dist
+
+# The mesh axis of each process group, by id (``name_group``), and the
+# counters open now (``counted``).
+_AXIS_OF = {}
+_OPEN = []
+
+
+def name_group(group, axis: str) -> None:
+    """Record that ``group`` is a group of mesh ``axis`` ('data', 'model'
+    or 'all'), under which ``counted`` files its collectives."""
+    _AXIS_OF[id(group)] = axis
+
+
+@dataclasses.dataclass
+class CollectiveCounts:
+    """The collectives issued while ``counted()`` was open: ``calls``
+    holds ``(kind, axis, bytes)`` in issue order."""
+
+    calls: list = dataclasses.field(default_factory=list)
+
+    def by_kind(self) -> dict:
+        """``{kind: {axis: [count, bytes]}}`` of the calls."""
+        out = {}
+        for kind, axis, nbytes in self.calls:
+            entry = out.setdefault(kind, {}).setdefault(axis, [0, 0])
+            entry[0] += 1
+            entry[1] += nbytes
+        return out
+
+    @property
+    def count(self) -> int:
+        return len(self.calls)
+
+
+@contextlib.contextmanager
+def counted():
+    """While open, every collective this module issues is recorded in the
+    ``CollectiveCounts`` it yields (counters may nest)."""
+    counts = CollectiveCounts()
+    _OPEN.append(counts)
+    try:
+        yield counts
+    finally:
+        _OPEN.remove(counts)
+
+
+def _record(kind, group, t: torch.Tensor) -> None:
+    if _OPEN:
+        call = (kind, _AXIS_OF.get(id(group), "other"),
+                t.numel() * t.element_size())
+        for counts in _OPEN:
+            counts.calls.append(call)
 
 
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place (no autograd); returns ``t``."""
     if t.dtype in (torch.float16, torch.bfloat16):
         wide = t.float()
+        _record("all_reduce", group, wide)
         dist.all_reduce(wide, group=group)
         return t.copy_(wide)
+    _record("all_reduce", group, t)
     dist.all_reduce(t, group=group)
     return t
 
@@ -61,24 +123,29 @@ def all_gather_rows(local: torch.Tensor, group) -> torch.Tensor:
     local = local.detach().contiguous()
     n, rows = dist.get_world_size(group), local.shape[0]
     out = local.new_empty((n * rows,) + tuple(local.shape[1:]))
+    _record("all_gather", group, out)
     dist.all_gather([out[i * rows:(i + 1) * rows] for i in range(n)], local,
                     group=group)
     return out
+
+
+def broadcast_(t: torch.Tensor, group) -> torch.Tensor:
+    """Overwrite ``t`` (contiguous) with ``group``'s first rank's ``t`` in
+    place (no autograd); returns ``t``.  Every rank gives a tensor of the
+    same shape and dtype."""
+    _record("broadcast", group, t)
+    dist.broadcast(t, dist.get_global_rank(group, 0), group=group)
+    return t
 
 
 def from_first(t: torch.Tensor, group) -> torch.Tensor:
     """The tensor of ``group``'s first rank on every rank of it, in a new
     tensor (no autograd): a broadcast, so the result is that rank's bits
     exactly."""
-    src = dist.get_global_rank(group, 0)
     if t.dtype in (torch.float16, torch.bfloat16):
         # float32 holds every value of these exactly.
-        wide = t.detach().float()
-        dist.broadcast(wide, src, group=group)
-        return wide.to(t.dtype)
-    out = t.detach().contiguous().clone()
-    dist.broadcast(out, src, group=group)
-    return out
+        return broadcast_(t.detach().float(), group).to(t.dtype)
+    return broadcast_(t.detach().contiguous().clone(), group)
 
 
 def barrier(group, device) -> None:

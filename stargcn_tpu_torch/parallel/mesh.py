@@ -22,10 +22,16 @@ like any other.
 from __future__ import annotations
 
 import dataclasses
+import os
+import shutil
+import tempfile
+import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from stargcn_tpu_torch.parallel.collectives import name_group
 
 AXES = ("data", "model")
 
@@ -160,5 +166,85 @@ def make_mesh(data: int = 1, model: int = 1, devices=None,
             g = dist.new_group([int(r) for r in line])
             if me in line:
                 groups[axis] = g
+                name_group(g, axis)
     return Mesh(grid=grid, rank=me, groups=groups,
                 backend=dist.get_backend())
+
+
+def rank_backend(device, world: int):
+    """``(backend, shared)`` for ``world`` ranks on ``device``: NCCL with
+    one card a rank; gloo on the CPU, and where the ranks would share a
+    card (NCCL refuses two ranks on one device; ``shared`` is then true,
+    and what those ranks time measures correctness, not scaling)."""
+    if torch.device(device).type != "cuda":
+        return "gloo", False
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    shared = torch.cuda.device_count() < world
+    return ("gloo" if shared else "nccl"), shared
+
+
+def _rank_entry(rank, world, url, device, backend, fn, args):
+    torch.set_num_threads(2)
+    initialize_distributed(url, world, rank, device=device, backend=backend)
+    try:
+        fn(rank, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+class Ranks:
+    """Ranks started by ``start_ranks``; ``wait`` joins them."""
+
+    def __init__(self, ctx, name, world, timeout, own_dir):
+        self.ctx, self.name, self.world = ctx, name, world
+        self.timeout, self.own_dir = timeout, own_dir
+        self.deadline = time.monotonic() + timeout
+
+    def wait(self) -> None:
+        """Raise when a rank raised or when the ranks outlive their
+        timeout (they are killed then)."""
+        try:
+            while not self.ctx.join(
+                    timeout=max(0.1, self.deadline - time.monotonic())):
+                if time.monotonic() >= self.deadline:
+                    raise TimeoutError(
+                        f"{self.name}: {self.world} ranks still running "
+                        f"after {self.timeout:.0f} s")
+        finally:
+            for p in self.ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(5)
+            if self.own_dir:
+                shutil.rmtree(self.own_dir, ignore_errors=True)
+
+
+def start_ranks(fn, world: int, args=(), *, device, backend=None,
+                timeout: float = 600.0, rendezvous_dir=None) -> Ranks:
+    """Start ``fn(rank, *args)`` in ``world`` spawned processes joined into
+    one world (``initialize_distributed`` on ``device`` through a
+    rendezvous file in ``rendezvous_dir``, by default a temporary
+    directory removed by ``wait``; ``backend`` as there), each capped at
+    two torch threads, and return at once.  ``fn`` must be importable by
+    name (a module-level function)."""
+    import torch.multiprocessing as mp
+
+    own = None
+    if rendezvous_dir is None:
+        rendezvous_dir = own = tempfile.mkdtemp(prefix="stargcn_ranks_")
+    url = "file://" + os.path.join(
+        str(rendezvous_dir), f"rdzv_{fn.__name__}_{time.time_ns()}")
+    ctx = mp.start_processes(
+        _rank_entry, args=(world, url, device, backend, fn, tuple(args)),
+        nprocs=world, join=False, start_method="spawn")
+    return Ranks(ctx, fn.__name__, world, timeout, own)
+
+
+def spawn_ranks(fn, world: int, args=(), *, device, backend=None,
+                timeout: float = 600.0) -> None:
+    """``start_ranks`` and wait: raises when a rank raises or when the
+    ranks outlive ``timeout`` seconds."""
+    start_ranks(fn, world, args, device=device, backend=backend,
+                timeout=timeout).wait()

@@ -22,11 +22,9 @@ import argparse
 import os
 import sys
 import tempfile
-import time
 
 import numpy as np
 import torch
-import torch.multiprocessing as mp
 
 MESHES = ((1, 2), (2, 1))
 
@@ -56,11 +54,9 @@ def _trainer(mesh, device, save_dir=None):
     return Trainer(cfg, it, s, device=device, mesh=mesh, save_dir=save_dir)
 
 
-def run_rank(rank, url, device, backend, workdir):
-    from stargcn_tpu_torch.parallel import initialize_distributed, make_mesh
+def run_rank(rank, device, workdir):
+    from stargcn_tpu_torch.parallel import make_mesh
 
-    torch.set_num_threads(2)
-    initialize_distributed(url, 2, rank, device=device, backend=backend)
     for d, m in MESHES:
         mesh = make_mesh(d, m, device=device)
         t = _trainer(mesh, device, os.path.join(workdir, f"{d}x{m}"))
@@ -92,9 +88,6 @@ def run_rank(rank, url, device, backend, workdir):
         print(f"rank {rank} {d}x{m} ({mesh.backend}): losses={losses} "
               f"valid_rmse={rmse.tolist()} "
               f"fit={result['best_valid_rmse']:.4f}", flush=True)
-    import torch.distributed as dist
-
-    dist.destroy_process_group()
     print(f"rank {rank}: MULTIPROCESS OK", flush=True)
 
 
@@ -104,29 +97,20 @@ def main(argv=None):
     ap.add_argument("--timeout", default=600.0, type=float,
                     help="seconds before the ranks are stopped")
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            sys.exit("no CUDA device is available; pass --device cpu")
-        backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
-    else:
-        backend = "gloo"
+    from stargcn_tpu_torch.parallel.mesh import rank_backend, spawn_ranks
+
+    try:
+        backend, _ = rank_backend(args.device, 2)
+    except RuntimeError as e:
+        sys.exit(str(e))
+
     with tempfile.TemporaryDirectory(prefix="stargcn_mp_") as workdir:
-        url = "file://" + os.path.join(workdir, "rendezvous")
-        ctx = mp.start_processes(run_rank, args=(url, args.device, backend,
-                                                 workdir),
-                                 nprocs=2, join=False, start_method="spawn")
-        deadline = time.monotonic() + args.timeout
         try:
-            while not ctx.join(timeout=max(0.1,
-                                           deadline - time.monotonic())):
-                if time.monotonic() >= deadline:
-                    sys.exit(f"multiprocess run FAILED: ranks still running "
-                             f"after {args.timeout:.0f} s")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
+            spawn_ranks(run_rank, 2, (args.device, workdir),
+                        device=args.device, backend=backend,
+                        timeout=args.timeout)
+        except TimeoutError as e:
+            sys.exit(f"multiprocess run FAILED: {e}")
     print(f"MULTIPROCESS RUN PASSED (2 processes, {backend}, "
           f"meshes {', '.join(f'{d}x{m}' for d, m in MESHES)})")
 

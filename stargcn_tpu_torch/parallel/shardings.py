@@ -93,6 +93,17 @@ def split_range(n: int, parts: int, index: int):
     return index * step, (index + 1) * step
 
 
+def padded_split(n: int, parts: int, index: int):
+    """``(lo, hi, rows)``: slice ``index`` of ``n`` rows cut in ``parts``
+    slices of ``rows = ceil(n / parts)`` each, the last ones short (or
+    empty) where ``parts`` does not divide ``n``; a caller pads its slice
+    to ``rows`` so that every rank holds the same count (an all-gather
+    needs equal shapes) and drops the padding after the gather."""
+    rows = -(-n // parts)
+    lo = min(index * rows, n)
+    return lo, min(lo + rows, n), rows
+
+
 @dataclasses.dataclass
 class GraphShardings:
     """Placements over a ('data', 'model') ``Mesh``: the axis each layout

@@ -33,8 +33,9 @@ each level of the forward in the backward.  The model options of a YAML
 (``MODEL.USE_FEA_PROJ``, ``MODEL.USE_EMBED``, ``MODEL.COMPUTE_DTYPE``,
 ``GCN.DROPOUT_PER_EDGE``, ``GCN.USE_RECURRENT``) run in both modes.
 
-Full-graph training runs on a device mesh of ``DATAxMODEL`` ranks, one
-process each (``parallel/shardings.py``), with the JAX CLI's flags::
+Both modes run on a device mesh of ``DATAxMODEL`` ranks, one process each
+(``parallel/shardings.py``; in sampled mode ``models/sampled.py``), with
+the JAX CLI's flags::
 
     python -m stargcn_tpu_torch.train --cfg configs/transductive_ml_10m.yml \
         --dataset synthetic --save_dir runs --mesh 1x2 \
@@ -46,8 +47,7 @@ path); ranks run on ``cuda`` over NCCL, a card each, or with ``--device
 cpu`` over gloo (two ranks that share one card need gloo on ``cuda``:
 ``python -m stargcn_tpu_torch.parallel.multiprocess_train`` runs so).
 ``--mesh 1x1`` needs no coordinator.  The mesh's first rank writes the
-run's files.  Sampled mode with ``--mesh`` is refused: the sampled
-trainer's mesh is a later slice of the port.
+run's files (and in sampled mode draws and plans every batch).
 
 ``--profile DIR`` first runs ``fit(max_iter=TRAIN.VALID_INTERVAL)`` under
 ``utils.profiling.trace(DIR)``, which writes a Chrome-trace JSON there (the
@@ -139,7 +139,7 @@ def main(argv=None):
                         help="cuda (default) or cpu")
     parser.add_argument("--mesh", default=None, type=str,
                         help="device mesh as DATAxMODEL, e.g. 2x4 (one "
-                             "process a rank; full-graph mode)")
+                             "process a rank)")
     parser.add_argument("--coordinator", default=None, type=str,
                         help="rank 0's host:port (or a file:// rendezvous "
                              "path); requires --num_processes and "
@@ -178,11 +178,6 @@ def main(argv=None):
     on_mesh = args.mesh is not None or (
         cfg.PARALLEL.get("DATA_AXIS", 1) * cfg.PARALLEL.get("MODEL_AXIS", 1)
         > 1)
-    if on_mesh and fanout > 0:
-        raise NotImplementedError(
-            "--mesh in sampled mode (--num_neighbors) is not ported yet: "
-            "SampledTrainer(mesh=) comes with the slice that ports the "
-            "sampled trainer's mesh (row_sharding)")
     cfg.TRAIN.DEVICE_SAMPLER = resolve_device_sampler(
         cfg, args.device, False if args.no_device_sampler
         else args.device_sampler, mesh=on_mesh)
@@ -227,7 +222,7 @@ def main(argv=None):
             model_cfg, data_iter, TrainSettings.from_cfg(cfg),
             fanout=fanout, save_dir=save_dir, save_id=save_id,
             backend=sampled_backend, device=args.device,
-            plan_device=args.plan_device, remat=args.remat)
+            plan_device=args.plan_device, remat=args.remat, mesh=mesh)
     else:
         trainer = Trainer(model_cfg, data_iter, TrainSettings.from_cfg(cfg),
                           save_dir=save_dir, save_id=save_id,

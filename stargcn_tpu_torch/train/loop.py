@@ -522,7 +522,125 @@ def make_metric_loggers(save_dir, save_id, nblocks):
 _STAT_NAMES = ("loss", "gnorm", "rating_loss", "recon_loss", "sq_err")
 
 
-class Trainer:
+class MeshTrainerBase:
+    """What both trainers do alike, on one process or on a device mesh
+    (``self.mesh``; the tables split by rows over 'model' are
+    ``self.model.row_shards``): replicas taking their first replica's
+    gradients, the whole parameters, and checkpoints that the mesh's first
+    rank writes, whole, and that every rank restores its rows of.  A
+    subclass has ``model``, ``opt``, ``mesh``, ``device``, ``save_dir``,
+    ``save_id`` and ``lr``."""
+
+    def set_lr(self, lr: float):
+        """Change the learning rate; the Adam moments stay."""
+        self.lr = lr
+        self.opt.lr = float(lr)
+
+    def _from_first(self, t, axis):
+        """The first rank's ``t`` of this rank's ``axis`` group ('all':
+        the whole mesh) on every rank of it."""
+        return from_first(t, self.mesh.group(axis))
+
+    @torch.no_grad()
+    def _replica_grads(self, grads):
+        """On a mesh, every replica of a parameter takes the same gradient:
+        each is whole on every rank that holds the parameter, but computed
+        there with atomics, so its last bits differ from rank to rank.
+        Replicated parameters take the mesh's first rank's gradients,
+        row-split tables the first 'data' rank's of their rows, so the
+        replicas stay bit-equal."""
+        out = dict(grads)
+        for axis, names in (
+                ("all", [k for k in grads if k not in self.opt.sharded]),
+                ("data", [k for k in grads if k in self.opt.sharded])):
+            if not names:
+                continue
+            flat = self._from_first(torch.cat(
+                [grads[k].reshape(-1).float() for k in names]), axis)
+            at = 0
+            for k in names:
+                g = grads[k]
+                out[k] = flat[at:at + g.numel()].reshape(g.shape).to(g.dtype)
+                at += g.numel()
+        return out
+
+    def _checkpoint_path(self, tag):
+        if self.save_dir is None:
+            return None
+        return os.path.join(self.save_dir, f"ckpt_{tag}_{self.save_id}.pt")
+
+    @property
+    def _writes_files(self) -> bool:
+        """Whether this process writes the CSVs and checkpoints: always on
+        one process, the mesh's first rank on a mesh."""
+        return self.mesh is None or self.mesh.leader
+
+    def _whole(self, name, t):
+        """Parameter-shaped tensor ``t`` of parameter ``name`` made whole:
+        gathered over 'model' where the parameter is split by rows (a
+        collective), as it is elsewhere."""
+        shard = self.model.row_shards.get(name)
+        return t if shard is None else shard.whole(t)
+
+    def _own(self, name, t):
+        """This rank's rows of a whole parameter-shaped tensor."""
+        shard = self.model.row_shards.get(name)
+        if shard is None:
+            return t
+        return t[shard.offset:shard.offset + shard.local.shape[0]]
+
+    def whole_params(self):
+        """The ``state_dict`` with every parameter whole (on a mesh, the
+        row-split tables gathered: every rank must call it)."""
+        return {k: self._whole(k, v)
+                for k, v in self.model.state_dict().items()}
+
+    def save_checkpoint(self, tag: str = "last"):
+        """Persist parameters + optimiser state + the learning rate.  On a
+        mesh every rank calls it: the row-split tables and their moments
+        are gathered, the first rank writes, and all return once the file
+        is there."""
+        path = self._checkpoint_path(tag)
+        if path is None:
+            return None
+        from stargcn_tpu_torch.train.checkpoint import save_checkpoint
+        opt = self.opt.state_dict()
+        opt = {**opt, **{m: {k: self._whole(k, v) for k, v in opt[m].items()}
+                         for m in ("mu", "nu")}}
+        params = self.whole_params()
+        if self._writes_files:
+            os.makedirs(self.save_dir, exist_ok=True)
+            save_checkpoint(path, params, opt, {"lr": self.lr})
+        if self.mesh is not None:
+            barrier(self.mesh.group("all"), self.device)
+        return path
+
+    def restore_checkpoint(self, path: str):
+        """Load a checkpoint of whole parameters (from one process or a
+        mesh); on a mesh every rank reads it and keeps its rows."""
+        from stargcn_tpu_torch.train.checkpoint import restore_checkpoint
+
+        def whole_like(name, t):
+            shard = self.model.row_shards.get(name)
+            return t if shard is None else t.new_empty(shard.global_shape)
+
+        params_t = {k: whole_like(k, v)
+                    for k, v in self.model.state_dict().items()}
+        opt_t = self.opt.state_dict()
+        opt_t = {**opt_t, **{m: {k: whole_like(k, v)
+                                 for k, v in opt_t[m].items()}
+                             for m in ("mu", "nu")}}
+        params, opt_state, extra = restore_checkpoint(path, params_t, opt_t)
+        self.model.load_state_dict({k: self._own(k, v)
+                                    for k, v in params.items()})
+        self.opt.load_state_dict({**opt_state, **{
+            m: {k: self._own(k, v) for k, v in opt_state[m].items()}
+            for m in ("mu", "nu")}})
+        if "lr" in extra:
+            self.set_lr(float(extra["lr"]))
+
+
+class Trainer(MeshTrainerBase):
     """Owns the model, its optimiser and the host-side schedule.
 
     Args:
@@ -631,11 +749,6 @@ class Trainer:
         self._dev_pzero = tuple(
             float(data_iter._embed_p_zero.get(k, 0.0)) for k in names)
         self.elastic = None        # the last fit's ElasticStep
-
-    def set_lr(self, lr: float):
-        """Change the learning rate; the Adam moments stay."""
-        self.lr = lr
-        self.opt.lr = float(lr)
 
     def features(self):
         """``(user, item)`` raw feature tensors on the device, or ``(None,
@@ -868,34 +981,6 @@ class Trainer:
                     if s.use_dae else rating_loss.sum()
         return {"loss": loss.detach(), "rating_loss": rating_loss,
                 "recon_loss": recon_loss.detach(), "sq_err": sq_err}, grads
-
-    def _from_first(self, t, axis):
-        """The first rank's ``t`` of this rank's ``axis`` group ('all':
-        the whole mesh) on every rank of it."""
-        return from_first(t, self.mesh.group(axis))
-
-    @torch.no_grad()
-    def _replica_grads(self, grads):
-        """On a mesh, every replica of a parameter takes the same gradient:
-        each is whole on every rank that holds the parameter, but computed
-        there with atomics, so its last bits differ from rank to rank.
-        Replicated parameters take the mesh's first rank's gradients,
-        row-split tables the first 'data' rank's of their rows, so the
-        replicas stay bit-equal."""
-        out = dict(grads)
-        for axis, names in (
-                ("all", [k for k in grads if k not in self.opt.sharded]),
-                ("data", [k for k in grads if k in self.opt.sharded])):
-            if not names:
-                continue
-            flat = self._from_first(torch.cat(
-                [grads[k].reshape(-1).float() for k in names]), axis)
-            at = 0
-            for k in names:
-                g = grads[k]
-                out[k] = flat[at:at + g.numel()].reshape(g.shape).to(g.dtype)
-                at += g.numel()
-        return out
 
     def _eval_forward(self, segment, pu, pi):
         """Eval-mode ``pred_ratings`` ``(nblocks, B)``, denormalised and
@@ -1221,80 +1306,6 @@ class Trainer:
                 self.restore_checkpoint(path)
                 return
 
-    def _checkpoint_path(self, tag):
-        if self.save_dir is None:
-            return None
-        return os.path.join(self.save_dir, f"ckpt_{tag}_{self.save_id}.pt")
-
-    @property
-    def _writes_files(self) -> bool:
-        """Whether this process writes the CSVs and checkpoints: always on
-        one process, the mesh's first rank on a mesh."""
-        return self.mesh is None or self.mesh.leader
-
-    def _whole(self, name, t):
-        """Parameter-shaped tensor ``t`` of parameter ``name`` made whole:
-        gathered over 'model' where the parameter is split by rows (a
-        collective), as it is elsewhere."""
-        shard = self.model.row_shards.get(name)
-        return t if shard is None else shard.whole(t)
-
-    def _own(self, name, t):
-        """This rank's rows of a whole parameter-shaped tensor."""
-        shard = self.model.row_shards.get(name)
-        if shard is None:
-            return t
-        return t[shard.offset:shard.offset + shard.local.shape[0]]
-
-    def whole_params(self):
-        """The ``state_dict`` with every parameter whole (on a mesh, the
-        row-split tables gathered: every rank must call it)."""
-        return {k: self._whole(k, v)
-                for k, v in self.model.state_dict().items()}
-
-    def save_checkpoint(self, tag: str = "last"):
-        """Persist parameters + optimiser state + the learning rate.  On a
-        mesh every rank calls it: the row-split tables and their moments
-        are gathered, the first rank writes, and all return once the file
-        is there."""
-        path = self._checkpoint_path(tag)
-        if path is None:
-            return None
-        from stargcn_tpu_torch.train.checkpoint import save_checkpoint
-        opt = self.opt.state_dict()
-        opt = {**opt, **{m: {k: self._whole(k, v) for k, v in opt[m].items()}
-                         for m in ("mu", "nu")}}
-        params = self.whole_params()
-        if self._writes_files:
-            os.makedirs(self.save_dir, exist_ok=True)
-            save_checkpoint(path, params, opt, {"lr": self.lr})
-        if self.mesh is not None:
-            barrier(self.mesh.group("all"), self.device)
-        return path
-
-    def restore_checkpoint(self, path: str):
-        """Load a checkpoint of whole parameters (from one process or a
-        mesh); on a mesh every rank reads it and keeps its rows."""
-        from stargcn_tpu_torch.train.checkpoint import restore_checkpoint
-
-        def whole_like(name, t):
-            shard = self.model.row_shards.get(name)
-            return t if shard is None else t.new_empty(shard.global_shape)
-
-        params_t = {k: whole_like(k, v)
-                    for k, v in self.model.state_dict().items()}
-        opt_t = self.opt.state_dict()
-        opt_t = {**opt_t, **{m: {k: whole_like(k, v)
-                                 for k, v in opt_t[m].items()}
-                             for m in ("mu", "nu")}}
-        params, opt_state, extra = restore_checkpoint(path, params_t, opt_t)
-        self.model.load_state_dict({k: self._own(k, v)
-                                    for k, v in params.items()})
-        self.opt.load_state_dict({**opt_state, **{
-            m: {k: self._own(k, v) for k, v in opt_state[m].items()}
-            for m in ("mu", "nu")}})
-        if "lr" in extra:
-            self.set_lr(float(extra["lr"]))
 
 
 def _stack_stats(steps):

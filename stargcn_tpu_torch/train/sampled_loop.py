@@ -25,9 +25,27 @@ With ``MODEL.USE_FEA_PROJ`` the raw node features go to the device once
 and each frontier's rows are projected inside the step; ``remat``
 recomputes each level in the backward instead of keeping its messages.
 
-Not ported here: the mesh, ``plan_split`` (the JAX package's
-workaround for its TPU runtime's program-load limit: planning and update
-are one step here anyway) and the ``net%d.txt`` model summary.
+On a device mesh (``SampledTrainer(mesh=parallel.make_mesh(d, m))``, one
+process a rank, every rank calling every method alike) the embedding
+tables are split by rows over 'model' (``GraphShardings.place_params``)
+and each step's frontier rows over 'data' (``sampled_forward``'s
+``row_sharding``; ``models/sampled.py`` says where each collective
+goes).  Every rank trains on the first rank's batch and plan: the first
+rank alone draws, plans and packs, and broadcasts the two packed buffers
+with a small header (their lengths, the frontier caps, and the packed
+spec whenever it changes) to the others, which plan nothing.  So cap
+growth is the first rank's decision: the header carries its caps, and
+every rank takes them with the feed of the step they were grown for.
+With ``plan_device`` the broadcast feed is the batch (pair ids, noise,
+recon ids) and every rank builds the plan on its device from the same
+uniforms (sorts, searches and integer counts: the same plan on every
+rank).  Replicas take their first replica's gradients and ``fit``
+decides by the first rank's numbers, as ``Trainer`` on a mesh (on the
+card ``index_add_`` adds with atomics); the first rank writes the files.
+
+Not ported here: ``plan_split`` (the JAX package's workaround for its TPU
+runtime's program-load limit: planning and update are one step here
+anyway).
 """
 
 from __future__ import annotations
@@ -36,6 +54,7 @@ import contextlib
 import dataclasses
 import logging
 import os
+import pickle
 import time
 from typing import Optional
 
@@ -50,7 +69,11 @@ from stargcn_tpu_torch.models.sampled import (StackedPlan, pack_tree,
                                               recon_losses, sampled_forward,
                                               unpack_tree)
 from stargcn_tpu_torch.models.stargcn import STARGCN, feature_dims
-from stargcn_tpu_torch.train.loop import (_STAT_NAMES, graph_features,
+from stargcn_tpu_torch.parallel.collectives import broadcast_, from_first
+from stargcn_tpu_torch.parallel.mesh import Mesh
+from stargcn_tpu_torch.parallel.shardings import GraphShardings
+from stargcn_tpu_torch.train.loop import (_STAT_NAMES, MeshTrainerBase,
+                                          graph_features,
                                           make_metric_loggers,
                                           make_optimizer)
 from stargcn_tpu_torch.train.prefetch import Prefetcher
@@ -85,7 +108,7 @@ def resolve_sampled_backend(backend: str, caps: dict, fanout: int, *,
     return "pallas" if (d_max <= 32768 and 16 <= fanout <= 32) else "xla"
 
 
-class SampledTrainer:
+class SampledTrainer(MeshTrainerBase):
     """Sampled-mode trainer with the ``Trainer`` schedule.
 
     Shares the full-graph model's parameters (``self.model`` is the
@@ -111,6 +134,10 @@ class SampledTrainer:
       remat: recompute each level of the sampled forward in the backward
         (``sampled_forward(remat=True)``): less memory, the same loss and
         gradients.
+      mesh: a ``parallel.Mesh`` (``parallel.make_mesh``) to train on, one
+        process a rank (see the module docstring); on ranks other than
+        the first, the batches given to ``train_iteration`` /
+        ``train_chunk`` are not read (pass ``None``).
     """
 
     def __init__(self, model_cfg, data_iter, settings, *, fanout,
@@ -121,11 +148,9 @@ class SampledTrainer:
                  plan_device: bool = False, remat: bool = False):
         if fanout <= 0:
             raise ValueError("SampledTrainer needs a positive fanout")
-        if mesh is not None:
-            raise NotImplementedError(
-                "not ported yet: the device mesh of the sampled trainer "
-                "(SampledTrainer(mesh=) and row_sharding come with the slice "
-                "after the full-graph mesh); it runs on one device")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError("mesh must be a stargcn_tpu_torch.parallel.Mesh "
+                            f"(parallel.make_mesh), not {type(mesh)!r}")
         if model_cfg.use_dae and not model_cfg.use_embed:
             raise NotImplementedError(
                 "sampled DAE reconstruction needs embedding targets "
@@ -141,6 +166,17 @@ class SampledTrainer:
         self.names = (name_user, name_item)
         self.device = resolve_device(device)
         self.remat = bool(remat)
+        self.mesh = mesh
+        self.shardings = None
+        if mesh is not None:
+            if mesh.rank not in mesh.grid:
+                raise ValueError(f"rank {mesh.rank} lies outside the "
+                                 f"{mesh.shape} mesh")
+            if mesh.backend == "nccl" and self.device.type != "cuda":
+                raise ValueError("an NCCL mesh trains on cuda tensors")
+            self.shardings = GraphShardings(mesh)
+        # The packed spec the ranks last agreed on (``_feed`` on a mesh).
+        self._mesh_spec = None
         self._fea = graph_features(data_iter, model_cfg, self.device)
 
         it = data_iter
@@ -180,10 +216,17 @@ class SampledTrainer:
             for seg, g in (("train", it.train_graph),
                            ("valid", it.val_graph),
                            ("test", it.test_graph))}
-        self.caps = (dict(frontier_caps) if frontier_caps is not None
-                     else self._probe_caps(cap_slack))
-        for s in self.samplers.values():
-            s.frontier_caps = self.caps
+        if frontier_caps is not None:
+            caps = dict(frontier_caps)
+        elif self._plans:
+            caps = self._probe_caps(cap_slack)
+        else:
+            caps = {"user": 0, "item": 0}
+        caps = torch.tensor([caps["user"], caps["item"]], dtype=torch.int64)
+        if mesh is not None:
+            # Every rank takes the first rank's caps (it alone probes).
+            caps = from_first(caps.to(self.device), mesh.group("all"))
+        self._take_caps(caps)
         logging.info("sampled frontier caps: %s", self.caps)
         if self.backend == "auto":
             # evaluation is forward-only and resolves on its own column
@@ -201,10 +244,16 @@ class SampledTrainer:
             self.eval_backend = self.backend
 
         self.model = self._init_params()
-        # Dropout masks: one stream, on the model's device.
+        sharded = {}
+        if self.shardings is not None:
+            sharded = {k: sh.group for k, sh in
+                       self.shardings.place_params(self.model).items()}
+        # Dropout masks: one stream, on the model's device (on a mesh, the
+        # same stream on every rank).
         self._dropout_gen = torch.Generator(device=self.device)
         self._dropout_gen.manual_seed(self.s.seed)
-        self.opt = make_optimizer(self.s, self.model.named_parameters())
+        self.opt = make_optimizer(self.s, self.model.named_parameters(),
+                                  sharded)
         self.lr = self.s.lr
 
         # Device-planned mode: training plans are built inside the step;
@@ -231,6 +280,20 @@ class SampledTrainer:
             self._stat_names = _STAT_NAMES + _PLAN_STAT_NAMES
 
     # ------------------------------ setup -----------------------------------
+
+    @property
+    def _plans(self) -> bool:
+        """Whether this process draws and plans the batches: always on one
+        process, the first rank on a mesh."""
+        return self.mesh is None or self.mesh.leader
+
+    def _take_caps(self, caps):
+        """Adopt the caps ``(user, item)`` (a tensor or a sequence) and
+        point every sampler at them."""
+        caps = [int(c) for c in caps]
+        self.caps = {"user": caps[0], "item": caps[1]}
+        for smp in self.samplers.values():
+            smp.frontier_caps = self.caps
 
     def _probe_caps(self, slack: float):
         """Derive frontier caps from a few probe plans (train batches +
@@ -283,11 +346,6 @@ class SampledTrainer:
     def params(self):
         """The parameters by name (``named_parameters``)."""
         return dict(self.model.named_parameters())
-
-    def set_lr(self, lr: float):
-        """Change the learning rate; the Adam moments stay."""
-        self.lr = lr
-        self.opt.lr = float(lr)
 
     def seed_dropout(self, seed: int):
         """Restart the dropout stream from ``seed``."""
@@ -364,10 +422,41 @@ class SampledTrainer:
             "gt": gt, "valid": valid})
 
     def _feed(self, packed):
-        """The packed batch on the device, unpacked: two copies."""
-        ibuf, fbuf, spec = packed
-        return unpack_tree(torch.from_numpy(ibuf).to(self.device),
-                           torch.from_numpy(fbuf).to(self.device), spec)
+        """The packed batch on the device, unpacked: two copies.  On a
+        mesh the first rank's ``packed`` reaches every rank (the others
+        pass ``None``): a header ``[int length, float length, user cap,
+        item cap, spec bytes]`` is broadcast, then the spec (pickled) when
+        it differs from the one last sent, then the two buffers; every
+        rank takes the first rank's caps."""
+        if self.mesh is None:
+            ibuf, fbuf, spec = packed
+            return unpack_tree(torch.from_numpy(ibuf).to(self.device),
+                               torch.from_numpy(fbuf).to(self.device), spec)
+        group = self.mesh.group("all")
+        head = torch.zeros(5, dtype=torch.int64, device=self.device)
+        if self._plans:
+            ibuf, fbuf, spec = packed
+            blob = (b"" if spec == self._mesh_spec
+                    else pickle.dumps(spec, protocol=4))
+            head = torch.tensor([ibuf.size, fbuf.size, self.caps["user"],
+                                 self.caps["item"], len(blob)],
+                                dtype=torch.int64, device=self.device)
+        head = broadcast_(head, group).tolist()
+        if head[4]:
+            raw = torch.zeros(head[4], dtype=torch.uint8, device=self.device)
+            if self._plans:
+                raw.copy_(torch.frombuffer(bytearray(blob), dtype=torch.uint8))
+            self._mesh_spec = pickle.loads(
+                broadcast_(raw, group).cpu().numpy().tobytes())
+        self._take_caps(head[2:4])
+        if self._plans:
+            ib = torch.from_numpy(ibuf).to(self.device)
+            fb = torch.from_numpy(fbuf).to(self.device)
+        else:
+            ib = torch.empty(head[0], dtype=torch.int32, device=self.device)
+            fb = torch.empty(head[1], dtype=torch.float32, device=self.device)
+        return unpack_tree(broadcast_(ib, group), broadcast_(fb, group),
+                           self._mesh_spec)
 
     # ---------------------- frontier-cap recovery ----------------------
 
@@ -415,10 +504,24 @@ class SampledTrainer:
         dict of device-side stats (``loss``, ``gnorm`` scalars;
         ``rating_loss``, ``recon_loss``, ``sq_err`` per block; with
         ``plan_device`` also ``overflow`` and the ``needed_*`` counts)."""
-        feed = self._feed(self._pack_batch(batch))
+        feed = self._feed(self._pack_batch(batch) if self._plans else None)
         if self.plan_device:
             return self._device_update(*self._device_plan(feed), feed)
         return _loss_update(self, feed)
+
+    def loss_and_grads(self, batch):
+        """The training forward and backward of one batch, without the
+        update: ``(stats, grads)`` with ``train_iteration``'s device-side
+        stats but ``gnorm`` (and, with ``plan_device``, the plan's), and
+        the gradient of the loss for every parameter, by name (on a mesh,
+        this rank's rows of a split table).  One draw from the dropout
+        stream."""
+        feed = self._feed(self._pack_batch(batch) if self._plans else None)
+        if not self.plan_device:
+            return _loss_and_grads(self, feed)
+        plan, pairs_pos, aux = self._device_plan(feed)
+        return _loss_and_grads(self, dict(feed, plan=dict(
+            plan, pairs_pos=pairs_pos)), identity=aux["identity"])
 
     def _device_plan(self, feed):
         """The device planning phase of a ``plan_device`` feed: ``(plan,
@@ -458,6 +561,10 @@ class SampledTrainer:
             steps = [self.train_iteration(b) for b in batches]
             return {k: torch.stack([st[k] for st in steps])
                     for k in self._stat_names}
+        if not self._plans:
+            steps = [_loss_update(self, self._feed(None)) for _ in batches]
+            return {k: torch.stack([st[k] for st in steps])
+                    for k in _STAT_NAMES}
         packed = [self._pack_batch(b) for b in batches]
         spec = packed[-1][2]
         if any(p[2] != spec for p in packed[:-1]):
@@ -476,7 +583,8 @@ class SampledTrainer:
     def evaluate(self, segment: str = "valid"):
         """Per-block RMSE with fanout-sampled neighborhoods on the eval
         graph and cold-start eval noise; predictions are denormalised and
-        clipped to the rating range."""
+        clipped to the rating range.  On a mesh the first rank plans each
+        batch, and every rank returns its RMSE."""
         it = self.data_iter
         pairs = (it.valid_node_pairs if segment == "valid"
                  else it.test_node_pairs)
@@ -500,18 +608,22 @@ class SampledTrainer:
             valid = np.zeros(B, np.float32)
             bu[:n], bi[:n] = pairs[0, start:end], pairs[1, start:end]
             gt[:n], valid[:n] = ratings[start:end], 1.0
-            while True:
+            packed = None
+            while self._plans:
                 try:
                     plan = StackedPlan.build(
                         graph, self.model_cfg, bu[:n], bi[:n],
                         fanout=self.fanout, sampler=sampler)
+                    packed = self._pack_batch(
+                        (plan, (bu, bi), gt, valid, noise_u, noise_i))
                     break
                 except FrontierCapError as e:
                     self._grow_caps(e.needed)
-            feed = self._feed(self._pack_batch(
-                (plan, (bu, bi), gt, valid, noise_u, noise_i)))
-            sq_sum += _eval_step(self, feed)
+            sq_sum += _eval_step(self, self._feed(packed))
             cnt += n
+        if self.mesh is not None:
+            # One number on every rank: fit's schedule decides by it.
+            sq_sum = self._from_first(sq_sum, "all")
         return np.sqrt(sq_sum.cpu().numpy() / max(cnt, 1))
 
     # -------------------------------- fit ------------------------------------
@@ -543,11 +655,16 @@ class SampledTrainer:
             batch_size=s.recon_batch_size) if s.use_dae else None)
         nb = self.model_cfg.nblocks
         if self.save_dir is not None:
-            # net%d.txt architecture dump (reference gluon_net_info).
-            model_info(self.model.state_dict(), os.path.join(
-                self.save_dir, f"net{self.save_id}.txt"))
+            # net%d.txt architecture dump (reference gluon_net_info), of
+            # the whole parameters.
+            params = self.whole_params()
+            if self._writes_files:
+                model_info(params, os.path.join(
+                    self.save_dir, f"net{self.save_id}.txt"))
 
         def next_batch():
+            if not self._plans:
+                return None
             return self._build_batch_safe(rating_sampler, recon_sampler)
 
         # Steps per train_chunk call, when the cadence allows.
@@ -576,8 +693,9 @@ class SampledTrainer:
         """``fit``'s steps, logging, validation and schedule; returns
         ``(best_iter, best_valid_rmse, best_test_rmse)``."""
         s = self.s
-        loggers = make_metric_loggers(self.save_dir, self.save_id,
-                                      self.model_cfg.nblocks)
+        loggers = make_metric_loggers(
+            self.save_dir if self._writes_files else None, self.save_id,
+            self.model_cfg.nblocks)
         nb = self.model_cfg.nblocks
         names = self._stat_names
         best_valid_rmse = np.inf
@@ -604,7 +722,11 @@ class SampledTrainer:
 
             logging_str = ""
             if iter_idx % s.log_interval == 0:
-                fetched = torch.cat(pending).double().cpu().numpy()
+                fetched = torch.cat(pending).double()
+                if self.mesh is not None:
+                    # The schedule's decisions read the mesh's first rank.
+                    fetched = self._from_first(fetched, "all")
+                fetched = fetched.cpu().numpy()
                 n_batches = fetched.shape[0]
                 last_loss = float(fetched[-1, 0])
                 gn = fetched[:, 1].sum()
@@ -693,35 +815,6 @@ class SampledTrainer:
                 f"growing caps to cover {need}")
             self._grow_caps(need)
 
-    # ---------------------------- checkpointing ------------------------------
-
-    def _checkpoint_path(self, tag):
-        if self.save_dir is None:
-            return None
-        return os.path.join(self.save_dir, f"ckpt_{tag}_{self.save_id}.pt")
-
-    def save_checkpoint(self, tag: str = "last"):
-        """Persist parameters + optimiser state + the learning rate, in
-        the format of ``Trainer.save_checkpoint``."""
-        path = self._checkpoint_path(tag)
-        if path is None:
-            return None
-        from stargcn_tpu_torch.train.checkpoint import save_checkpoint
-        os.makedirs(self.save_dir, exist_ok=True)
-        save_checkpoint(path, self.model.state_dict(),
-                        self.opt.state_dict(), {"lr": self.lr})
-        return path
-
-    def restore_checkpoint(self, path: str):
-        from stargcn_tpu_torch.train.checkpoint import restore_checkpoint
-        params, opt_state, extra = restore_checkpoint(
-            path, self.model.state_dict(), self.opt.state_dict())
-        self.model.load_state_dict(params)
-        self.opt.load_state_dict(opt_state)
-        if "lr" in extra:
-            self.set_lr(float(extra["lr"]))
-
-
 # ----------------------------- step functions --------------------------------
 
 # The extra stats of a ``plan_device`` step.
@@ -755,7 +848,7 @@ def _sampled_outputs(trainer, feed, *, train, identity=None):
         trainer.model, trainer.model_cfg, feed["plan"], feed["noise_u"],
         feed["noise_i"], backend=backend, train=train,
         generator=trainer._dropout_gen,
-        features=trainer._fea,
+        features=trainer._fea, row_sharding=trainer.mesh,
         identity_frontiers=identity, remat=trainer.remat)
 
 
@@ -781,6 +874,8 @@ def _loss_and_grads(trainer, feed, identity=None):
     grads = {k: (torch.zeros_like(p) if g is None else g)
              for k, p, g in zip(names, params, torch.autograd.grad(
                  loss, params, allow_unused=True))}
+    if trainer.mesh is not None:
+        grads = trainer._replica_grads(grads)
     with torch.no_grad():
         denorm = out["pred_ratings"] * std + mean
         sq_err = ((denorm - gt_ratings[None, :]) ** 2

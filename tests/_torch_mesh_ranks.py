@@ -12,18 +12,16 @@ The trainers follow the set-up of ``tests/test_parallel.py:23-46`` (a
 """
 
 import os
-import time
 
 import numpy as np
 import torch
-import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from stargcn_tpu_torch.data import DataIterator
 from stargcn_tpu_torch.data.synthetic import synthetic_graph
 from stargcn_tpu_torch.models import build_model_config
 from stargcn_tpu_torch.parallel import GraphShardings, make_mesh
 from stargcn_tpu_torch.parallel import collectives as C
+from stargcn_tpu_torch.parallel.mesh import start_ranks
 from stargcn_tpu_torch.train import Trainer, TrainSettings
 from stargcn_tpu_torch.utils import default_cfg
 
@@ -35,34 +33,19 @@ MESHES_2X2 = MESHES + ((2, 2),)
 
 # ------------------------------- spawning -------------------------------
 
-def _entry(rank, world, url, fn, args):
-    torch.set_num_threads(2)
-    dist.init_process_group("gloo", init_method=url, world_size=world,
-                            rank=rank)
-    try:
-        fn(rank, *args)
-    finally:
-        dist.destroy_process_group()
+def start(fn, world, tmp_path, *args, timeout=240.0):
+    """Start ``fn(rank, *args)`` in ``world`` spawned ranks over gloo, their
+    rendezvous file under ``tmp_path``, and return at once
+    (``parallel.mesh.start_ranks``; ``wait`` joins them)."""
+    return start_ranks(fn, world, args, device="cpu", backend="gloo",
+                       timeout=timeout, rendezvous_dir=tmp_path)
 
 
 def spawn(fn, world, tmp_path, *args, timeout=240.0):
     """Run ``fn(rank, *args)`` in ``world`` spawned ranks over gloo; raise
     if a rank raises or the ranks are not done within ``timeout``
     seconds (the ranks are then killed)."""
-    url = "file://" + str(tmp_path / f"rdzv_{fn.__name__}_{time.time_ns()}")
-    ctx = mp.start_processes(_entry, args=(world, url, fn, args),
-                             nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + timeout
-    try:
-        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
-            if time.monotonic() >= deadline:
-                raise TimeoutError(f"{fn.__name__}: {world} ranks still "
-                                   f"running after {timeout:.0f} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join(5)
+    start(fn, world, tmp_path, *args, timeout=timeout).wait()
 
 
 # ------------------------------- set-up ---------------------------------

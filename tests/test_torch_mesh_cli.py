@@ -1,7 +1,7 @@
 """The train CLI on a device mesh (``--mesh``, ``--coordinator``,
 ``--num_processes``, ``--process_id``), the multiprocess twin
 (``python -m stargcn_tpu_torch.parallel.multiprocess_train``), and the
-refusals that wait for the sampled trainer's mesh.  Ranks meet through a
+sampled trainer's mesh, which an earlier slice refused, on 1 x 1.  Ranks meet through a
 rendezvous file in the test's temporary directory, never a port; every
 process has its own timeout."""
 
@@ -99,19 +99,54 @@ def test_multiprocess_twin_passes():
 
 
 def test_sampled_mesh_refusals_name_the_next_slice(tmp_path, fixture_run):
-    """What the sampled trainer's mesh slice will port is refused by name:
-    ``SampledTrainer(mesh=)``, ``sampled_forward(row_sharding=)`` and the
-    CLI's ``--mesh`` in sampled mode."""
+    """What an earlier slice refused by name now runs, on a 1 x 1 mesh (a
+    world of one, gloo): ``SampledTrainer(mesh=)`` (a step),
+    ``sampled_forward(row_sharding=)`` (equal to the forward without a
+    mesh) and the train CLI's ``--mesh`` in sampled mode; a mesh that is
+    not a ``parallel.Mesh`` is refused."""
+    import numpy as np
+    import torch
+
     from stargcn_tpu_torch.models import sampled as tsm
+    from stargcn_tpu_torch.parallel import make_mesh
 
     t = R.port_trainer("dense")
     cfg = dataclasses.replace(t.model_cfg, backend="xla")
-    with pytest.raises(NotImplementedError, match="SampledTrainer.*slice"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         SampledTrainer(cfg, t.data_iter, TrainSettings(), fanout=4,
                        device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="row_sharding.*slice"):
-        tsm._check_supported(cfg, object())
-    with pytest.raises(NotImplementedError, match="sampled mode.*slice"):
-        train_cli.main(fixture_run + ["--save_dir", str(tmp_path / "s"),
-                                      "--num_neighbors", "4", "--mesh",
-                                      "1x2"])
+    settings = TrainSettings(rating_batch_size=64, recon_batch_size=16,
+                             seed=3)
+    mesh = make_mesh(1, 1, device="cpu")
+    try:
+        st = SampledTrainer(cfg, t.data_iter, settings, fanout=4,
+                            device="cpu", mesh=mesh)
+        rs = t.data_iter.rating_sampler(batch_size=st.train_batch,
+                                        segment="train")
+        rc = t.data_iter.recon_nodes_sampler(batch_size=16)
+        batch = st._build_batch_safe(rs, rc)
+        assert np.isfinite(float(st.train_iteration(batch)["loss"]))
+        plan, _, _, _, nu, ni = batch
+        with torch.no_grad():
+            got = tsm.sampled_forward(st.model, cfg, plan, nu, ni,
+                                      row_sharding=mesh)
+            want = tsm.sampled_forward(st.model, cfg, plan, nu, ni)
+        torch.testing.assert_close(got["pred_ratings"],
+                                   want["pred_ratings"])
+    finally:
+        dist.destroy_process_group()
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    try:
+        result = train_cli.main(fixture_run + [
+            "--save_dir", str(tmp_path / "s"), "--num_neighbors", "4",
+            "--mesh", "1x1"])
+    finally:
+        for h in list(root.handlers):
+            if h not in handlers:
+                h.close()
+        root.handlers[:] = handlers
+        root.setLevel(level)
+    assert result["best_iter"] in (2, 4)
+    assert not dist.is_initialized()
+    assert (tmp_path / "s" / "ckpt_last_0.pt").exists()

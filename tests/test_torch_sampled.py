@@ -283,7 +283,9 @@ def test_refuses_what_is_not_ported(setup):
     _, tplan = build_plans(setup, 4, None, False)
     cfg = sampled_cfgs()[1]
     model = STARGCN(cfg)
-    with pytest.raises(NotImplementedError, match="row_sharding"):
+    # the mesh is ported (tests/test_torch_sampled_mesh.py); it takes a
+    # parallel.Mesh.
+    with pytest.raises(TypeError, match="row_sharding"):
         tsm.sampled_forward(model, cfg, tplan, noise_u, noise_i,
                             row_sharding=object())
     # remat and bf16 are ported (tests/test_torch_sampled_options.py);

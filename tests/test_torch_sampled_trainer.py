@@ -300,11 +300,13 @@ def test_refuses_what_is_not_ported():
     it = sampled_iterator(DataIterator, tg)
     s = TrainSettings(rating_batch_size=24, recon_batch_size=8)
     cfg = sampled_cfgs()[1]
-    for kw, word in ((dict(mesh=object()), "mesh"),
-                     (dict(plan_device=True, backend="pallas"),
-                      "plan_device")):
-        with pytest.raises(NotImplementedError, match=word):
-            SampledTrainer(cfg, it, s, fanout=4, device="cpu", **kw)
+    # The mesh is ported (tests/test_torch_sampled_mesh*.py); it takes a
+    # parallel.Mesh.
+    with pytest.raises(TypeError, match="mesh"):
+        SampledTrainer(cfg, it, s, fanout=4, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="plan_device"):
+        SampledTrainer(cfg, it, s, fanout=4, device="cpu", plan_device=True,
+                       backend="pallas")
     # remat is ported (tests/test_torch_sampled_options.py); feature-only
     # input with DAE reconstruction is refused, as the JAX package does.
     assert SampledTrainer(cfg, it, s, fanout=4, device="cpu",
