@@ -1,30 +1,91 @@
-"""Host graph kernels (NumPy).
+"""Host graph kernels: the port's C++ extension and the NumPy versions.
 
-The port's copy of the NumPy half of ``stargcn_tpu/graph/kernels.py``: the
-same functions, signatures, return dtypes and draws from the same seeded
-stream (``set_seed``), so each returns what the JAX package's NumPy path
-returns.  Four functions of that module are not here:
+The port of ``stargcn_tpu/graph/kernels.py``: the same functions, signatures
+and return dtypes.  The C++/OpenMP extension (``csrc/graph_kernels.cpp``,
+the port's copy of the JAX package's ``native/graph_kernels.cpp``) is built
+at first use by ``graph/native.py``; ``native_module()`` loads it, and a
+failed build raises: nothing falls back to numpy.
 
-* ``has_native``, ``native_module`` and ``set_omp_threads`` exist only for
-  the JAX package's optional C++ extension, which the port does not build;
-* ``sample_block_ell``, the fused block planner, raises there without that
-  extension; the port's planner takes the NumPy route that the JAX planner
-  falls back to, vectorised (``random_sample_fix_neighbor_vectorised``).
+Routes, and why:
+
+* native by default, each returning its NumPy version's answer bit for bit
+  (held so in ``tests/test_torch_native.py``): ``unique_inverse``,
+  ``unique_cnt``, ``take_1d`` (int32 and float32 data),
+  ``row_indices_from_indptr``, ``seg_sum``, ``seg_add``, ``seg_mul``,
+  ``csr_submat``, ``multi_link_split``, ``remove_edges_by_indices``.
+  Indices outside the arrays and values that do not fit their segments,
+  which the C++ does not check, take the NumPy version, which raises or
+  wraps as numpy does;
+* NumPy by default: ``get_support`` (the C++ rounds ``1/sqrt(d_r d_c)`` in
+  float32, numpy in float64: the two differ in the last bit), and the
+  random ones, ``random_sample_fix_neighbor``, ``random_walk``,
+  ``get_random_walk_nodes``, ``uniform_neg_sampling`` and
+  ``random_sel_neighbor_and_merge`` (draws from the NumPy stream, the JAX
+  package's NumPy draws from the same seed).  Their native versions are
+  ``native_module().<name>``, with the JAX package's extension's arguments
+  (int32 arrays);
+* native only: ``sample_block_ell``, the fused block planner of
+  ``BlockSampler(planner="native")``, and ``set_omp_threads``;
+* NumPy only: ``random_sample_fix_neighbor_vectorised`` (the
+  ``'vectorised'`` planner).
+
+Every NumPy version that a native route replaces is kept as
+``plain_<name>``.  ``set_seed`` restarts both streams: the NumPy one, and the
+extension's counter-based draws, which are a function of the seed and of how
+many random calls were made since (``csrc/graph_kernels.cpp``).
 """
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
+
+from stargcn_tpu_torch.graph import native
 
 # The sampling stream: ADVANCES across calls and is recreated only by
 # ``set_seed``, so successive plans draw different neighborhoods.
 _fallback_rng = np.random.RandomState(0)
+_seed = 0
+_native = None
+_native_lock = threading.Lock()
+
+
+def native_module():
+    """The C++ extension, built and loaded at first use (then cached), with
+    the draws seeded from the last ``set_seed``.  Raises ``RuntimeError``
+    when it cannot be built or loaded."""
+    global _native
+    if _native is None:
+        with _native_lock:
+            if _native is None:
+                module = native.load()
+                module.set_seed(_seed & 0xFFFFFFFFFFFFFFFF)
+                _native = module
+    return _native
+
+
+def has_native() -> bool:
+    """Whether this process has loaded the extension."""
+    return _native is not None
 
 
 def set_seed(seed: int) -> None:
-    """Restart the sampling stream from ``seed``."""
-    global _fallback_rng
-    _fallback_rng = np.random.RandomState(int(seed) & 0xFFFFFFFF)
+    """Restart the sampling streams from ``seed``: the NumPy stream, and the
+    extension's draws (their random calls counted from 0 again)."""
+    global _fallback_rng, _seed
+    with _native_lock:
+        _seed = int(seed)
+        _fallback_rng = np.random.RandomState(_seed & 0xFFFFFFFF)
+        if _native is not None:
+            _native.set_seed(_seed & 0xFFFFFFFFFFFFFFFF)
+
+
+def set_omp_threads(n: int) -> int:
+    """Cap the OpenMP team size of the extension's kernels called from the
+    CALLING thread (a per-thread setting); ``n <= 0`` leaves it.  Returns the
+    resulting largest team size."""
+    return int(native_module().set_omp_threads(int(n)))
 
 
 def _rng(seed=None):
@@ -35,10 +96,28 @@ def _rng(seed=None):
     return np.random.RandomState(int(seed) & 0xFFFFFFFF)
 
 
+def _in_range(idx, n) -> bool:
+    """Whether every index of ``idx`` lies in ``[0, n)``."""
+    return idx.size == 0 or (int(idx.min()) >= 0 and int(idx.max()) < n)
+
+
+def _segments_fit(indptr, values, per_segment=None) -> bool:
+    """Whether ``values`` has one entry per edge of the segments
+    ``indptr`` (and ``per_segment`` one per segment)."""
+    return (indptr.size >= 1 and values.size == int(indptr[-1])
+            and (per_segment is None
+                 or per_segment.size == indptr.size - 1))
+
+
 def unique_inverse(arr: np.ndarray):
-    """Order-of-first-occurrence unique + inverse indices.  ``np.unique``
-    sorts; first-occurrence order is part of the contract that the
-    frontier merging relies on."""
+    """Order-of-first-occurrence unique + inverse indices (int32)."""
+    arr = np.ascontiguousarray(arr, dtype=np.int32)
+    return native_module().unique_inverse(arr)
+
+
+def plain_unique_inverse(arr: np.ndarray):
+    """``unique_inverse`` in numpy.  ``np.unique`` sorts; first-occurrence
+    order is part of the contract that the frontier merging relies on."""
     arr = np.ascontiguousarray(arr, dtype=np.int32)
     uniq_sorted, first_idx, inv_sorted = np.unique(
         arr, return_index=True, return_inverse=True)
@@ -51,19 +130,47 @@ def unique_inverse(arr: np.ndarray):
 
 def unique_cnt(arr: np.ndarray):
     """Unique values (first-occurrence order) and their counts."""
-    uniq, inv = unique_inverse(arr)
+    arr = np.ascontiguousarray(arr, dtype=np.int32)
+    return native_module().unique_cnt(arr)
+
+
+def plain_unique_cnt(arr: np.ndarray):
+    """``unique_cnt`` in numpy."""
+    uniq, inv = plain_unique_inverse(arr)
     cnt = np.zeros(uniq.size, dtype=np.int32)
     np.add.at(cnt, inv, 1)
     return uniq, cnt
 
 
 def take_1d(data: np.ndarray, indices: np.ndarray) -> np.ndarray:
-    """1-D gather ``data[indices]``."""
+    """1-D gather ``data[indices]``: native (in parallel) for int32 and
+    float32 data."""
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    data = np.asarray(data)
+    if data.dtype in (np.int32, np.float32) and _in_range(indices,
+                                                          data.size):
+        return native_module().take_1d(np.ascontiguousarray(data).ravel(),
+                                       indices)
+    return plain_take_1d(data, indices)
+
+
+def plain_take_1d(data: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """``take_1d`` in numpy."""
     return np.take(data, np.ascontiguousarray(indices, dtype=np.int32))
 
 
 def row_indices_from_indptr(ind_ptr: np.ndarray, nnz: int) -> np.ndarray:
     """CSR -> COO row expansion."""
+    ind_ptr = np.ascontiguousarray(ind_ptr, dtype=np.int32)
+    if int(ind_ptr[-1]) != int(nnz):
+        raise ValueError(f"ind_ptr ends at {int(ind_ptr[-1])}, not at nnz "
+                         f"{int(nnz)}")
+    return native_module().gen_row_indices_by_indptr(ind_ptr, int(nnz))
+
+
+def plain_row_indices_from_indptr(ind_ptr: np.ndarray,
+                                  nnz: int) -> np.ndarray:
+    """``row_indices_from_indptr`` in numpy."""
     ind_ptr = np.ascontiguousarray(ind_ptr, dtype=np.int32)
     assert int(ind_ptr[-1]) == int(nnz)
     return np.repeat(
@@ -72,7 +179,16 @@ def row_indices_from_indptr(ind_ptr: np.ndarray, nnz: int) -> np.ndarray:
 
 
 def seg_sum(data: np.ndarray, indptr: np.ndarray) -> np.ndarray:
-    """Sum of each CSR segment of ``data`` (float32)."""
+    """Sum of each CSR segment of ``data`` (float32, in segment order)."""
+    data = np.ascontiguousarray(data, dtype=np.float32)
+    indptr = np.ascontiguousarray(indptr, dtype=np.int32)
+    if not _segments_fit(indptr, data):
+        return plain_seg_sum(data, indptr)
+    return native_module().seg_sum(data, indptr)
+
+
+def plain_seg_sum(data: np.ndarray, indptr: np.ndarray) -> np.ndarray:
+    """``seg_sum`` in numpy."""
     data = np.ascontiguousarray(data, dtype=np.float32)
     indptr = np.ascontiguousarray(indptr, dtype=np.int32)
     seg_ids = np.repeat(np.arange(indptr.size - 1), np.diff(indptr))
@@ -86,6 +202,16 @@ def seg_add(lhs: np.ndarray, rhs: np.ndarray, indptr: np.ndarray):
     lhs = np.ascontiguousarray(lhs, dtype=np.float32)
     rhs = np.ascontiguousarray(rhs, dtype=np.float32)
     indptr = np.ascontiguousarray(indptr, dtype=np.int32)
+    if not _segments_fit(indptr, lhs, rhs):
+        return plain_seg_add(lhs, rhs, indptr)
+    return native_module().seg_add(lhs, rhs, indptr)
+
+
+def plain_seg_add(lhs: np.ndarray, rhs: np.ndarray, indptr: np.ndarray):
+    """``seg_add`` in numpy."""
+    lhs = np.ascontiguousarray(lhs, dtype=np.float32)
+    rhs = np.ascontiguousarray(rhs, dtype=np.float32)
+    indptr = np.ascontiguousarray(indptr, dtype=np.int32)
     return lhs + np.repeat(rhs, np.diff(indptr))
 
 
@@ -94,12 +220,23 @@ def seg_mul(lhs: np.ndarray, rhs: np.ndarray, indptr: np.ndarray):
     lhs = np.ascontiguousarray(lhs, dtype=np.float32)
     rhs = np.ascontiguousarray(rhs, dtype=np.float32)
     indptr = np.ascontiguousarray(indptr, dtype=np.int32)
+    if not _segments_fit(indptr, lhs, rhs):
+        return plain_seg_mul(lhs, rhs, indptr)
+    return native_module().seg_mul(lhs, rhs, indptr)
+
+
+def plain_seg_mul(lhs: np.ndarray, rhs: np.ndarray, indptr: np.ndarray):
+    """``seg_mul`` in numpy."""
+    lhs = np.ascontiguousarray(lhs, dtype=np.float32)
+    rhs = np.ascontiguousarray(rhs, dtype=np.float32)
+    indptr = np.ascontiguousarray(indptr, dtype=np.int32)
     return lhs * np.repeat(rhs, np.diff(indptr))
 
 
 def get_support(row_degrees, col_degrees, ind_ptr, end_points, symm=True):
     """Per-edge GCN support: ``1/sqrt(d_row * d_col)`` (``symm``) or
-    ``1/d_row``, zero at zero-degree endpoints."""
+    ``1/d_row``, zero at zero-degree endpoints, rounded from float64.  (The
+    extension's ``get_support`` rounds in float32.)"""
     row_degrees = np.ascontiguousarray(row_degrees, dtype=np.int32)
     col_degrees = np.ascontiguousarray(col_degrees, dtype=np.int32)
     ind_ptr = np.ascontiguousarray(ind_ptr, dtype=np.int32)
@@ -124,9 +261,23 @@ def csr_submat(ind_ptr, end_points, row_indices, col_indices, num_cols):
 
     Columns are renumbered by their position in ``col_indices`` (not
     sorted).  Returns ``(new_ind_ptr, new_end_points, edge_idx)``, where
-    ``edge_idx`` (int64) indexes the original edge arrays.  The JAX
-    package's NumPy path walks the rows in a Python loop; this is the same
-    result for all rows at once."""
+    ``edge_idx`` (int64) indexes the original edge arrays."""
+    ind_ptr = np.ascontiguousarray(ind_ptr, dtype=np.int32)
+    end_points = np.ascontiguousarray(end_points, dtype=np.int32)
+    row_indices = np.ascontiguousarray(row_indices, dtype=np.int32)
+    col_indices = np.ascontiguousarray(col_indices, dtype=np.int32)
+    if not (_in_range(row_indices, ind_ptr.size - 1)
+            and _in_range(col_indices, num_cols)):
+        return plain_csr_submat(ind_ptr, end_points, row_indices,
+                                col_indices, num_cols)
+    return native_module().csr_submat(ind_ptr, end_points, row_indices,
+                                      col_indices, int(num_cols))
+
+
+def plain_csr_submat(ind_ptr, end_points, row_indices, col_indices,
+                     num_cols):
+    """``csr_submat`` in numpy, for all rows at once (the JAX package's
+    NumPy path walks the rows in a Python loop; the result is the same)."""
     ind_ptr = np.ascontiguousarray(ind_ptr, dtype=np.int32)
     end_points = np.ascontiguousarray(end_points, dtype=np.int32)
     row_indices = np.ascontiguousarray(row_indices, dtype=np.int32)
@@ -157,6 +308,16 @@ def multi_link_split(edge_values, ind_ptr, multi_link):
     ``multi_link``, the edge positions with that value (int32, in CSR
     order) and the per-row indptr (int32) of the resulting sub-CSR.
     """
+    edge_values = np.ascontiguousarray(edge_values, dtype=np.float32)
+    ind_ptr = np.ascontiguousarray(ind_ptr, dtype=np.int32)
+    multi_link = np.ascontiguousarray(multi_link, dtype=np.float32)
+    if not _segments_fit(ind_ptr, edge_values):
+        return plain_multi_link_split(edge_values, ind_ptr, multi_link)
+    return native_module().multi_link_split(edge_values, ind_ptr, multi_link)
+
+
+def plain_multi_link_split(edge_values, ind_ptr, multi_link):
+    """``multi_link_split`` in numpy."""
     edge_values = np.ascontiguousarray(edge_values, dtype=np.float32)
     ind_ptr = np.ascontiguousarray(ind_ptr, dtype=np.int32)
     multi_link = np.ascontiguousarray(multi_link, dtype=np.float32)
@@ -382,6 +543,16 @@ def remove_edges_by_indices(ind_ptr, end_points, remove_edge_idx):
     """A CSR without the edges at the given positions: returns
     ``(new_ind_ptr (int32), keep_mask)``."""
     ind_ptr = np.ascontiguousarray(ind_ptr, dtype=np.int32)
+    remove_edge_idx = np.ascontiguousarray(remove_edge_idx, dtype=np.int64)
+    if not _in_range(remove_edge_idx, int(ind_ptr[-1])):
+        return plain_remove_edges_by_indices(ind_ptr, end_points,
+                                             remove_edge_idx)
+    return native_module().remove_edges_by_indices(ind_ptr, remove_edge_idx)
+
+
+def plain_remove_edges_by_indices(ind_ptr, end_points, remove_edge_idx):
+    """``remove_edges_by_indices`` in numpy."""
+    ind_ptr = np.ascontiguousarray(ind_ptr, dtype=np.int32)
     nnz = int(ind_ptr[-1])
     keep = np.ones(nnz, dtype=bool)
     keep[np.asarray(remove_edge_idx, dtype=np.int64)] = False
@@ -389,3 +560,35 @@ def remove_edges_by_indices(ind_ptr, end_points, remove_edge_idx):
     new_ptr = np.zeros(ind_ptr.size, dtype=np.int32)
     np.add.at(new_ptr[1:], row_per_edge[keep], 1)
     return np.cumsum(new_ptr).astype(np.int32), keep
+
+
+def sample_block_ell(ind_ptr, end_points, col_ids, rating_idx,
+                     inv_row, inv_col, sel_rows, frontier_other,
+                     exclude_keys, id_cap, fanout, n_dst, row_is_user,
+                     key_mult):
+    """The fused planner of one (level, node type): for each row of
+    ``sel_rows``, at most ``fanout`` of its edges drawn without replacement
+    (Floyd's algorithm, from the row's own stream), each slot's support
+    ``inv_row[row] * inv_col[col]`` (removal-adjusted degrees fold into
+    the two vectors), zero on the batch edges of the sorted
+    ``exclude_keys`` (``row * key_mult + col`` keys of users' rows), and
+    the neighbor ids interned in first-occurrence order into the next
+    frontier, which starts as ``frontier_other``.
+
+    Returns ``(nbr_pos, weight, rating, merged_ids)``: the first three
+    ``(n_dst, fanout)``, padded rows and slots zero."""
+    nbr_pos, weight, rating, merged = native_module().sample_block_ell(
+        np.ascontiguousarray(ind_ptr, np.int32),
+        np.ascontiguousarray(end_points, np.int32),
+        np.ascontiguousarray(col_ids, np.int32),
+        np.ascontiguousarray(rating_idx, np.int32),
+        np.ascontiguousarray(inv_row, np.float32),
+        np.ascontiguousarray(inv_col, np.float32),
+        np.ascontiguousarray(sel_rows, np.int32),
+        np.ascontiguousarray(frontier_other, np.int32),
+        np.ascontiguousarray(exclude_keys, np.int64),
+        int(id_cap), int(fanout), int(n_dst), int(row_is_user),
+        int(key_mult))
+    fan = int(fanout)
+    return (nbr_pos.reshape(-1, fan), weight.reshape(-1, fan),
+            rating.reshape(-1, fan), merged)

@@ -5,17 +5,27 @@ sampled mode.  The sampler emits STATIC-shape padded ELL blocks (node
 counts padded to a fixed multiple or to fixed caps, fanout capped at K), so
 every batch gives the device step tensors of the same shapes.
 
-Two planner routes share one pipeline and differ only in how neighbors are
-drawn (``planner=``):
+Three planner routes (``planner=``), each uniform, without replacement, at
+most K neighbors a frontier row:
 
+* ``'native'``: the JAX package's fused native planner (``_sample_native``),
+  one ``kernels.sample_block_ell`` call of the port's C++ extension per
+  (level, node type) draws, weighs, excludes, interns and scatters into the
+  ELL rows.  Its draws are a function of the seed and of how many random
+  calls came before (``csrc/graph_kernels.cpp``), and its supports are
+  ``inv_row * inv_col`` products in float32, within a last bit of the NumPy
+  routes' (the JAX package's native planner's arithmetic);
 * ``'loop'``: ``kernels.random_sample_fix_neighbor``, one ``rng.choice``
   per frontier row, the same draws from the same seed as the JAX package's
   NumPy path;
-* ``'vectorised'`` (the default): the same contract (uniform, without
-  replacement, at most K per row) drawn for all rows at once.  It stands
-  where the JAX package has its fused native planner (``_sample_native``);
-  the port builds no host extension.  Its draws differ from the loop's; the
-  two agree exactly when the fanout is at least the largest degree.
+* ``'vectorised'``: the loop's contract drawn for all rows at once in
+  numpy.  ``BlockSampler``'s default, since it serves a fanout of -1 (every
+  neighbor) too; ``SampledTrainer``, whose fanout is positive, takes
+  ``'native'``.
+
+The two NumPy routes share one pipeline and differ only in how neighbors are
+drawn.  The three draw differently; they give the same plan when the fanout
+is at least the largest degree.
 """
 
 from __future__ import annotations
@@ -27,8 +37,11 @@ import numpy as np
 
 from stargcn_tpu_torch.graph import kernels as K
 
+# Each route's neighbor draw; the native route has a pipeline of its own
+# (``BlockSampler._sample_native``).
 _PLANNERS = {"loop": K.random_sample_fix_neighbor,
-             "vectorised": K.random_sample_fix_neighbor_vectorised}
+             "vectorised": K.random_sample_fix_neighbor_vectorised,
+             "native": None}
 
 
 def _pad_to(n, multiple):
@@ -123,6 +136,34 @@ class BlockSampler:
         self._col_deg = {t: np.asarray(self._csr[t].col_degrees, np.int64)
                          for t in ("user", "item")}
         self._num_items_global = self._csr["user"].shape[1]
+        if planner == "native":
+            # The fused planner's intern-map capacity per neighbor id
+            # space, and the support factors without removal.
+            self._col_id_cap = {
+                t: int(self._csr[t].col_ids.max(initial=0)) + 1
+                for t in ("user", "item")}
+            self._inv_base = self._inv_factors(None)
+
+    def _inv_factors(self, removal_counts):
+        """Per-node support factors so that an edge's GCN support is
+        ``inv_row[row] * inv_col[col]``: ``get_support``'s
+        1/sqrt(d_row * d_col) (symm) or 1/d_row, with the removal-adjusted
+        degrees folded in when ``removal_counts`` is given."""
+        inv = {}
+        for t, other in (("user", "item"), ("item", "user")):
+            dr = self._row_deg[t].astype(np.float64)
+            dc = self._col_deg[t].astype(np.float64)
+            if removal_counts is not None:
+                dr = dr - removal_counts[t]
+                dc = dc - removal_counts[other]
+            if self.symm:
+                ir = np.where(dr > 0, 1.0 / np.sqrt(np.maximum(dr, 1)), 0.0)
+                ic = np.where(dc > 0, 1.0 / np.sqrt(np.maximum(dc, 1)), 0.0)
+            else:
+                ir = np.where(dr > 0, 1.0 / np.maximum(dr, 1), 0.0)
+                ic = np.ones_like(dc)
+            inv[t] = (ir.astype(np.float32), ic.astype(np.float32))
+        return inv
 
     def removal_args(self, batch_user_ids, batch_item_ids):
         """Precompute ``(exclude_keys, removal_counts)`` for
@@ -150,6 +191,10 @@ class BlockSampler:
         degrees."""
         frontier = {"user": np.asarray(target_user_ids, np.int32),
                     "item": np.asarray(target_item_ids, np.int32)}
+        if self.planner == "native":
+            return self._sample_native(frontier, target_user_ids,
+                                       target_item_ids, exclude_keys,
+                                       removal_counts)
         draw = _PLANNERS[self.planner]
         levels = [frontier]
         raw_blocks = []
@@ -297,3 +342,50 @@ class BlockSampler:
             "item": _positions(top["item"],
                                np.asarray(target_item_ids, np.int32)),
         }
+
+    def _sample_native(self, frontier, target_user_ids, target_item_ids,
+                       exclude_keys, removal_counts):
+        """The ``'native'`` route: one ``kernels.sample_block_ell`` call per
+        (level, type) instead of the sample + gather + searchsorted +
+        unique + ELL-scatter pipeline, giving the same plan structure."""
+        if self.fanout <= 0:
+            raise ValueError("the native planner needs a positive fanout")
+        inv = (self._inv_base if removal_counts is None
+               else self._inv_factors(removal_counts))
+        ex = (np.zeros(0, np.int64) if exclude_keys is None
+              else np.asarray(exclude_keys, np.int64))
+        levels = [frontier]
+        raw_ell = []
+        for _ in range(self.num_layers):
+            cur = levels[-1]
+            new_frontier = {}
+            lvl = {}
+            for t, other in (("user", "item"), ("item", "user")):
+                csr = self._csr[t]
+                # Every frontier id must be a node of this graph.
+                sel = csr.rows_of(cur[t]).astype(np.int32)
+                if self.frontier_caps is not None:
+                    n_dst = self.frontier_caps[t]
+                    if sel.size > n_dst:
+                        raise FrontierCapError(t, sel.size, n_dst)
+                else:
+                    n_dst = _pad_to(sel.size, self.node_pad)
+                ir, ic = inv[t]
+                nbr_pos, weight, rating, merged = K.sample_block_ell(
+                    csr.ind_ptr, csr.end_points, csr.col_ids,
+                    self._rating_idx[t], ir, ic, sel, cur[other], ex,
+                    self._col_id_cap[t], self.fanout, n_dst,
+                    1 if t == "user" else 0, self._num_items_global)
+                lvl[t] = EllBlock(nbr_pos, weight, rating,
+                                  num_dst_real=sel.size)
+                new_frontier[other] = merged
+            levels.append(new_frontier)
+            raw_ell.append(lvl)
+
+        levels = levels[::-1]
+        blocks_out = raw_ell[::-1]
+        frontiers_padded = self._pad_frontiers(levels)
+        tpos = self._target_positions(levels[-1], target_user_ids,
+                                      target_item_ids)
+        return SampledBlocks(frontiers=frontiers_padded, blocks=blocks_out,
+                             target_pos=tpos)

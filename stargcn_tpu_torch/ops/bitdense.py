@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from stargcn_tpu_torch.graph import kernels as graph_kernels
 from stargcn_tpu_torch.ops.gather import take_rows
 from stargcn_tpu_torch.parallel.collectives import (all_gather_rows,
                                                     all_reduce_)
@@ -67,6 +68,24 @@ def pad_dims(num_dst: int, num_src: int, bm: int = _BM, bs: int = _BS):
 def pack_bits(edge_dst, edge_src, edge_rating, num_links, num_dst,
               num_src, mask=None, bm: int = _BM, bs: int = _BS,
               interleave: int = 0, row_interleave: int = 0):
+    """Bit-pack one direction's multi-link adjacency: ``plain_pack_bits``'s
+    pack, byte for byte, from the port's C++ extension (``pack_bits`` of
+    ``graph/csrc/graph_kernels.cpp``: one pass over the edges with atomic
+    byte ORs, in parallel)."""
+    d8, _, s_pad = pad_dims(num_dst, num_src, bm, bs)
+    m = None if mask is None else np.ascontiguousarray(mask, np.float32)
+    P = graph_kernels.native_module().pack_bits(
+        np.ascontiguousarray(edge_dst, np.int32),
+        np.ascontiguousarray(edge_src, np.int32),
+        np.ascontiguousarray(edge_rating, np.int32),
+        m, int(num_links), int(d8), int(s_pad), int(interleave),
+        int(row_interleave))
+    return P, d8
+
+
+def plain_pack_bits(edge_dst, edge_src, edge_rating, num_links, num_dst,
+                    num_src, mask=None, bm: int = _BM, bs: int = _BS,
+                    interleave: int = 0, row_interleave: int = 0):
     """Bit-pack one direction's multi-link adjacency (NumPy).
 
     Returns ``(P, D8)`` with ``P`` of shape ``(num_links * D8, S_pad)``

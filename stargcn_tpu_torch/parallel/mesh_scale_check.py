@@ -93,7 +93,8 @@ def check_rank(rank, data_ax, model_ax, device, out):
         rc = it.recon_nodes_sampler(batch_size=st.s.recon_batch_size)
         sampled = dict(caps=st.caps, batch=st.train_batch_pad,
                        recon=st.recon_cap, fanout=4)
-        found.append((f"sampled {backend}",) + _step(
+        found.append((f"sampled {backend} "
+                      f"({st.samplers['train'].planner} planner)",) + _step(
             st, lambda: (st._build_batch_safe(rs, rc),), sampled, backend))
     for name, loss, counted, modeled in found:
         assert np.isfinite(loss), f"{name}: loss {loss}"

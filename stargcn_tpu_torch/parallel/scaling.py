@@ -8,7 +8,9 @@ fanout 8, recon batch 1024) on a synthetic graph, and prints one JSON row
 per mesh: ms per step, examples (rating pairs) per second, and the counted
 collectives of one steady step with ``perfmodel.modeled_collectives``
 beside them (``equal``: call for call and byte for byte).  The sampled
-row adds ``plan_ms`` (the first rank's host plan of a batch) and, where
+row adds ``planner`` and ``plan_ms`` (the first rank's host plan of a
+batch, on the trainer's default route: the fused planner of the port's C++
+extension) and, where
 ``1x1`` came first in ``--meshes``, ``projected_step_ms``
 (``perfmodel.project`` fed the 1 x 1 step and its part past the plan)::
 
@@ -213,7 +215,7 @@ def measure_rank(rank, args, out):
                                       feature_dims=feature_dims(it))
         row["sampled"] = {
             "sampled_backend": SAMPLED_BACKEND, "step_ms": ms,
-            "plan_ms": plan_ms,
+            "planner": st.samplers["train"].planner, "plan_ms": plan_ms,
             "examples_per_s": st.train_batch / ms * 1e3,
             "caps": st.caps, "counted": counted, "modeled": modeled,
             "equal": counted == modeled}

@@ -49,6 +49,13 @@ cpu`` over gloo (two ranks that share one card need gloo on ``cuda``:
 ``--mesh 1x1`` needs no coordinator.  The mesh's first rank writes the
 run's files (and in sampled mode draws and plans every batch).
 
+With ``--prefetch`` the command sets ``OMP_WAIT_POLICY=PASSIVE`` and
+``GOMP_SPINCOUNT=0`` where they are unset, so that the planner's idle
+OpenMP threads sleep instead of spinning on the cores the step's thread
+needs.  OpenMP reads them when it is loaded, and ``torch`` loads it, so the
+command starts itself again with them set (``prefetch_env``); a caller of
+``main`` in its own process sets them before importing ``torch``.
+
 ``--profile DIR`` first runs ``fit(max_iter=TRAIN.VALID_INTERVAL)`` under
 ``utils.profiling.trace(DIR)``, which writes a Chrome-trace JSON there (the
 card's kernels too on ``cuda``), then the normal ``fit``.
@@ -65,8 +72,22 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import sys
 
 import torch
+
+# OpenMP's settings for a prefetching run: idle threads sleep.
+PREFETCH_OMP_ENV = {"OMP_WAIT_POLICY": "PASSIVE", "GOMP_SPINCOUNT": "0"}
+
+
+def prefetch_env(argv, environ):
+    """The environment that ``argv`` should run in, or ``None`` when
+    ``environ`` already does: with ``--prefetch``, ``environ`` with every
+    unset variable of ``PREFETCH_OMP_ENV`` set."""
+    if "--prefetch" not in argv or all(k in environ
+                                       for k in PREFETCH_OMP_ENV):
+        return None
+    return {**PREFETCH_OMP_ENV, **environ}
 
 
 def resolve_device_sampler(cfg, device, flag=None, mesh=False) -> bool:
@@ -249,4 +270,9 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    env = prefetch_env(sys.argv[1:], os.environ)
+    if env is not None:
+        os.execve(sys.executable, [sys.executable, "-m",
+                                   "stargcn_tpu_torch.train",
+                                   *sys.argv[1:]], env)
     main()

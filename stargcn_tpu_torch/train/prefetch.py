@@ -20,24 +20,28 @@ import threading
 
 class Prefetcher:
     """Calls ``make()`` ``count`` times in a daemon thread and queues up to
-    ``depth`` results ahead of ``get()``.  An exception in ``make`` is
-    raised by the ``get`` that would have returned its result.  Use it as a
-    context manager: leaving the block stops the thread and joins it (after
-    the ``make`` call in flight returns), also when the block raises."""
+    ``depth`` results ahead of ``get()``; ``setup()``, where given, runs
+    first in that thread (a per-thread setting such as the OpenMP team
+    cap).  An exception in ``setup`` or ``make`` is raised by the ``get``
+    that would have returned the result.  Use it as a context manager:
+    leaving the block stops the thread and joins it (after the ``make`` call
+    in flight returns), also when the block raises."""
 
-    def __init__(self, make, count: int, depth: int = 2):
+    def __init__(self, make, count: int, depth: int = 2, setup=None):
         self._queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run,
-                                        args=(make, count), name="prefetch",
-                                        daemon=True)
+                                        args=(make, count, setup),
+                                        name="prefetch", daemon=True)
         self._thread.start()
 
-    def _run(self, make, count):
-        for _ in range(count):
+    def _run(self, make, count, setup):
+        for i in range(count):
             if self._stop.is_set():
                 return
             try:
+                if i == 0 and setup is not None:
+                    setup()
                 item = (True, make())
             except BaseException as e:  # raised again by get()
                 item = (False, e)

@@ -9,7 +9,9 @@ checkpoints, and ``MetricLogger`` CSVs.  Reached from the CLI when
 ``GRAPH_SAMPLER.NUM_NEIGHBORS > 0``.
 
 Every step the host builds a plan (``StackedPlan.build``: fixed-shape
-frontiers and ELL blocks under the frontier caps), packs it with the
+frontiers and ELL blocks under the frontier caps, by default through the
+fused planner of the port's C++ extension, ``BlockSampler``'s ``'native'``
+route), packs it with the
 batch's noise and targets into one int32 and one float32 buffer (two
 host-to-device copies), and the device runs ``sampled_forward``, its
 backward, the global-norm clip and Adam.  With ``plan_device`` the host
@@ -61,6 +63,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from stargcn_tpu_torch.graph import kernels as graph_kernels
 from stargcn_tpu_torch.graph.device_sampling import (DeviceGraphTables,
                                                     DevicePlanner,
                                                     uniform_from)
@@ -125,7 +128,9 @@ class SampledTrainer(MeshTrainerBase):
         (times ``cap_slack``) when not given.
       backend: ``'xla'`` | ``'pallas'`` | ``'auto'``
         (``resolve_sampled_backend``).
-      planner: ``BlockSampler``'s neighbor-drawing route.
+      planner: ``BlockSampler``'s route: ``'native'`` (the fused planner
+        of the port's C++ extension, the JAX package's route once its
+        extension is built), ``'vectorised'`` or ``'loop'``.
       device: where the parameters and the step live (default the card).
       plan_device: build the training plans on the device
         (``DevicePlanner``, fanout drawn with replacement); pairs with the
@@ -144,7 +149,7 @@ class SampledTrainer(MeshTrainerBase):
                  save_dir: Optional[str] = None, save_id: int = 0,
                  frontier_caps=None, name_user="user", name_item="movie",
                  backend: str = "xla", cap_slack: float = 1.6,
-                 planner: str = "vectorised", device="cuda", mesh=None,
+                 planner: str = "native", device="cuda", mesh=None,
                  plan_device: bool = False, remat: bool = False):
         if fanout <= 0:
             raise ValueError("SampledTrainer needs a positive fanout")
@@ -629,7 +634,7 @@ class SampledTrainer(MeshTrainerBase):
     # -------------------------------- fit ------------------------------------
 
     def fit(self, max_iter: Optional[int] = None, log=logging.info,
-            prefetch: bool = False):
+            prefetch: bool = False, prefetch_omp_threads: int = 2):
         """The training schedule of ``Trainer.fit`` over sampled
         mini-batches: steps, a train log line every ``log_interval``,
         validation every ``valid_interval`` with a test evaluation and the
@@ -645,7 +650,13 @@ class SampledTrainer(MeshTrainerBase):
         returns or raises.  The host planner's neighbour stream is shared
         with evaluation, so with host plans a prefetched ``fit`` that
         validates draws other neighbourhoods than a serial one (the
-        batches are the same), as in the JAX package."""
+        batches are the same), as in the JAX package.  The producer caps
+        its own OpenMP teams at ``prefetch_omp_threads`` (``kernels.
+        set_omp_threads``, a per-thread setting: the main thread's calls
+        keep the full team), so that its planner teams leave cores to the
+        thread that launches the card's work; ``python -m
+        stargcn_tpu_torch.train --prefetch`` also makes OpenMP's idle
+        threads sleep instead of spinning."""
         s = self.s
         it = self.data_iter
         max_iter = max_iter or s.max_iter
@@ -674,8 +685,10 @@ class SampledTrainer(MeshTrainerBase):
                              and max_iter >= s.scan_steps) else 1
         with contextlib.ExitStack() as stack:
             if prefetch:
-                next_batch = stack.enter_context(
-                    Prefetcher(next_batch, -(-max_iter // k) * k)).get
+                next_batch = stack.enter_context(Prefetcher(
+                    next_batch, -(-max_iter // k) * k,
+                    setup=lambda: graph_kernels.set_omp_threads(
+                        prefetch_omp_threads))).get
             best_iter, best_valid_rmse, best_test_rmse = self._fit_loop(
                 max_iter, k, next_batch, log)
         self.save_checkpoint("last")

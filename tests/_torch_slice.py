@@ -361,3 +361,32 @@ def build_inductive_sampled_trainers(cfg_name, data_root, backend="xla",
     ttrainer.model.load_state_dict(convert.params_from_flax(jtrainer.params))
     seed_planners(7)
     return jtrainer, ttrainer
+
+
+# ------------------------- the native host kernels -------------------------
+
+# ``stargcn_tpu/native/build.py``'s flags.
+JAX_NATIVE_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp",
+                    "-march=native"]
+
+
+def build_jax_native(directory):
+    """The JAX package's own extension, compiled from
+    ``stargcn_tpu/native/graph_kernels.cpp`` with its build script's flags into
+    ``directory`` and loaded from there (nothing is written into
+    ``stargcn_tpu/``)."""
+    import importlib.util
+    import subprocess
+    import sysconfig
+
+    src = os.path.join(ROOT, "stargcn_tpu", "native", "graph_kernels.cpp")
+    out = os.path.join(str(directory), "_graph_kernels"
+                       + sysconfig.get_config_var("EXT_SUFFIX"))
+    subprocess.run(["g++", *JAX_NATIVE_FLAGS,
+                    f"-I{sysconfig.get_paths()['include']}",
+                    f"-I{np.get_include()}", src, "-o", out],
+                   check=True, capture_output=True)
+    spec = importlib.util.spec_from_file_location("_graph_kernels", out)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module

@@ -118,7 +118,7 @@ def test_frontier_cap_error(graphs):
     assert t in ("user", "item") and needed > 4
     assert isinstance(e.value, ValueError)
     with pytest.raises(ValueError, match="planner"):
-        BlockSampler(tg, num_layers=1, planner="native")
+        BlockSampler(tg, num_layers=1, planner="gpu")
     with pytest.raises(ValueError, match="positive fanout"):
         BlockSampler(tg, num_layers=1, fanout=-1,
                      frontier_caps={"user": 64, "item": 64}).sample(
