@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases 16      # phase 16 on its own ML-10M set-up
     python3 chip_smoke.py --phases 17      # phase 17 on its own ML-10M set-up
     python3 chip_smoke.py --phases 18      # phase 18 on its own ML-10M set-up
+    python3 chip_smoke.py --phases 19      # phase 19 on its own ML-10M set-up
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -230,7 +231,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    positives per second) for the export of seed-123 parameters, of the
    trained parameters (phase 6's best checkpoint; alone, a 20-step
    ``fit``) and of i.i.d. Gaussian tables (HR@10 within 0.01 of 10/101),
-   equal HR at batch 1000 and 4096, host negatives on 100,000 positives
+   equal HR at batch 1000 and 4096, host negatives on 50,000 positives
    through ``rank_eval_from_iterator``, one batch of device negatives
    drawn with every wait an error and checked on the host (no edge,
    inside the items), and ``python -m stargcn_tpu_torch.predict
@@ -248,7 +249,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    beside the step's byte bound, ``fit(10)``, the export against the
    ``bitdense`` export, queries, and the train CLI with ``--backend ell``;
    (d) ``device_health_check`` on the card, a ``fit(20)`` whose step 7
-   raises once (restored from ``ckpt_last``, one restart), a
+   raises once and whose 14th step call runs out of device memory (a real
+   ``torch.cuda.OutOfMemoryError``; each restored from ``ckpt_last``, two
+   restarts), a
    ``HeartbeatMonitor`` of 2 s around a 5 s host stall (its crash file
    holds the main thread's stack), and ``net0.txt``.
 16. the profiler, the FLOP count, the reference step estimate and the host
@@ -314,6 +317,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    device part (measured here on fresh batches), and ``python -m
    stargcn_tpu_torch.parallel.mesh_scale_check`` ``1 1 1`` (NCCL) beside
    ``2 2 1`` (two ranks on the card over gloo).
+19. the JAX package's remaining scripts (after phase 18, on phase 8's
+   trainer): (a) ``probes/ell_crossover_sweep.py``'s quick pool grid, each
+   point's two kernels within 1e-4 of their plain versions; (b) its
+   whole-model rows (the sampled forward and the training step on
+   ``pallas`` and on ``xla``, on the same plan) on the ML-10M set-up at
+   fanout 8 (phase 8's trainer) and 16, and
+   ``resolve_sampled_backend('auto')`` at each row's caps for both
+   columns: where one backend was more than 20% faster in this run,
+   ``auto`` must pick it; (c) ``train/beyond_hbm.py`` on both routes at 1,000,000 x
+   500,000 nodes and 5M edges (id product 5.0e11), 20 steps each, beside
+   whose graph build (d) runs: finite losses, a
+   valid RMSE inside [0.5, 5.0], no step of the timed window rejected for
+   overflow, the ELL pair launched in a steady step of the host route and
+   not of the device route, whose caps lie below both node counts; (d)
+   ``train/reproduce.py`` on an ml-100k fixture archive (its pre-flight
+   refusing the fixture, then ``transductive_ml_100k`` for 10 steps in a
+   process of its own, its summary row), ``data/parse_at_scale.py`` at
+   ML-1M's scale.
 
 Phase 3 also checks the three ELL kernels on small cases (K = 1, 8, 32;
 F = 1, 65, 250, 256; padded slots with in-range and out-of-range indices;
@@ -331,7 +352,7 @@ index; negative and too-large indices; every slot padded), each within
 and slots that name one index bit-equal.  Every time printed carries the
 card's name and power limit.
 
-Phases 13, 14, 15, 16, 17, 18, 10, 11, 11b and 12 run inside phase 4's
+Phases 13, 14, 15, 16, 17, 18, 19, 10, 11, 11b and 12 run inside phase 4's
 temporary directory, after phase 8, in that order.  The line before the last is the card's name
 and power limit, the one before it ``{"kernels": [...]}`` (all nine
 kernels: the ``dense``, ``xla`` and ``plan_device`` paths launch none of
@@ -347,7 +368,8 @@ and the ``StepTimer``'s 10 steps to the bit pair; phase 17 the mesh
 paths, ``mesh 1x1 ...``, ``mesh 1x2 rank r ...``, ``mesh 2x1 rank r ...``
 and ``mesh 1x1 train CLI``, to the bit pair; phase 18 ``mesh 1x1
 sampled ...``, ``mesh 1x2 rank r sampled ...``, ``mesh 2x1 rank r sampled
-...`` and ``mesh 1x1 sampled train CLI`` to the ELL pair); the last is ``{"ok":
+...`` and ``mesh 1x1 sampled train CLI`` to the ELL pair; phase 19
+``beyond_hbm host train_iteration`` to the ELL pair); the last is ``{"ok":
 true, "device": {...}}``.  Needs one card; imports nothing of JAX and
 nothing of the JAX package.
 """
@@ -368,8 +390,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 on the tensor cores
-ML10M = dict(num_users=69_878, num_items=10_677, num_edges=10_000_000)
-ML1M = dict(num_users=6040, num_items=3706, num_edges=1_000_209)
+# The synthetic graphs' sizes (``num_users``, ``num_items``, ``num_edges``,
+# ``rating_values``): ``main`` takes them from
+# ``probes/ell_crossover_sweep.py:GRAPHS``; a rehearsal on the CPU sets
+# smaller ones before it calls a phase.
+ML10M = ML1M = None
 SEED = 123
 DEVICE = "cuda"
 
@@ -386,14 +411,6 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    return out[0]
 
 
 def cuda_ms(fn, reps):
@@ -970,65 +987,22 @@ def adjoint_check(bd, pack, R, F, route=""):
 
 
 def build_ml10m():
-    """The ML-10M-shaped synthetic graph and its split (seed 123, 10% test,
-    10% valid), the config ``transductive_ml_10m.yml`` and its model
-    config."""
-    import numpy as np
+    """The ML-10M-shaped synthetic graph (``ML10M``) and its split (seed
+    123, 10% test, 10% valid), the config ``transductive_ml_10m.yml`` and
+    its model config (``ell_crossover_sweep.build_cell``)."""
+    from stargcn_tpu_torch.probes.ell_crossover_sweep import build_cell
 
-    from stargcn_tpu_torch.data import DataIterator
-    from stargcn_tpu_torch.data.synthetic import synthetic_graph
-    from stargcn_tpu_torch.models import build_model_config
-    from stargcn_tpu_torch.utils import cfg_from_file
-
-    cfg = cfg_from_file(os.path.join(ROOT, "configs",
-                                     "transductive_ml_10m.yml"))
-    cfg.DATASET.NAME = "synthetic"
-    g = synthetic_graph(**ML10M, rating_values=tuple(np.arange(0.5, 5.01,
-                                                               0.5)),
-                        seed=SEED)
-    csr = g["user", "movie"]
-    pairs = csr.node_pair_ids
-    perm = np.random.RandomState(SEED).permutation(pairs.shape[1])
-    n_test = pairs.shape[1] // 10
-    it = DataIterator(g, "user", "movie",
-                      test_node_pairs=pairs[:, perm[:n_test]],
-                      valid_node_pairs=pairs[:, perm[n_test:2 * n_test]],
-                      embed_P_mask=cfg.EMBED.MASK_PROP,
-                      embed_p_zero=cfg.EMBED.P_ZERO,
-                      embed_p_self=1.0 - cfg.EMBED.P_ZERO, seed=SEED)
-    model_cfg = build_model_config(cfg, csr.shape[0], csr.shape[1],
-                                   len(csr.multi_link))
-    return cfg, it, model_cfg
+    return build_cell("ml-10m", seed=SEED, **ML10M)
 
 
 def build_ml1m():
-    """The ML-1M-shaped synthetic graph and its split (seed 123, 10% test,
-    10% valid), the config ``transductive_ml_1m.yml`` as published and its
-    model config (``KERNEL.BACKEND: auto``)."""
-    import numpy as np
+    """The ML-1M-shaped synthetic graph (``ML1M``) and its split (seed 123,
+    10% test, 10% valid), the config ``transductive_ml_1m.yml`` as
+    published and its model config (``KERNEL.BACKEND: auto``;
+    ``ell_crossover_sweep.build_cell``)."""
+    from stargcn_tpu_torch.probes.ell_crossover_sweep import build_cell
 
-    from stargcn_tpu_torch.data import DataIterator
-    from stargcn_tpu_torch.data.synthetic import synthetic_graph
-    from stargcn_tpu_torch.models import build_model_config
-    from stargcn_tpu_torch.utils import cfg_from_file
-
-    cfg = cfg_from_file(os.path.join(ROOT, "configs",
-                                     "transductive_ml_1m.yml"))
-    cfg.DATASET.NAME = "synthetic"
-    g = synthetic_graph(**ML1M, rating_values=(1, 2, 3, 4, 5), seed=SEED)
-    csr = g["user", "movie"]
-    pairs = csr.node_pair_ids
-    perm = np.random.RandomState(SEED).permutation(pairs.shape[1])
-    n_test = pairs.shape[1] // 10
-    it = DataIterator(g, "user", "movie",
-                      test_node_pairs=pairs[:, perm[:n_test]],
-                      valid_node_pairs=pairs[:, perm[n_test:2 * n_test]],
-                      embed_P_mask=cfg.EMBED.MASK_PROP,
-                      embed_p_zero=cfg.EMBED.P_ZERO,
-                      embed_p_self=1.0 - cfg.EMBED.P_ZERO, seed=SEED)
-    model_cfg = build_model_config(cfg, csr.shape[0], csr.shape[1],
-                                   len(csr.multi_link), num_edges=csr.nnz)
-    return cfg, it, model_cfg
+    return build_cell("ml-1m", seed=SEED, **ML1M)
 
 
 def plain_twin(owner):
@@ -1120,9 +1094,10 @@ def check_queries(art, card, what):
         f"first call of {t_first * 1e3:.2f} ms) [{card}]")
 
 
-def check_artifact(art, graph=ML10M):
+def check_artifact(art, graph=None):
     import numpy as np
 
+    graph = graph or ML10M
     check(art.user_feats.shape == (graph["num_users"], 64)
           and art.item_feats.shape == (graph["num_items"], 64),
           "artifact shapes")
@@ -5457,7 +5432,7 @@ def check_device_draw(trainer, gen, uu, card):
 def run_ranking_ml10m(trainer, save_dir, card):
     """Phase 15 (a): ``rank_eval`` at ML-10M on the test segment (HR@10 and
     NDCG@10 against 100 device negatives) for the seed, trained and
-    Gaussian artifacts; host negatives on 100,000 positives through
+    Gaussian artifacts; host negatives on 50,000 positives through
     ``rank_eval_from_iterator``; batch-size invariance; one batch of device
     negatives checked on the host; the predict CLI's ``--rank_eval``."""
     import io
@@ -5515,9 +5490,9 @@ def run_ranking_ml10m(trainer, save_dir, card):
           "device-negative HR depends on the batch size")
     host, t = host_s(lambda: rank_eval_from_iterator(
         arts["trained"], it, num_negatives=RANK_N, k=RANK_K,
-        max_positives=100_000, negatives="host", device=DEVICE))
-    numbers["trained_host_100k"] = dict(hr=host["hr"], ndcg=host["ndcg"],
-                                        s=t)
+        max_positives=50_000, negatives="host", device=DEVICE))
+    numbers["trained_host_50k"] = dict(hr=host["hr"], ndcg=host["ndcg"],
+                                       s=t)
     log(f"  rank_eval_from_iterator, trained, host negatives on "
         f"{host['num_positives']:,} positives: HR {host['hr']:.5f}, NDCG "
         f"{host['ndcg']:.5f}; {t:.2f} s (generator and numpy draws "
@@ -5843,11 +5818,15 @@ def run_ell_ml10m(bd, ek, trainer, save_dir, card):
 
 def run_resilience_on_card(trainer, save_dir, card):
     """Phase 15 (d): ``device_health_check`` on the card; a
-    ``Trainer.fit(20)`` whose step 7 raises once, which restores
-    ``ckpt_last`` (saved just before) and finishes after one restart; a
+    ``Trainer.fit(20)`` whose step 7 raises once and whose 14th step call
+    (the 7th after the first restart) runs out of device memory, a real
+    ``torch.cuda.OutOfMemoryError`` from the allocator: each restores
+    ``ckpt_last`` (saved just before) and the fit finishes after two
+    restarts; a
     ``HeartbeatMonitor`` with a 2 s timeout around a 5 s host stall; the
     ``net0.txt`` that ``fit`` wrote."""
     import numpy as np
+    import torch
 
     from stargcn_tpu_torch.train.resilience import (HeartbeatMonitor,
                                                     device_health_check)
@@ -5863,12 +5842,20 @@ def run_resilience_on_card(trainer, save_dir, card):
     opt0 = copy.deepcopy(trainer.opt.state_dict())
     trainer.save_checkpoint("last")
     count0 = trainer.opt.count
-    real, calls, lines = trainer._step, [0], []
+    real, calls, lines, raised = trainer._step, [0], [], []
 
     def flaky(*inputs):
         calls[0] += 1
-        if calls[0] == 7:
-            raise RuntimeError("injected failure at step 7")
+        try:
+            if calls[0] == 7:
+                raise RuntimeError("injected failure at step 7")
+            if calls[0] == 14:
+                # 16 TiB: more than any card holds, so the caching
+                # allocator itself raises.
+                torch.empty(1 << 44, dtype=torch.uint8, device=DEVICE)
+        except RuntimeError as e:
+            raised.append(type(e).__name__)
+            raise
         return real(*inputs)
 
     trainer._step = flaky
@@ -5878,14 +5865,17 @@ def run_resilience_on_card(trainer, save_dir, card):
     finally:
         del trainer._step
     restarts = trainer.elastic.restarts
-    log(f"  fit(max_iter=20) with step 7 raising once: {t_fit:.2f} s "
-        f"(a 5 s backoff included), {restarts} restart, optimizer steps "
+    log(f"  fit(max_iter=20) with step 7 raising once and an out-of-memory "
+        f"error at the 14th step call: {t_fit:.2f} s (two 5 s backoffs "
+        f"included), {restarts} restarts ({raised}), optimizer steps "
         f"{count0} -> {trainer.opt.count}; "
         + " | ".join(x.splitlines()[0] for x in lines if "[elastic]" in x)
         + f" [{card}]")
-    check(restarts == 1 and calls[0] == 27
+    check(raised == ["RuntimeError", "OutOfMemoryError"],
+          f"the injected failures raised {raised}")
+    check(restarts == 2 and calls[0] == 34
           and trainer.opt.count == count0 + 20,
-          "the failed step should be restored from ckpt_last and retried")
+          "each failed step should be restored from ckpt_last and retried")
     check(np.isfinite(summary["best_valid_rmse"]), "fit after a restart")
     numbers["restart_fit_s"] = t_fit
     text = open(os.path.join(save_dir, "net0.txt")).read()
@@ -6790,8 +6780,9 @@ def gloo_cuda_collectives():
 def run_mesh_cli(bd, save_dir, card):
     """Phase 17 (c): ``python -m stargcn_tpu_torch.train --mesh 1x1`` on
     ``transductive_ml_10m.yml`` (the CLI's synthetic graph, ``bitdense``, 4
-    steps) in a process of its own, its bit launches counted there; then
-    the multiprocess twin, whose two ranks share this card over gloo."""
+    steps) in a process of its own, its bit launches counted there; beside
+    it (started first, the two processes at once) the multiprocess twin,
+    whose two ranks share this card over gloo."""
     out_dir = os.path.join(save_dir, "phase17_cli")
     code = (
         "import json, sys; sys.path.insert(0, %r)\n"
@@ -6805,9 +6796,20 @@ def run_mesh_cli(bd, save_dir, card):
             "1x1", "--max_iter", "4", "--save_dir", out_dir, "--silent",
             "--device", DEVICE]
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-c", code, *args], cwd=ROOT,
-                         capture_output=True, text=True, timeout=600)
-    t_cli = time.perf_counter() - t0
+    twin = subprocess.Popen(
+        [sys.executable, "-m", "stargcn_tpu_torch.parallel.multiprocess_train",
+         "--device", DEVICE],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out = subprocess.run([sys.executable, "-c", code, *args], cwd=ROOT,
+                             capture_output=True, text=True, timeout=600)
+        t_cli = time.perf_counter() - t0
+        twin_out, twin_err = twin.communicate(timeout=600)
+    finally:
+        if twin.poll() is None:
+            twin.kill()
+            twin.wait()
+    t_twin = time.perf_counter() - t0
     check(out.returncode == 0, f"the train CLI with --mesh 1x1 failed: "
           f"{out.stderr[-3000:]}")
     last = json.loads(out.stdout.strip().splitlines()[-1])
@@ -6819,16 +6821,11 @@ def run_mesh_cli(bd, save_dir, card):
     log(f"  train CLI --mesh 1x1: {t_cli:.1f} s in a process of its own, "
         f"{counts['bit_expand_matmul']} + {counts['bit_reduce_matmul']} bit "
         f"launches, result {last['result']} [{card}]")
-    t0 = time.perf_counter()
-    twin = subprocess.run(
-        [sys.executable, "-m", "stargcn_tpu_torch.parallel.multiprocess_train",
-         "--device", DEVICE],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    t_twin = time.perf_counter() - t0
-    check(twin.returncode == 0 and "MULTIPROCESS RUN PASSED" in twin.stdout,
-          f"the multiprocess twin failed: {twin.stdout[-2000:]}"
-          f"{twin.stderr[-2000:]}")
-    log(f"  {twin.stdout.strip().splitlines()[-1]}: {t_twin:.1f} s [{card}]")
+    check(twin.returncode == 0 and "MULTIPROCESS RUN PASSED" in twin_out,
+          f"the multiprocess twin failed: {twin_out[-2000:]}"
+          f"{twin_err[-2000:]}")
+    log(f"  {twin_out.strip().splitlines()[-1]}: {t_twin:.1f} s, beside the "
+        f"CLI [{card}]")
     return {"mesh 1x1 train CLI": counts}, {"cli_s": t_cli,
                                             "twin_s": t_twin}
 
@@ -7324,7 +7321,8 @@ def run_sampled_mesh_cli(ek, save_dir, split, card):
     """Phase 18 (c), each in a process of its own: ``python -m
     stargcn_tpu_torch.train --mesh 1x1 --num_neighbors 8`` on
     ``transductive_ml_10m.yml`` (the CLI's synthetic graph, ``pallas``, 4
-    steps), its ELL launches counted there; ``python -m
+    steps), its ELL launches counted there; beside it (the two processes
+    at once, so the twin's toy-size times share the card) ``python -m
     stargcn_tpu_torch.parallel.scaling --meshes 1x1``; its ``--project``
     table fed ``split``, the sampled step without a mesh measured whole and
     its device part (``time_sampled_steps``); and ``python -m
@@ -7343,9 +7341,19 @@ def run_sampled_mesh_cli(ek, save_dir, split, card):
             "pallas", "--mesh", "1x1", "--max_iter", "4", "--save_dir",
             out_dir, "--silent", "--device", DEVICE]
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-c", code, *args], cwd=ROOT,
-                         capture_output=True, text=True, timeout=600)
-    t_cli = time.perf_counter() - t0
+    scaling = subprocess.Popen(
+        [sys.executable, "-m", "stargcn_tpu_torch.parallel.scaling",
+         "--meshes", "1x1", "--device", DEVICE, "--steps", "5"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out = subprocess.run([sys.executable, "-c", code, *args], cwd=ROOT,
+                             capture_output=True, text=True, timeout=600)
+        t_cli = time.perf_counter() - t0
+        sc_out, sc_err = scaling.communicate(timeout=600)
+    finally:
+        if scaling.poll() is None:
+            scaling.kill()
+            scaling.wait()
     check(out.returncode == 0, f"the sampled train CLI with --mesh 1x1 "
           f"failed: {out.stderr[-3000:]}")
     last = json.loads(out.stdout.strip().splitlines()[-1])
@@ -7358,15 +7366,10 @@ def run_sampled_mesh_cli(ek, save_dir, split, card):
         f"process of its own, {counts} ELL launches, result "
         f"{last['result']} [{card}]")
     numbers = {"cli_s": t_cli}
-    t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, "-m", "stargcn_tpu_torch.parallel.scaling",
-         "--meshes", "1x1", "--device", DEVICE, "--steps", "5"],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
     numbers["scaling_s"] = time.perf_counter() - t0
-    check(out.returncode == 0, f"scaling --meshes 1x1 failed: "
-          f"{out.stderr[-3000:]}")
-    row = json.loads(out.stdout.strip().splitlines()[-1])
+    check(scaling.returncode == 0, f"scaling --meshes 1x1 failed: "
+          f"{sc_err[-3000:]}")
+    row = json.loads(sc_out.strip().splitlines()[-1])
     check(row["full_graph"]["equal"] and row["sampled"]["equal"],
           f"scaling --meshes 1x1: counted collectives are not the modeled "
           f"ones: {row}")
@@ -7474,6 +7477,225 @@ def run_phase18(ek, strainer, cfg, it, model_cfg, save_dir, card):
     return launches, numbers
 
 
+# ------------------------------- phase 19 -------------------------------
+
+# The cut scale of phase 19 (c): an id product of 5.0e11 (past int32) and,
+# with the frontiers of a batch of 4096 at fanout 8 (about 220,000 users and
+# 135,000 items), caps below both node counts on the device route; the bit
+# layouts of this graph (626 GB each) exceed any card's memory.
+BEYOND_CUT = dict(users=1_000_000, items=500_000, edges=5_000_000, iters=20,
+                  scan=5, holdout=200_000)
+# Phase 19 (b) checks ``auto`` only where the two backends differ by more.
+AUTO_MARGIN = 0.2
+ELL_POOL_TOL = 1e-4
+# The two backends' whole forward on one plan, elementwise relative (the
+# CPU test's bound; 0.0 in every card run of PR 20's sweep).
+MODEL_FWD_REL_TOL = 1e-4
+# Phase 19 (d)'s child process (14.5-14.7 s in PR 20's runs) is killed
+# past this, so that a hung child cannot hold the phase.
+REPRODUCE_TIMEOUT_S = 300
+
+
+def run_crossover(ek, cfg, strainer, card):
+    """Phase 19 (a), (b): the sweep's quick pool grid (each point also held
+    to the plain versions), the whole-model rows of the ML-10M set-up at
+    fanout 8 (``strainer``, phase 8's trainer) and 16 (a trainer of its
+    own on the same graph), and ``auto``'s pick at each row's caps against
+    the faster backend there."""
+    import torch
+
+    from stargcn_tpu_torch.probes import ell_crossover_sweep as sweep
+    from stargcn_tpu_torch.train.sampled_loop import resolve_sampled_backend
+
+    numbers = {}
+    pool, t_pool = host_s(lambda: sweep.pool_rows(
+        sweep.QUICK_GRID, DEVICE, log=lambda line: None))
+    for r in pool:
+        check("error" not in r, f"crossover point {r}")
+        worst = max(r["max_abs_err"].values())
+        check(worst <= ELL_POOL_TOL, f"crossover point D={r['D']} K={r['K']} "
+              f"F={r['F']}: the kernels differ from their plain versions "
+              f"by {worst} (tolerance {ELL_POOL_TOL})")
+        log(f"  pool D={r['D']} K={r['K']} F={r['F']}: forward "
+            f"{r['pallas_fwd_ms']:.4f} / xla {r['xla_fwd_ms']:.4f} ms "
+            f"({r['fwd_winner']}), forward + values gradient "
+            f"{r['pallas_fb_ms']:.4f} / {r['xla_fb_ms']:.4f} ms "
+            f"({r['fb_winner']}), worst {worst:.2e} [{card}]")
+    numbers["pool"] = pool
+    log(f"  quick pool grid: {t_pool:.1f} s")
+    rows = [sweep.model_row("ml10m_k8", None, strainer.data_iter,
+                            strainer.model_cfg, strainer.fanout, DEVICE,
+                            trainer=strainer)]
+    torch.cuda.empty_cache()
+    rows.append(sweep.model_row("ml10m_k16", cfg, strainer.data_iter,
+                                strainer.model_cfg, 16, DEVICE))
+    torch.cuda.empty_cache()
+    numbers["model"] = rows
+    for r in rows:
+        check("error" not in r, f"model row {r}")
+        check(r["fwd_sq_err_rel_diff"] <= MODEL_FWD_REL_TOL,
+              f"model row {r['cell']}: the pallas and xla forwards differ "
+              f"by {r['fwd_sq_err_rel_diff']} relative (tolerance "
+              f"{MODEL_FWD_REL_TOL})")
+        log(f"  whole model, {r['cell']} (caps {r['caps']}, fanout "
+            f"{r['fanout']}): forward pallas {r['pallas_fwd_ms']:.3f} +- "
+            f"{r['pallas_fwd_spread_ms']:.3f} / xla {r['xla_fwd_ms']:.3f} "
+            f"+- {r['xla_fwd_spread_ms']:.3f} ms ({r['fwd_winner']}); step "
+            f"pallas {r['pallas_step_ms']:.3f} +- "
+            f"{r['pallas_step_spread_ms']:.3f} / xla {r['xla_step_ms']:.3f} "
+            f"+- {r['xla_step_spread_ms']:.3f} ms ({r['step_winner']}) "
+            f"[{card}]")
+        for what, training in (("fwd", False), ("step", True)):
+            kind = "training" if training else "forward only"
+            p, x = r[f"pallas_{what}_ms"], r[f"xla_{what}_ms"]
+            picked = resolve_sampled_backend("auto", r["caps"], r["fanout"],
+                                             for_training=training,
+                                             device=DEVICE)
+            faster = "pallas" if p < x else "xla"
+            apart = abs(p - x) / max(p, x)
+            log(f"  auto at the {r['cell']} caps ({kind}): {picked!r}; "
+                f"pallas {p:.3f} / xla {x:.3f} ms, {apart:.1%} apart "
+                f"[{card}]")
+            if apart > AUTO_MARGIN:
+                check(picked == faster,
+                      f"auto picks {picked!r} at the {r['cell']} caps "
+                      f"({kind}), but {faster!r} was {apart:.1%} faster in "
+                      "this run")
+            numbers[f"auto_{r['cell']}_{what}"] = {"picked": picked,
+                                                   "apart": apart}
+    return numbers
+
+
+def run_beyond_hbm(ek, card):
+    """Phase 19 (c): ``train.beyond_hbm.run`` on both routes at
+    ``BEYOND_CUT``'s scale, one graph for both.  Returns its launch counts
+    by path and both JSON dicts."""
+    from stargcn_tpu_torch.train import beyond_hbm
+
+    kw = dict(BEYOND_CUT)
+    built, t_graph = host_s(lambda: beyond_hbm.build_graph(
+        kw["users"], kw["items"], kw["edges"], 7, kw["holdout"],
+        log=lambda *a: None))
+    log(f"  graph {kw['users']} x {kw['items']}, {kw['edges']} edges: "
+        f"{t_graph:.1f} s [{card}]")
+    outs, launches = {}, {}
+    for route in ("host", "device"):
+        out, t_run = host_s(lambda: beyond_hbm.run(
+            **kw, plan_device=route == "device", device=DEVICE, built=built,
+            log=lambda *a: None))
+        outs[route] = out
+        log(f"  {route} route ({out['backend']}): {json.dumps(out)}")
+        log(f"  {route} route: {out['ms_per_step']:.1f} ms a step, loss "
+            f"{out['loss_first10']:.4f} -> {out['loss_last10']:.4f}, valid "
+            f"RMSE {out['valid_rmse']}, caps {out['frontier_caps']}, peak "
+            f"{out['peak_step_gib']} GiB, ELL launches a step "
+            f"{out['launches']}, {t_run:.1f} s in all [{card}]")
+        check(out["losses_finite"], f"{route} route: a loss is not finite")
+        check(all(0.5 <= r <= 5.0 for r in out["valid_rmse"]),
+              f"{route} route: valid RMSE {out['valid_rmse']}")
+        check(out["overflow_steps"] == 0,
+              f"{route} route: {out['overflow_steps']} steps of the timed "
+              "window were rejected for overflow")
+        check(out["id_product"] > 2**31, "the id product fits int32")
+        ell = {k: out["launches"][k] for k in ("ell_spmm_fwd_only",
+                                               "ell_spmm_transpose")}
+        if route == "host":
+            check(all(ell.values()), f"host route: ELL launches {ell}")
+        else:
+            check(not any(ell.values()), f"device route: ELL launches {ell}")
+            check(all(out["dedup_regime"].values()),
+                  f"device route: caps {out['frontier_caps']} do not lie "
+                  "below both node counts")
+        launches[f"beyond_hbm {route} train_iteration"] = out["launches"]
+    return launches, outs
+
+
+def fixture_archive(save_dir):
+    """An ml-100k fixture archive under ``save_dir``: its data root."""
+    from stargcn_tpu_torch.data.synthetic import write_ml100k_format
+
+    root = os.path.join(save_dir, "phase19_data")
+    write_ml100k_format(os.path.join(root, "ml-100k"), num_users=50,
+                        num_items=30, num_edges=1200, seed=0)
+    return root
+
+
+def reproduce_fixture(root, save_dir):
+    """``train.reproduce.run`` on the fixture under ``root``: 10 steps of
+    ``transductive_ml_100k`` in a process of its own, the pre-flight
+    skipped.  Returns ``(summary row, seconds)``."""
+    from stargcn_tpu_torch.train import reproduce
+
+    out = os.path.join(save_dir, "phase19_repro")
+    t0 = time.perf_counter()
+    reproduce.run(root, out, configs=["transductive_ml_100k"], max_iter=10,
+                  device=DEVICE, check=False, log=lambda *a: None,
+                  timeout_s=REPRODUCE_TIMEOUT_S)
+    t_run = time.perf_counter() - t0
+    with open(os.path.join(out, "summary.tsv")) as f:
+        return f.read().splitlines()[1].split("\t"), t_run
+
+
+def check_reproduce(root, row, t_run, card):
+    """Phase 19 (d): the reproduce row, the pre-flight refusing the
+    fixture, and ``data.parse_at_scale`` at ML-1M's scale."""
+    from stargcn_tpu_torch.data import invariants
+    from stargcn_tpu_torch.data.parse_at_scale import run as parse_run
+    from stargcn_tpu_torch.train import reproduce
+
+    log(f"  reproduce on the fixture (10 steps, a process of its own, "
+        f"beside (c)): {row} in {t_run:.1f} s [{card}]")
+    check(row[0] == "transductive_ml_100k" and row[3] != "n/a"
+          and 0.5 <= float(row[3]) <= 5.0, f"summary row {row}")
+    numbers = {"reproduce_fixture": {"row": row, "s": t_run}}
+    try:
+        reproduce.preflight(["ml-100k"], root, log=lambda *a: None)
+        refused = False
+    except invariants.DataInvariantError as e:
+        refused = True
+        log(f"  pre-flight on the fixture: refused ({str(e)[:120]}...)")
+    check(refused, "the pre-flight accepted a fixture archive")
+    with tempfile.TemporaryDirectory(prefix="parse_at_scale_") as tmp:
+        parsed = parse_run(tmp)
+    log(f"  parse_at_scale (ML-1M format and scale): {json.dumps(parsed)} "
+        f"[{card}]")
+    check(parsed["num_users"] == 6040 and parsed["graph_nnz"] > 900_000,
+          f"parse_at_scale: {parsed}")
+    numbers["parse_at_scale"] = parsed
+    return numbers
+
+
+def run_phase19(ek, cfg, strainer, save_dir, card):
+    """Phase 19: the JAX package's remaining scripts on the card: the
+    crossover sweep and ``auto``'s table, sampled training past the card's
+    memory at a cut scale, the paper-matrix runner on a fixture.  Returns
+    the launch counts of its paths and its numbers."""
+    import torch
+
+    t0 = time.perf_counter()
+    numbers = {}
+    log("  (a), (b) the crossover sweep's quick grid, the whole-model rows "
+        "and auto's pick")
+    numbers["crossover"] = run_crossover(ek, cfg, strainer, card)
+    torch.cuda.empty_cache()
+    log("  (c) sampled training past the card's memory, cut to "
+        f"{BEYOND_CUT['users']} x {BEYOND_CUT['items']}, and beside its "
+        "graph build (d) the paper-matrix runner on a fixture")
+    root = fixture_archive(save_dir)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        repro = pool.submit(reproduce_fixture, root, save_dir)
+        launches, numbers["beyond_hbm"] = run_beyond_hbm(ek, card)
+        row, t_run = repro.result()
+    torch.cuda.empty_cache()
+    log("  (d) the paper-matrix runner's row, its pre-flight, the parse at "
+        "scale")
+    numbers.update(check_reproduce(root, row, t_run, card))
+    numbers["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 19 took {numbers['phase_s']:.1f} s on the host clock "
+        f"[{card}]")
+    return launches, numbers
+
+
 def kernel_row(name, source, replaces, launches, worst, shapes):
     """One entry of the ``kernels`` line: the times are means over the
     directions measured (``shapes`` holds each)."""
@@ -7494,7 +7716,7 @@ def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--phases", default=None,
-        help="comma-separated phases out of 4, 8 and 11 to 18 (those "
+        help="comma-separated phases out of 4, 8 and 11 to 19 (those "
              "that build their own data) to run alone after phases 1 and 2, "
              "in a process that ran no other phase (13b: phase 13's ML-1M "
              "part alone, which phase 13 runs so; 15b: phase 15's query "
@@ -7507,9 +7729,9 @@ def parse_args(argv):
     phases = {p.strip() for p in args.phases.split(",")}
     if not phases or not phases <= {"4", "8", "11", "12", "13", "13b", "14",
                                     "15", "15b", "16", "17", "17b", "18",
-                                    "18b"}:
+                                    "18b", "19"}:
         ap.error("--phases takes 4, 8, 11, 12, 13, 13b, 14, 15, 15b, 16, "
-                 "17, 17b, 18 or 18b, comma-separated")
+                 "17, 17b, 18, 18b or 19, comma-separated")
     return phases
 
 
@@ -7548,7 +7770,7 @@ def run_phases_alone(bd, ek, card, phases):
             numbers["inductive_ml1m"], _ = run_inductive_slice(
                 bd, ek, card, save_dir)
             torch.cuda.empty_cache()
-        if phases & {"4", "8", "13", "14", "15", "16", "17", "18"}:
+        if phases & {"4", "8", "13", "14", "15", "16", "17", "18", "19"}:
             from stargcn_tpu_torch.train import Trainer, TrainSettings
 
             log("== 4. set-up (for phases 4, 8 and 13 to 18): ML-10M graph, "
@@ -7611,11 +7833,22 @@ def run_phases_alone(bd, ek, card, phases):
             launches, numbers["sampled_mesh"] = run_phase18(
                 ek, strainer, cfg, it, model_cfg, save_dir, card)
             numbers["sampled_mesh"]["launches_by_path"] = launches
+        if "19" in phases:
+            log("== 19. slice: the crossover sweep and auto's table, sampled "
+                "training past the card's memory, the paper-matrix runner")
+            strainer, t_make = host_s(lambda: sampled_ml10m(
+                cfg, it, model_cfg, save_dir))
+            log(f"  phase 8's SampledTrainer: {t_make:.2f} s, caps "
+                f"{strainer.caps} [{card}]")
+            launches, numbers["scripts"] = run_phase19(ek, cfg, strainer,
+                                                       save_dir, card)
+            numbers["scripts"]["launches_by_path"] = launches
     if numbers:
         log(json.dumps(numbers))
 
 
 def main(argv=None):
+    global ML10M, ML1M
     phases = parse_args(sys.argv[1:] if argv is None else argv)
     if not os.path.isdir(os.path.join(ROOT, "stargcn_tpu_torch")):
         fail("stargcn_tpu_torch/ is not beside chip_smoke.py: run it from "
@@ -7629,6 +7862,11 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from stargcn_tpu_torch.probes.ell_crossover_sweep import GRAPHS
+    from stargcn_tpu_torch.utils.device import card_line
+
+    ML10M = ML10M or dict(GRAPHS["ml-10m"])
+    ML1M = ML1M or dict(GRAPHS["ml-1m"])
     log("== 1. environment")
     card = card_line()
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -7787,6 +8025,12 @@ def main(argv=None):
             "(1x1 over NCCL; 1x2 and 2x1 over gloo on one card)")
         phase18_launches, phase18_numbers = run_phase18(
             ek, strainer, cfg, it, model_cfg, save_dir, card)
+        torch.cuda.empty_cache()
+
+        log("== 19. slice: the crossover sweep and auto's table, sampled "
+            "training past the card's memory, the paper-matrix runner")
+        phase19_launches, phase19_numbers = run_phase19(ek, cfg, strainer,
+                                                        save_dir, card)
         del strainer
         torch.cuda.empty_cache()
 
@@ -7909,15 +8153,18 @@ def main(argv=None):
     # profiled fit and the StepTimer's steps; phase 17's: the 1x1 mesh's
     # step, evaluation and export, each rank's step on 1x2 and 2x1, and the
     # --mesh 1x1 train CLI; phase 18's: the same of the sampled mesh (the
-    # ELL pair), its evaluation and the sampled --mesh 1x1 train CLI.
+    # ELL pair), its evaluation and the sampled --mesh 1x1 train CLI;
+    # phase 19's: one steady step of each beyond-HBM route.
     for row in rows:
         for path, counts in {**phase16_launches, **phase17_launches,
-                             **phase18_launches}.items():
+                             **phase18_launches,
+                             **phase19_launches}.items():
             if counts.get(row["name"]):
                 row.setdefault("launches_by_path", {})[path] = counts[
                     row["name"]]
     for row, kind in ((rows[0], "expand"), (rows[1], "reduce")):
         row["walk_by_f"] = {str(F): walks[F][kind] for F in walks}
+    log(json.dumps({"scripts": phase19_numbers}))
     log(json.dumps({"sampled_mesh": phase18_numbers}))
     log(json.dumps({"mesh": phase17_numbers}))
     log(json.dumps({"phase16": phase16_numbers}))

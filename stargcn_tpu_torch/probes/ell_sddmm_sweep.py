@@ -34,6 +34,7 @@ import torch
 
 from stargcn_tpu_torch.ops import _build
 from stargcn_tpu_torch.ops import ell_kernels as ek
+from stargcn_tpu_torch.utils.device import card_line
 
 SEED = 123
 ML10M = dict(num_users=69_878, num_items=10_677, num_edges=10_000_000)
@@ -293,8 +294,5 @@ def run(log=print, rounds=3):
 
 
 if __name__ == "__main__":
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True).stdout
-    print(card.strip(), flush=True)
+    print(card_line(), flush=True)
     run(log=lambda s: print(s, flush=True))

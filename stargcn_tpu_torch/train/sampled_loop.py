@@ -88,27 +88,66 @@ def _round_up(n, m):
     return max(m, -(-n // m) * m)
 
 
-def resolve_sampled_backend(backend: str, caps: dict, fanout: int, *,
-                            for_training: bool = True,
-                            device="cuda") -> str:
-    """'auto' -> a backend for the plan shapes AND the step kind; 'pallas'
-    and 'xla' pass through.
+# Where the ``pallas`` backend beat ``xla`` on the card, by more than the
+# spread of the run's own timing windows, in every run that measured the
+# cell: for each column (the whole training step; the whole sampled
+# forward, as evaluation runs it) ``(smallest, largest)`` largest frontier
+# cap and ``(smallest, largest)`` fanout.  Measured on NVIDIA H100 80GB
+# HBM3, 700.00 W by ``python -m stargcn_tpu_torch.probes.ell_crossover_sweep``
+# and its model rows (logs ``sweep20.txt``, ``sweep20b.txt``,
+# ``rows20c.txt``, ``sweep20q.txt``, ``rows20d_1.txt`` to ``_3.txt``,
+# ``p20a.txt``, ``final20.txt``; ``PERF.md`` section 6).  Neither the cap
+# nor the fanout decides alone:
+#
+# * the ML-10M-sized cells (R = 10; batches 256 to 4096 move the largest
+#   cap by 15% at most, so there the fanout decides): fanouts 16 and 32
+#   (caps 96,256-111,616) won both columns in every run, forward
+#   1.26-1.85x, step 1.17-2.12x; fanout 8 (caps 70,656-87,040) tied, the
+#   forward within 2%, the step within 13%;
+# * the cells at caps of 9,984 and below (R = 5; steps of 18-35 ms that
+#   are launch-bound, their windows spreading by up to 7.6 ms): the
+#   ML-1M-sized cell (caps 9,984 / 6,144) at fanout 8 won the forward in
+#   seven runs of seven (1.17-1.49x) and the step in three of seven; every
+#   other cell there (ML-1M at fanouts 16 and 32, ML-100k's caps 3,072 /
+#   1,792 at fanouts 8 to 32) won neither column in every run.
+#
+# Caps and fanouts outside these windows were not measured to favour the
+# kernels and take ``xla``, the JAX package's default.
+PALLAS_WINDOWS = {
+    "training": (((96_256, 111_616), (16, 32)),),
+    "forward": (((9_984, 9_984), (8, 8)), ((96_256, 111_616), (16, 32))),
+}
 
-    The decision table is the JAX package's: training (forward + backward)
-    resolves to 'xla' at every shape; forward only (evaluation, serving over
-    sampled frontiers) picks the ELL kernels ('pallas') when the tensors lie
-    on the card, the largest frontier cap is at most 32768 and the fanout is
-    16 to 32, else 'xla'.  That window was measured for the reference's
-    kernels on its accelerator.  Where the CUDA kernels win on this card is
-    what ``chip_smoke.py`` measures (both backends' step and kernel times);
-    the table has not been re-derived from it yet.
+
+def resolve_sampled_backend(backend: str, caps: dict, fanout: int, *,
+                            for_training: bool = True, device="cuda",
+                            plan_device: bool = False) -> str:
+    """'auto' -> a backend for the plan shapes, the step kind and the
+    device; 'pallas' and 'xla' pass through.
+
+    The table is this card's (``PALLAS_WINDOWS``): ``'pallas'`` where the
+    tensors lie on the card and the largest frontier cap and the fanout
+    fall in a window of the column (training, or forward only) where the
+    whole step or the whole forward on ``'pallas'`` beat ``'xla'`` in every
+    run (NVIDIA H100 80GB HBM3, 700.00 W; ``python -m
+    stargcn_tpu_torch.probes.ell_crossover_sweep``, logs ``sweep20b.txt``,
+    ``rows20c.txt``, ``rows20d_*.txt`` and the others named above
+    ``PALLAS_WINDOWS``); else ``'xla'``.  ``auto`` on the CPU is ``'xla'``, and so is training with
+    ``plan_device`` (``SampledTrainer`` refuses ``'pallas'`` there).  The
+    JAX package's table (forward only inside caps of 32,768 and fanouts 16
+    to 32, training ``xla`` at every shape) was measured on its TPU and
+    does not hold here: at ML-10M's caps the kernels win from fanout 16 up
+    in both columns and tie at fanout 8.
     """
     if backend != "auto":
         return backend
-    if for_training or torch.device(device).type != "cuda":
+    if torch.device(device).type != "cuda" or (for_training and plan_device):
         return "xla"
     d_max = max(caps.values()) if caps else 1 << 30
-    return "pallas" if (d_max <= 32768 and 16 <= fanout <= 32) else "xla"
+    windows = PALLAS_WINDOWS["training" if for_training else "forward"]
+    return "pallas" if any(
+        lo <= d_max <= hi and k_lo <= fanout <= k_hi
+        for (lo, hi), (k_lo, k_hi) in windows) else "xla"
 
 
 class SampledTrainer(MeshTrainerBase):
@@ -241,7 +280,8 @@ class SampledTrainer(MeshTrainerBase):
                 "auto", self.caps, fanout, for_training=False,
                 device=self.device)
             self.backend = resolve_sampled_backend(
-                "auto", self.caps, fanout, device=self.device)
+                "auto", self.caps, fanout, device=self.device,
+                plan_device=plan_device)
             logging.info("sampled backend resolved to %r (train) / %r "
                          "(eval) (caps %s, fanout %d)", self.backend,
                          self.eval_backend, self.caps, fanout)

@@ -66,3 +66,24 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                            capture_output=True, text=True, timeout=120)
         assert p.returncode != 0, (cwd, p.stdout)
         assert '"ok"' not in p.stdout and '"kernels"' not in p.stdout
+
+
+SCRIPT_TWINS = ("stargcn_tpu_torch.probes.ell_crossover_sweep",
+           "stargcn_tpu_torch.train.beyond_hbm",
+           "stargcn_tpu_torch.train.reproduce",
+           "stargcn_tpu_torch.data.parse_at_scale")
+
+
+def test_script_twins_import_alone():
+    """The twins of the JAX package's scripts, each imported first in a
+    fresh interpreter, pull in nothing of JAX nor of the JAX package."""
+    probe = ("import importlib, sys\n"
+             f"for name in {SCRIPT_TWINS!r}:\n"
+             "    importlib.import_module(name)\n"
+             "print(','.join(sorted(n for n in sys.modules\n"
+             f"      if n.split('.')[0] in {set(FORBIDDEN)!r})))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "", f"forbidden modules imported: {out}"

@@ -240,24 +240,40 @@ def test_fit_nan_recovery(tmp_path):
 
 
 def test_resolve_sampled_backend_table():
-    small = {"user": 8192, "item": 4096}
-    big = {"user": 87040, "item": 17408}
-    assert resolve_sampled_backend("pallas", big, 8) == "pallas"
-    assert resolve_sampled_backend("xla", small, 32) == "xla"
-    # training: xla at every shape, on any device
-    for caps, fanout in ((small, 32), (small, 8), (big, 32), (big, 8)):
-        for device in ("cpu", "cuda"):
+    """The card's table (``PALLAS_WINDOWS``, measured by the crossover
+    sweep on an H100), one window set a column; ``xla`` on the CPU and for
+    training with ``plan_device``."""
+    ml1m = {"user": 9984, "item": 6144}
+    ml10m = {"user": 87040, "item": 17408}
+    ml10m_k16 = {"user": 107264, "item": 17408}
+    assert resolve_sampled_backend("pallas", ml10m, 8) == "pallas"
+    assert resolve_sampled_backend("xla", ml1m, 8) == "xla"
+    for training in (True, False):
+        col = dict(for_training=training)
+        # where the kernels won every run in both columns
+        assert resolve_sampled_backend("auto", ml10m_k16, 16, **col,
+                                       device="cuda:0") == "pallas"
+        assert resolve_sampled_backend("auto", ml10m_k16, 32,
+                                       **col) == "pallas"
+        # ties and losses, and what was not measured, stay xla
+        for caps, fanout in ((ml10m, 8), (ml1m, 16), (ml1m, 32),
+                             (ml10m_k16, 64), ({"user": 32768,
+                                                "item": 8192}, 16),
+                             ({"user": 395776, "item": 74240}, 16)):
             assert resolve_sampled_backend("auto", caps, fanout,
-                                           device=device) == "xla"
-    # forward only: the kernels inside the reference's window, on the card
-    fwd = dict(for_training=False)
-    assert resolve_sampled_backend("auto", small, 32, **fwd) == "pallas"
-    assert resolve_sampled_backend("auto", small, 16, **fwd,
-                                   device="cuda:0") == "pallas"
-    assert resolve_sampled_backend("auto", small, 8, **fwd) == "xla"
-    assert resolve_sampled_backend("auto", big, 32, **fwd) == "xla"
-    assert resolve_sampled_backend("auto", small, 32, **fwd,
-                                   device="cpu") == "xla"
+                                           **col) == "xla"
+        # the CPU is xla everywhere
+        assert resolve_sampled_backend("auto", ml10m_k16, 16, **col,
+                                       device="cpu") == "xla"
+    # ML-1M at fanout 8: the forward won every run, the step not
+    assert resolve_sampled_backend("auto", ml1m, 8,
+                                   for_training=False) == "pallas"
+    assert resolve_sampled_backend("auto", ml1m, 8) == "xla"
+    # plan_device trains on xla; its forward-only evaluation keeps the table
+    assert resolve_sampled_backend("auto", ml10m_k16, 16,
+                                   plan_device=True) == "xla"
+    assert resolve_sampled_backend("auto", ml10m_k16, 16, for_training=False,
+                                   plan_device=True) == "pallas"
     # the trainer resolves both kinds
     _, tg = sampled_graphs()
     t = SampledTrainer(sampled_cfgs()[1], sampled_iterator(DataIterator, tg),
