@@ -262,8 +262,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``bit_expand`` / ``bit_reduce`` (their namespaces name them) a step,
    4 more expands an evaluation batch, as many as the wrappers counted;
    the top device operations by name, ``fit`` and 5 steps with and without
-   the profiler; (b) 10 steps timed by ``StepTimer``, each ending in a
-   synchronise: ``stargcn_step_flops`` at each step's active edges, the
+   the profiler; (b) 10 steps timed by ``perf_counter`` around their
+   synchronises: ``stargcn_step_flops`` at each step's active edges, the
    useful TFLOP/s and ``mfu`` against the H100's dense bf16 peak, inside
    (0, 1); (c) ``refestimate.measure_host_ms`` at the ``ml-100k``,
    ``ml-1m`` (3 iterations) and ``ml-10m`` (1) shapes on this host's CPU
@@ -364,7 +364,7 @@ fit(20)`` to the bit pair, ``sampled fit(10) prefetch=False`` and
 the ``USE_FEA_PROJ`` step at F = 81 to the bit pair, the ``USE_FEA_PROJ``
 sampled step and the ``remat`` step to the ELL pair, and the bit pair's
 F = 65 / 81 times as ``walk_by_f``; phase 16 the profiled ``fit(10)``
-and the ``StepTimer``'s 10 steps to the bit pair; phase 17 the mesh
+and the 10 timed steps to the bit pair; phase 17 the mesh
 paths, ``mesh 1x1 ...``, ``mesh 1x2 rank r ...``, ``mesh 2x1 rank r ...``
 and ``mesh 1x1 train CLI``, to the bit pair; phase 18 ``mesh 1x1
 sampled ...``, ``mesh 1x2 rank r sampled ...``, ``mesh 2x1 rank r sampled
@@ -6063,7 +6063,7 @@ def profiled_fit(bd, trainer, cfg, save_dir, card):
 
 
 def flop_rate(bd, trainer, card):
-    """Phase 16 (b): 10 steps timed by ``StepTimer`` (each ending in a
+    """Phase 16 (b): 10 steps timed by ``perf_counter`` (each ending in a
     synchronise), ``stargcn_step_flops`` at each step's active edges (the
     train graph less the batch's removed edges) and batch, the useful
     TFLOP/s and ``mfu`` against the H100 peak."""
@@ -6071,7 +6071,6 @@ def flop_rate(bd, trainer, card):
 
     from stargcn_tpu_torch.utils.flops import (H100_SXM_BF16_PEAK_FLOPS,
                                                mfu, stargcn_step_flops)
-    from stargcn_tpu_torch.utils.profiling import StepTimer
 
     it = trainer.data_iter
     n_train = it.train_graph[it.name_user, it.name_item].nnz
@@ -6081,25 +6080,23 @@ def flop_rate(bd, trainer, card):
     batches = [next_batches(trainer, rs, recon) for _ in range(11)]
     trainer.train_iteration(*batches[0])
     torch.cuda.synchronize()
-    timer = StepTimer(window=10)
     flops, active = [], []
     zero_launches(bd)
-    timer.start()
+    t0 = time.perf_counter()
     for rb, cb in batches[1:]:
         prepped = trainer._prep_host_arrays(rb, cb)
         trainer._step(*trainer._to_device(prepped))
         torch.cuda.synchronize()
-        timer.tick()
         e_active = n_train - int(prepped[1][2].sum())
         active.append(e_active)
         flops.append(stargcn_step_flops(trainer.model_cfg, e_active,
                                         rb[1].size))
+    step_s = (time.perf_counter() - t0) / (len(batches) - 1)
     launches = dict(bd.LAUNCHES)
-    step_s = timer.mean_step_s
     step_flops = sum(f["step"] for f in flops) / len(flops)
     rate = step_flops / step_s
     util = mfu(step_flops, step_s)
-    log(f"  10 steps by StepTimer: {step_s * 1e3:.2f} ms a step; "
+    log(f"  10 timed steps: {step_s * 1e3:.2f} ms a step; "
         f"e_active {min(active):,}-{max(active):,} of {n_train:,} train "
         f"edges, batch {batches[1][0][1].size:,}; useful work "
         f"{step_flops / 1e9:.2f} GFLOP a step (forward "
@@ -6110,7 +6107,7 @@ def flop_rate(bd, trainer, card):
         f"{launches['bit_reduce_matmul']} [{card}]")
     check(0 < util < 1, f"mfu {util} outside (0, 1)")
     check(launches["bit_expand_matmul"] == launches["bit_reduce_matmul"]
-          == 40, f"StepTimer steps launched {launches}")
+          == 40, f"the timed steps launched {launches}")
     return launches, dict(step_ms=step_s * 1e3, gflop_per_step=step_flops
                           / 1e9, tflops=rate / 1e12, mfu=util,
                           e_active=active, edge_msgs=flops[-1]["edge_msgs"])
@@ -6254,7 +6251,7 @@ def run_phase16(bd, trainer, cfg, save_dir, card):
         launches["profiled fit(10)"], numbers["profiled_fit"] = \
             profiled_fit(bd, trainer, cfg, save_dir, card)
         log("  (b) the FLOP count")
-        launches["StepTimer steps(10)"], numbers["flops"] = flop_rate(
+        launches["timed steps(10)"], numbers["flops"] = flop_rate(
             bd, trainer, card)
     finally:
         trainer.save_dir = own_dir
@@ -8150,7 +8147,7 @@ def main(argv=None):
                 row.setdefault("launches_by_path", {})[path] = counts[
                     row["name"]]
     # Phase 16's paths, each with the counts set to 0 just before it: the
-    # profiled fit and the StepTimer's steps; phase 17's: the 1x1 mesh's
+    # profiled fit and the timed steps; phase 17's: the 1x1 mesh's
     # step, evaluation and export, each rank's step on 1x2 and 2x1, and the
     # --mesh 1x1 train CLI; phase 18's: the same of the sampled mesh (the
     # ELL pair), its evaluation and the sampled --mesh 1x1 train CLI;

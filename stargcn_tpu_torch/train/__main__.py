@@ -58,7 +58,9 @@ command starts itself again with them set (``prefetch_env``); a caller of
 
 ``--profile DIR`` first runs ``fit(max_iter=TRAIN.VALID_INTERVAL)`` under
 ``utils.profiling.trace(DIR)``, which writes a Chrome-trace JSON there (the
-card's kernels too on ``cuda``), then the normal ``fit``.
+card's kernels too on ``cuda``, and the program's own ``stargcn.*`` spans:
+host prep, prefetch wait, copies, forward and backward, optimiser, stats
+fetch, evaluation), then the normal ``fit``.
 
 Writes ``cfg{id}.yml``, ``log{id}.log``, ``train_loss{id}.csv``,
 ``valid_loss{id}.csv``, ``test_loss{id}.csv`` and the checkpoints
@@ -155,7 +157,8 @@ def main(argv=None):
                              "thread one ahead of the step")
     parser.add_argument("--profile", default=None, type=str,
                         help="write a torch.profiler trace of the first "
-                             "valid interval into this directory")
+                             "valid interval, with the program's stargcn.* "
+                             "spans, into this directory")
     parser.add_argument("--device", default="cuda", type=str,
                         help="cuda (default) or cpu")
     parser.add_argument("--mesh", default=None, type=str,

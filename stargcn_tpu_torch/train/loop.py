@@ -92,6 +92,7 @@ from stargcn_tpu_torch.parallel.shardings import GraphShardings
 from stargcn_tpu_torch.train.prefetch import Prefetcher
 from stargcn_tpu_torch.train.resilience import (ElasticPolicy, ElasticStep,
                                                 HeartbeatMonitor)
+from stargcn_tpu_torch.utils import profiling
 from stargcn_tpu_torch.utils.device import resolve_device
 from stargcn_tpu_torch.utils.logging import MetricLogger
 from stargcn_tpu_torch.utils.model_info import model_info
@@ -193,14 +194,16 @@ class GraphVariants:
         # The pack layout follows the kernels the model resolves to: the
         # 16-bit route reads row-interleaved packs.
         ril = pack_row_interleave(resolve_impl(cfg.bit_impl))
-        if self.shardings is None:
-            return build_bit_pack(eu, ei, er, mask, cfg.num_users,
-                                  cfg.num_items, cfg.num_links, self.device,
-                                  row_interleave=ril)
-        # Built whole on the host; only this rank's rows reach the device.
-        return self.shardings.place_bit_pack(build_bit_pack(
-            eu, ei, er, mask, cfg.num_users, cfg.num_items, cfg.num_links,
-            "cpu", row_interleave=ril), self.device)
+        with profiling.annotate("stargcn.setup.bit_pack"):
+            if self.shardings is None:
+                return build_bit_pack(eu, ei, er, mask, cfg.num_users,
+                                      cfg.num_items, cfg.num_links,
+                                      self.device, row_interleave=ril)
+            # Built whole on the host; only this rank's rows reach the
+            # device.
+            return self.shardings.place_bit_pack(build_bit_pack(
+                eu, ei, er, mask, cfg.num_users, cfg.num_items,
+                cfg.num_links, "cpu", row_interleave=ril), self.device)
 
     def _build_ell_pack(self, mask):
         cfg = self.model_cfg
@@ -412,43 +415,44 @@ class ClipAdam:
         """Apply one update from ``grads`` (name -> tensor), or, where the
         device bool ``keep`` is false, none; returns the global gradient
         norm before clipping, as a device scalar."""
-        gnorm = torch.sqrt(self.global_sq_norm(grads))
-        under = gnorm < self.grad_clip
-        if keep is None:
-            self._count = self.count + 1
-            c1 = 1.0 - self.B1 ** self._count
-            c2 = 1.0 - self.B2 ** self._count
-        else:
-            if self._count_dev is None:
-                self._count_dev = torch.full((), float(self._count),
-                                             dtype=torch.float64,
-                                             device=gnorm.device)
-            self._count_dev += keep
-            c1 = 1.0 - self.B1 ** self._count_dev
-            c2 = 1.0 - self.B2 ** self._count_dev
-        for k, p in self.params.items():
-            g = grads[k]
-            g = torch.where(under, g, g / gnorm * self.grad_clip)
+        with profiling.annotate("stargcn.step.optimizer"):
+            gnorm = torch.sqrt(self.global_sq_norm(grads))
+            under = gnorm < self.grad_clip
             if keep is None:
-                mu = self.mu[k].mul_(self.B1).add_(g, alpha=1.0 - self.B1)
-                nu = self.nu[k].mul_(self.B2).addcmul_(
-                    g, g, value=1.0 - self.B2)
+                self._count = self.count + 1
+                c1 = 1.0 - self.B1 ** self._count
+                c2 = 1.0 - self.B2 ** self._count
             else:
-                mu = torch.mul(self.mu[k], self.B1).add_(
-                    g, alpha=1.0 - self.B1)
-                nu = torch.mul(self.nu[k], self.B2).addcmul_(
-                    g, g, value=1.0 - self.B2)
-            update = (mu / c1) / (torch.sqrt(nu / c2) + self.EPS)
-            if self.wd:
-                update = update + self.wd * p
-            if keep is None:
-                p.add_(update, alpha=-self.lr)
-            else:
-                new_p = torch.add(p, update, alpha=-self.lr)
-                for old, new in ((self.mu[k], mu), (self.nu[k], nu),
-                                 (p, new_p)):
-                    old.copy_(torch.where(keep, new, old))
-        return gnorm
+                if self._count_dev is None:
+                    self._count_dev = torch.full((), float(self._count),
+                                                 dtype=torch.float64,
+                                                 device=gnorm.device)
+                self._count_dev += keep
+                c1 = 1.0 - self.B1 ** self._count_dev
+                c2 = 1.0 - self.B2 ** self._count_dev
+            for k, p in self.params.items():
+                g = grads[k]
+                g = torch.where(under, g, g / gnorm * self.grad_clip)
+                if keep is None:
+                    mu = self.mu[k].mul_(self.B1).add_(g, alpha=1.0 - self.B1)
+                    nu = self.nu[k].mul_(self.B2).addcmul_(
+                        g, g, value=1.0 - self.B2)
+                else:
+                    mu = torch.mul(self.mu[k], self.B1).add_(
+                        g, alpha=1.0 - self.B1)
+                    nu = torch.mul(self.nu[k], self.B2).addcmul_(
+                        g, g, value=1.0 - self.B2)
+                update = (mu / c1) / (torch.sqrt(nu / c2) + self.EPS)
+                if self.wd:
+                    update = update + self.wd * p
+                if keep is None:
+                    p.add_(update, alpha=-self.lr)
+                else:
+                    new_p = torch.add(p, update, alpha=-self.lr)
+                    for old, new in ((self.mu[k], mu), (self.nu[k], nu),
+                                     (p, new_p)):
+                        old.copy_(torch.where(keep, new, old))
+            return gnorm
 
     def global_sq_norm(self, grads):
         """The squared global norm of ``grads``: the replicated parameters'
@@ -701,22 +705,25 @@ class Trainer(MeshTrainerBase):
         self.train_batch_padded = -(-self.train_batch // dp) * dp
 
         # Host-side pair->edge lookup tables.
-        keys = (all_csr.row_indices.astype(np.int64) * all_csr.shape[1]
-                + all_csr.end_points)
-        ratings = np.searchsorted(
-            all_csr.multi_link, all_csr.values).astype(np.int32)
-        order = np.argsort(keys, kind="stable")
-        self._lookup_keys_np = keys[order]
-        self._lookup_rating_np = ratings[order]
-        # Dense direct-index map when the pair space is small enough
-        # (746 MB at ML-10M): one fancy-indexed gather per step instead of
-        # a binary search per pair.  Value = rating index + 1, 0 = no edge.
-        self._lookup_dense_np = None
-        pair_space = int(all_csr.shape[0]) * int(all_csr.shape[1])
-        if 0 < pair_space <= 1_000_000_000 and len(all_csr.multi_link) < 127:
-            dense = np.zeros(pair_space, np.int8)
-            dense[keys] = (ratings + 1).astype(np.int8)
-            self._lookup_dense_np = dense
+        with profiling.annotate("stargcn.setup.pair_lookup"):
+            keys = (all_csr.row_indices.astype(np.int64) * all_csr.shape[1]
+                    + all_csr.end_points)
+            ratings = np.searchsorted(
+                all_csr.multi_link, all_csr.values).astype(np.int32)
+            order = np.argsort(keys, kind="stable")
+            self._lookup_keys_np = keys[order]
+            self._lookup_rating_np = ratings[order]
+            # Dense direct-index map when the pair space is small enough
+            # (746 MB at ML-10M): one fancy-indexed gather per step instead
+            # of a binary search per pair.  Value = rating index + 1, 0 = no
+            # edge.
+            self._lookup_dense_np = None
+            pair_space = int(all_csr.shape[0]) * int(all_csr.shape[1])
+            if (0 < pair_space <= 1_000_000_000
+                    and len(all_csr.multi_link) < 127):
+                dense = np.zeros(pair_space, np.int8)
+                dense[keys] = (ratings + 1).astype(np.int8)
+                self._lookup_dense_np = dense
 
         self.model = STARGCN(
             model_cfg,
@@ -804,7 +811,9 @@ class Trainer(MeshTrainerBase):
         return ints, flts, noise, rmask
 
     def _to_device(self, arrays):
-        return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+        with profiling.annotate("stargcn.step.to_device"):
+            return tuple(torch.from_numpy(a).to(self.device)
+                         for a in arrays)
 
     def _step(self, ints, flts, noise, rmask):
         """One optimisation step on step inputs on the device."""
@@ -816,8 +825,10 @@ class Trainer(MeshTrainerBase):
         """One optimisation step.  Returns a dict of device-side stats
         (``loss``, ``gnorm`` scalars; ``rating_loss``, ``recon_loss``,
         ``sq_err`` per block)."""
-        return self._step(*self._to_device(
-            self._prep_host_arrays(rating_batch, recon_batch)))
+        # fit's serial path: the batch's draws are a span of this name too.
+        with profiling.annotate("stargcn.fit.host_prep"):
+            arrays = self._prep_host_arrays(rating_batch, recon_batch)
+        return self._step(*self._to_device(arrays))
 
     def train_chunk(self, rating_batches, recon_batches):
         """k optimisation steps in one call: a loop of ``train_iteration``
@@ -907,80 +918,85 @@ class Trainer(MeshTrainerBase):
     def _loss_and_grads(self, ints, flts, noise, rmask):
         """``loss_and_grads`` on the step inputs of ``_prep_host_arrays``
         as device tensors, host-fed or drawn on the device."""
-        ints = ints.long()
-        cfg, s = self.model_cfg, self.s
-        mean, std = self.rating_mean, self.rating_std
-        pairs_u, pairs_i, rem_rating = ints[0], ints[1], ints[2]
-        gt_ratings, pairs_valid, rem_hit = flts[0], flts[1], flts[2]
-        noise_u, noise_i = noise[:cfg.num_users], noise[cfg.num_users:]
-        recon_masks = {"user": rmask[:cfg.num_users],
-                       "item": rmask[cfg.num_users:]}
-        removed_pairs = ((pairs_u, pairs_i, rem_hit, rem_rating)
-                         if self.do_remove else None)
-        operands = self._operands("train")
-        if removed_pairs is not None and isinstance(operands, EdgeSet):
-            # xla: the batch's edges leave the step's edge mask (on a mesh,
-            # each rank's slice of it).
-            offset = 0 if operands.shard is None else operands.shard.offset
-            operands = dataclasses.replace(
-                operands, mask=operands.graph.edge_mask_from_pairs(
-                    pairs_u, pairs_i, rem_hit, operands.mask, offset))
-        data = None
-        if self.mesh is not None:
-            # The whole batch left the graph above; this rank's slice of
-            # it enters the rating loss.
-            data = self.mesh.group("data")
-            pairs_u, pairs_i, gt_ratings, pairs_valid = (
-                p.local for p in self.shardings.place_batch(
-                    pairs_u, pairs_i, gt_ratings, pairs_valid))
-        n_valid = pairs_valid.sum()
-        if data is not None:
-            n_valid = all_reduce(n_valid, data)
-        n_valid = n_valid.clamp_min(1.0)
-
-        out = self._forward(
-            noise_u, noise_i, pairs_u, pairs_i,
-            self.variants.degrees("train"), operands, removed_pairs,
-            train=True, generator=self._dropout_gen,
-            **({} if data is None else {"batch_group": data}))
-        target = (gt_ratings - mean) / std
-        # 0.5 * mean squared error per block; padded batch slots carry
-        # zero weight.
-        sq = (out["pred_ratings"] - target[None, :]) ** 2
-        rating_loss = 0.5 * (sq * pairs_valid[None, :]).sum(dim=1) / n_valid
-        loss = rating_loss.sum()
-        recon_loss = torch.zeros(cfg.nblocks, device=self.device)
-        if s.use_dae:
-            rls = []
-            for blk in out["pred_embed"]:
-                block_loss = 0.0
-                for key, m in recon_masks.items():
-                    sq = ((blk[key] - out["gt_embed"][key]) ** 2).sum(dim=-1)
-                    block_loss = block_loss + (sq * m).sum() \
-                        / m.sum().clamp_min(1.0)
-                rls.append(block_loss)
-            recon_loss = torch.stack(rls)
-            loss = loss + s.recon_lambda * recon_loss.sum()
-
-        names, params = zip(*self.model.named_parameters())
-        grads = {k: (torch.zeros_like(p) if g is None else g)
-                 for k, p, g in zip(names, params, torch.autograd.grad(
-                     loss, params, allow_unused=True))}
-        if self.mesh is not None:
-            grads = self._replica_grads(grads)
-        with torch.no_grad():
-            denorm = out["pred_ratings"] * std + mean
-            sq_err = ((denorm - gt_ratings[None, :]) ** 2
-                      * pairs_valid[None, :]).sum(dim=1)
-            rating_loss = rating_loss.detach()
+        with profiling.annotate("stargcn.step.loss_and_grads"):
+            ints = ints.long()
+            cfg, s = self.model_cfg, self.s
+            mean, std = self.rating_mean, self.rating_std
+            pairs_u, pairs_i, rem_rating = ints[0], ints[1], ints[2]
+            gt_ratings, pairs_valid, rem_hit = flts[0], flts[1], flts[2]
+            noise_u, noise_i = noise[:cfg.num_users], noise[cfg.num_users:]
+            recon_masks = {"user": rmask[:cfg.num_users],
+                           "item": rmask[cfg.num_users:]}
+            removed_pairs = ((pairs_u, pairs_i, rem_hit, rem_rating)
+                             if self.do_remove else None)
+            operands = self._operands("train")
+            if removed_pairs is not None and isinstance(operands, EdgeSet):
+                # xla: the batch's edges leave the step's edge mask (on a mesh,
+                # each rank's slice of it).
+                offset = 0 if operands.shard is None else operands.shard.offset
+                operands = dataclasses.replace(
+                    operands, mask=operands.graph.edge_mask_from_pairs(
+                        pairs_u, pairs_i, rem_hit, operands.mask, offset))
+            data = None
+            if self.mesh is not None:
+                # The whole batch left the graph above; this rank's slice of
+                # it enters the rating loss.
+                data = self.mesh.group("data")
+                pairs_u, pairs_i, gt_ratings, pairs_valid = (
+                    p.local for p in self.shardings.place_batch(
+                        pairs_u, pairs_i, gt_ratings, pairs_valid))
+            n_valid = pairs_valid.sum()
             if data is not None:
-                nb = cfg.nblocks
-                summed = all_reduce(torch.cat([rating_loss, sq_err]), data)
-                rating_loss, sq_err = summed[:nb], summed[nb:]
-                loss = rating_loss.sum() + s.recon_lambda * recon_loss.sum() \
-                    if s.use_dae else rating_loss.sum()
-        return {"loss": loss.detach(), "rating_loss": rating_loss,
-                "recon_loss": recon_loss.detach(), "sq_err": sq_err}, grads
+                n_valid = all_reduce(n_valid, data)
+            n_valid = n_valid.clamp_min(1.0)
+
+            out = self._forward(
+                noise_u, noise_i, pairs_u, pairs_i,
+                self.variants.degrees("train"), operands, removed_pairs,
+                train=True, generator=self._dropout_gen,
+                **({} if data is None else {"batch_group": data}))
+            target = (gt_ratings - mean) / std
+            # 0.5 * mean squared error per block; padded batch slots carry
+            # zero weight.
+            sq = (out["pred_ratings"] - target[None, :]) ** 2
+            rating_loss = (0.5 * (sq * pairs_valid[None, :]).sum(dim=1)
+                           / n_valid)
+            loss = rating_loss.sum()
+            recon_loss = torch.zeros(cfg.nblocks, device=self.device)
+            if s.use_dae:
+                rls = []
+                for blk in out["pred_embed"]:
+                    block_loss = 0.0
+                    for key, m in recon_masks.items():
+                        sq = ((blk[key] - out["gt_embed"][key]) ** 2).sum(
+                            dim=-1)
+                        block_loss = block_loss + (sq * m).sum() \
+                            / m.sum().clamp_min(1.0)
+                    rls.append(block_loss)
+                recon_loss = torch.stack(rls)
+                loss = loss + s.recon_lambda * recon_loss.sum()
+
+            names, params = zip(*self.model.named_parameters())
+            grads = {k: (torch.zeros_like(p) if g is None else g)
+                     for k, p, g in zip(names, params, torch.autograd.grad(
+                         loss, params, allow_unused=True))}
+            if self.mesh is not None:
+                grads = self._replica_grads(grads)
+            with torch.no_grad():
+                denorm = out["pred_ratings"] * std + mean
+                sq_err = ((denorm - gt_ratings[None, :]) ** 2
+                          * pairs_valid[None, :]).sum(dim=1)
+                rating_loss = rating_loss.detach()
+                if data is not None:
+                    nb = cfg.nblocks
+                    summed = all_reduce(torch.cat([rating_loss, sq_err]),
+                                        data)
+                    rating_loss, sq_err = summed[:nb], summed[nb:]
+                    loss = (rating_loss.sum()
+                            + s.recon_lambda * recon_loss.sum()
+                            if s.use_dae else rating_loss.sum())
+            return {"loss": loss.detach(), "rating_loss": rating_loss,
+                    "recon_loss": recon_loss.detach(), "sq_err": sq_err}, grads
 
     def _eval_forward(self, segment, pu, pi):
         """Eval-mode ``pred_ratings`` ``(nblocks, B)``, denormalised and
@@ -1000,39 +1016,41 @@ class Trainer(MeshTrainerBase):
         denormalised and clipped to the rating range.  On a mesh each
         batch is padded to a multiple of the 'data' axis and split over
         it, and every rank returns the whole segment's RMSE."""
-        it = self.data_iter
-        n_seg = (it.valid_node_pairs if segment == "valid"
-                 else it.test_node_pairs).shape[1]
-        B = min(self.s.rating_batch_size, max(1, n_seg))
-        if self.mesh is not None:
-            B = -(-B // self.mesh.size("data")) * self.mesh.size("data")
-        sq_sum = torch.zeros(self.model_cfg.nblocks, dtype=torch.float64,
-                             device=self.device)
-        cnt = 0
-        for pairs, ratings in it.rating_sampler(batch_size=B,
-                                                segment=segment,
-                                                sequential=True):
-            n = ratings.size
-            pu = torch.from_numpy(pairs[0].astype(np.int64)).to(self.device)
-            pi = torch.from_numpy(pairs[1].astype(np.int64)).to(self.device)
-            gt = torch.from_numpy(ratings.astype(np.float32)).to(self.device)
-            if self.mesh is None:
-                clipped = self._eval_forward(segment, pu, pi)
-                sq_sum += ((clipped - gt[None, :]) ** 2).sum(dim=1)
-            else:
-                slot = self.shardings.place_batch(
-                    torch.arange(B, device=self.device))[0].local
-                valid = (slot < n).float()
-                take = slot.clamp_max(n - 1)
-                clipped = self._eval_forward(segment, pu[take], pi[take])
-                sq_sum += ((clipped - gt[take][None, :]) ** 2
-                           * valid[None, :]).sum(dim=1)
-            cnt += n
-        if self.mesh is not None:
-            # One number on every rank: fit's schedule decides by it.
-            sq_sum = self._from_first(
-                all_reduce_(sq_sum, self.mesh.group("data")), "all")
-        return np.sqrt(sq_sum.cpu().numpy() / max(cnt, 1))
+        with profiling.annotate("stargcn.fit.evaluate"):
+            it = self.data_iter
+            n_seg = (it.valid_node_pairs if segment == "valid"
+                     else it.test_node_pairs).shape[1]
+            B = min(self.s.rating_batch_size, max(1, n_seg))
+            if self.mesh is not None:
+                B = -(-B // self.mesh.size("data")) * self.mesh.size("data")
+            sq_sum = torch.zeros(self.model_cfg.nblocks, dtype=torch.float64,
+                                 device=self.device)
+            cnt = 0
+            for pairs, ratings in it.rating_sampler(batch_size=B,
+                                                    segment=segment,
+                                                    sequential=True):
+                n = ratings.size
+                pu, pi = (torch.from_numpy(p.astype(np.int64)).to(self.device)
+                          for p in pairs[:2])
+                gt = torch.from_numpy(ratings.astype(np.float32)).to(
+                    self.device)
+                if self.mesh is None:
+                    clipped = self._eval_forward(segment, pu, pi)
+                    sq_sum += ((clipped - gt[None, :]) ** 2).sum(dim=1)
+                else:
+                    slot = self.shardings.place_batch(
+                        torch.arange(B, device=self.device))[0].local
+                    valid = (slot < n).float()
+                    take = slot.clamp_max(n - 1)
+                    clipped = self._eval_forward(segment, pu[take], pi[take])
+                    sq_sum += ((clipped - gt[take][None, :]) ** 2
+                               * valid[None, :]).sum(dim=1)
+                cnt += n
+            if self.mesh is not None:
+                # One number on every rank: fit's schedule decides by it.
+                sq_sum = self._from_first(
+                    all_reduce_(sq_sum, self.mesh.group("data")), "all")
+            return np.sqrt(sq_sum.cpu().numpy() / max(cnt, 1))
 
     @torch.no_grad()
     def predict(self, pairs_user, pairs_item, segment: str = "test"):
@@ -1075,7 +1093,14 @@ class Trainer(MeshTrainerBase):
         0 a ``HeartbeatMonitor`` thread dumps every thread's stack to the
         log and to ``crash_{save_id}.log`` when no step ends for that long.
         With a ``save_dir`` the parameter table goes to
-        ``net{save_id}.txt``."""
+        ``net{save_id}.txt``.
+
+        Inside ``utils.profiling.recording()`` (or ``trace``) ``fit``
+        records its spans (``stargcn.fit.*``: host prep, prefetch wait,
+        stats fetch, evaluate; ``stargcn.step.*``: the copies to the
+        device, the forward and backward, the optimiser) and counts its
+        steps (``stargcn.fit.steps``); ``Trainer(...)`` records the pair
+        lookup's build and each bit pack's (``stargcn.setup.*``)."""
         s = self.s
         it = self.data_iter
         max_iter = max_iter or s.max_iter
@@ -1125,9 +1150,10 @@ class Trainer(MeshTrainerBase):
 
         def next_chunk():
             """k batches' host step inputs and pair counts."""
-            chunk = [next_batches() for _ in range(k)]
-            return ([self._prep_host_arrays(rb, cb) for rb, cb in chunk],
-                    sum(rb[1].size for rb, _ in chunk))
+            with profiling.annotate("stargcn.fit.host_prep"):
+                chunk = [next_batches() for _ in range(k)]
+                return ([self._prep_host_arrays(rb, cb) for rb, cb in chunk],
+                        sum(rb[1].size for rb, _ in chunk))
 
         # Off on a mesh, as in the JAX package: the host batches go to
         # every rank alike.
@@ -1190,7 +1216,8 @@ class Trainer(MeshTrainerBase):
                 stats = self.elastic.run(self._train_prepped, prepped)
                 pending_cnt += n_pairs
             else:
-                rb, cb = next_batches()
+                with profiling.annotate("stargcn.fit.host_prep"):
+                    rb, cb = next_batches()
                 stats = _stack_stats([self.elastic.run(self.train_iteration,
                                                        rb, cb)])
                 pending_cnt += rb[1].size
@@ -1199,14 +1226,17 @@ class Trainer(MeshTrainerBase):
             pending.append(torch.cat(
                 [stats[name].reshape(k, -1) for name in _STAT_NAMES], 1))
             iter_idx += k
+            profiling.count("stargcn.fit.steps", k)
 
             logging_str = ""
             if iter_idx % s.log_interval == 0:
-                fetched = torch.cat(pending).double()
-                if self.mesh is not None:
-                    # The schedule's decisions read the mesh's first rank.
-                    fetched = self._from_first(fetched, "all")
-                fetched = fetched.cpu().numpy()
+                with profiling.annotate("stargcn.fit.stats_fetch"):
+                    fetched = torch.cat(pending).double()
+                    if self.mesh is not None:
+                        # The schedule's decisions read the mesh's first
+                        # rank.
+                        fetched = self._from_first(fetched, "all")
+                    fetched = fetched.cpu().numpy()
                 n_steps = fetched.shape[0]
                 last_loss = float(fetched[-1, 0])
                 gnorm_sum = fetched[:, 1].sum()

@@ -17,6 +17,8 @@ from __future__ import annotations
 import queue
 import threading
 
+from stargcn_tpu_torch.utils import profiling
+
 
 class Prefetcher:
     """Calls ``make()`` ``count`` times in a daemon thread and queues up to
@@ -55,7 +57,8 @@ class Prefetcher:
                 return
 
     def get(self):
-        ok, item = self._queue.get()
+        with profiling.annotate("stargcn.fit.prefetch_wait"):
+            ok, item = self._queue.get()
         if not ok:
             raise item
         return item

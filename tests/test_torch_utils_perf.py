@@ -10,7 +10,6 @@ import glob
 import json
 import os
 
-import numpy as np
 import pytest
 import torch
 
@@ -128,22 +127,6 @@ def test_trace_writes_the_annotated_span(tmp_path):
     assert any(n and n.startswith("aten::") for n in names)
 
 
-def test_step_timer_keeps_its_window(monkeypatch):
-    clock = iter(np.arange(0.0, 100.0, 0.5))
-    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
-    timer = profiling.StepTimer(edges_per_step=1000, examples_per_step=10,
-                                window=3)
-    assert timer.stats() == {"step_ms": 0.0, "edges_per_s": 0.0,
-                             "examples_per_s": 0.0}
-    timer.start()
-    for _ in range(5):
-        timer.tick()
-    assert len(timer._times) == 3
-    assert timer.mean_step_s == 0.5
-    assert timer.stats() == {"step_ms": 500.0, "edges_per_s": 2000.0,
-                             "examples_per_s": 20.0}
-
-
 @pytest.mark.parametrize("mode", [[], ["--num_neighbors", "4",
                                        "--backend", "xla"]],
                          ids=["full_graph", "sampled"])
@@ -162,3 +145,6 @@ def test_train_cli_profile_writes_a_trace(tmp_path, mode):
     assert result["best_iter"] == 2
     names = {e.get("name") for e in _trace_events(prof)}
     assert any(n and n.startswith("aten::") for n in names)
+    if not mode:
+        # The program's own spans are in the trace.
+        assert "stargcn.step.optimizer" in names
